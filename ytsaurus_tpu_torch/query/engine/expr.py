@@ -1,0 +1,644 @@
+"""Expression lowering: typed IR → torch, with host-side vocabulary binding.
+
+Port of the JAX package's `query/engine/expr.py` (`ExprBinder`):
+
+  * Device planes are (data, valid) pairs; null logic is three-valued and
+    vectorized.
+  * Work that inspects string bytes (comparisons against literals,
+    cross-vocabulary equality) is evaluated on the host over the chunk
+    vocabulary and shipped to the device as small bound arrays.
+
+Two phases walk the IR in the same order: bind (per chunk, on the host,
+numpy) appends bound values to a list; emit (at run time) builds the torch
+computation, reading the bound values positionally from the bindings tuple,
+which the evaluator has moved to the device.
+
+This slice ports literals, references, unary and binary operators
+(arithmetic, comparison, boolean, string compares on dictionary codes),
+IN, BETWEEN, `if`, `is_null` and the numeric casts. Every other function,
+TRANSFORM and the string predicates (LIKE, regex) raise a YtError that
+names them as not yet ported.
+
+uint64 planes hold int64 bit patterns: comparisons flip the sign bit,
+conversions to double split the word, and unsigned division, modulo and
+right shift raise until they are ported.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ytsaurus_tpu_torch.chunks.columnar import next_pow2
+from ytsaurus_tpu_torch.errors import EErrorCode, YtError
+from ytsaurus_tpu_torch.query import ir
+from ytsaurus_tpu_torch.schema import EValueType, device_dtype
+
+_EMPTY_VOCAB = np.array([], dtype=object)
+_SIGN64 = -(1 << 63)
+_M32 = 0xFFFFFFFF
+
+_NP_DTYPES = {torch.int64: np.int64, torch.float64: np.float64,
+              torch.bool: np.bool_, torch.int32: np.int32,
+              torch.int8: np.int8}
+
+
+def _np_dtype_for(ty: EValueType):
+    return _NP_DTYPES[device_dtype(ty)]
+
+
+def not_ported(what: str) -> YtError:
+    return YtError(f"{what} is not yet ported to ytsaurus_tpu_torch",
+                   code=EErrorCode.QueryUnsupported)
+
+
+# --- bind-phase context -------------------------------------------------------
+
+
+@dataclass
+class ColumnBinding:
+    """Host view of one input column at bind time."""
+    type: EValueType
+    vocab: Optional[np.ndarray]  # for string columns
+
+
+@dataclass
+class BindContext:
+    """Per-chunk bind state: column vocabs in, bound host arrays out."""
+    columns: dict[str, ColumnBinding]
+    bindings: list = field(default_factory=list)
+
+    def add(self, value) -> int:
+        self.bindings.append(np.asarray(value))
+        return len(self.bindings) - 1
+
+
+@dataclass
+class EmitContext:
+    """Run-time state: column planes + the bindings tuple on the device."""
+    columns: dict[str, tuple[torch.Tensor, torch.Tensor]]
+    bindings: tuple
+    capacity: int
+    device: torch.device
+
+
+@dataclass
+class BoundExpr:
+    """Result of binding one IR node for one chunk."""
+    type: EValueType
+    vocab: Optional[np.ndarray]          # result vocabulary if string-typed
+    emit: Callable[[EmitContext], tuple[torch.Tensor, torch.Tensor]]
+
+
+def bindings_to_device(bindings: list, device: torch.device) -> tuple:
+    """Bound host arrays as torch tensors on `device` (uint64 as int64)."""
+    out = []
+    for value in bindings:
+        arr = np.asarray(value)
+        if arr.dtype == np.uint64:
+            arr = arr.view(np.int64)
+        out.append(torch.from_numpy(np.ascontiguousarray(arr)).to(device))
+    return tuple(out)
+
+
+def _vocab_bucket(n: int) -> int:
+    """Pad vocab-indexed bound arrays to power-of-two buckets >= 8."""
+    return next_pow2(n, floor=8)
+
+
+def _pad_np(arr: np.ndarray, size: int, fill) -> np.ndarray:
+    out = np.full(size, fill, dtype=arr.dtype)
+    out[: len(arr)] = arr
+    return out
+
+
+def _vocab_code(vocab: np.ndarray, value: bytes) -> int:
+    """Code of `value` in sorted vocab, or -1 if absent."""
+    idx = np.searchsorted(vocab, value) if len(vocab) else 0
+    if idx < len(vocab) and vocab[idx] == value:
+        return int(idx)
+    return -1
+
+
+def _range_code(vocab: np.ndarray, value: bytes) -> int:
+    """Order-preserving encoding of `value` against a sorted vocab in the
+    doubled space where row code c sits at 2c+1: a present value lands
+    exactly on its row encoding, an absent one on the even insertion
+    point between its neighbors (comparable, never equal)."""
+    idx = int(np.searchsorted(vocab, value)) if len(vocab) else 0
+    if idx < len(vocab) and vocab[idx] == value:
+        return 2 * idx + 1
+    return 2 * idx
+
+
+def _remap_table(old_vocab: np.ndarray, new_vocab: np.ndarray) -> np.ndarray:
+    lookup = {v: i for i, v in enumerate(new_vocab)}
+    table = np.array([lookup[v] for v in old_vocab], dtype=np.int32)
+    if len(table) == 0:
+        table = np.zeros(1, dtype=np.int32)
+    return table
+
+
+def _merge_vocabs(*vocabs: Optional[np.ndarray]) -> np.ndarray:
+    values = set()
+    for v in vocabs:
+        if v is not None:
+            values.update(v)
+    return np.array(sorted(values), dtype=object)
+
+
+def _gather_binding(slot: int):
+    """Emit helper: codes -> bound table lookup (clipped; callers mask
+    validity themselves)."""
+    def gather(ctx: EmitContext, codes: torch.Tensor) -> torch.Tensor:
+        table = ctx.bindings[slot]
+        return table[codes.to(torch.int64).clamp(0, table.shape[0] - 1)]
+    return gather
+
+
+def _u64_to_f64(data: torch.Tensor) -> torch.Tensor:
+    """uint64 bit patterns (int64) → float64 with one rounding."""
+    hi = ((data >> 32) & _M32).to(torch.float64)
+    lo = (data & _M32).to(torch.float64)
+    return hi * 4294967296.0 + lo
+
+
+def cast_plane(data: torch.Tensor, src: EValueType,
+               dst: EValueType) -> torch.Tensor:
+    """Convert a plane of logical type `src` to the plane of `dst`, as the
+    reference's `astype` to dst's device dtype does."""
+    if dst is EValueType.boolean:
+        return data != 0
+    if dst is EValueType.double:
+        if src is EValueType.uint64:
+            return _u64_to_f64(data)
+        return data.to(torch.float64)
+    if dst is EValueType.uint64 and data.is_floating_point():
+        # Values at or above 2^63 keep their unsigned bits.
+        big = data >= 9223372036854775808.0
+        return torch.where(big, (data - 18446744073709551616.0).to(
+            torch.int64), data.to(torch.int64))
+    return data.to(device_dtype(dst))
+
+
+def _compare(op: str, lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    if op == "=":
+        return lhs == rhs
+    if op == "!=":
+        return lhs != rhs
+    if op == "<":
+        return lhs < rhs
+    if op == "<=":
+        return lhs <= rhs
+    if op == ">":
+        return lhs > rhs
+    if op == ">=":
+        return lhs >= rhs
+    raise AssertionError(op)
+
+
+def _comparable_pair(ld, lt: EValueType, rd, rt: EValueType):
+    """Planes of two numeric operands in one ordered representation,
+    matching the reference's promotion: uint64 against uint64 compares
+    unsigned; uint64 against int64 or double compares as double."""
+    if lt is EValueType.uint64 and rt is EValueType.uint64:
+        return ld ^ _SIGN64, rd ^ _SIGN64
+    if EValueType.uint64 in (lt, rt) and EValueType.null not in (lt, rt):
+        return cast_plane(ld, lt, EValueType.double), \
+            cast_plane(rd, rt, EValueType.double)
+    return ld, rd
+
+
+_CMP_OPS = ("=", "!=", "<", "<=", ">", ">=")
+
+
+class ExprBinder:
+    """Binds a typed IR expression for one chunk (host phase)."""
+
+    def __init__(self, bind_ctx: BindContext):
+        self.ctx = bind_ctx
+
+    def bind(self, node: ir.TExpr) -> BoundExpr:
+        method = getattr(self, f"_bind_{type(node).__name__}", None)
+        if method is None:
+            raise not_ported(f"Expression {type(node).__name__}")
+        return method(node)
+
+    # -- leaves ---------------------------------------------------------------
+
+    def _bind_TLiteral(self, node: ir.TLiteral) -> BoundExpr:
+        ty = node.type
+        if ty is EValueType.null:
+            def emit_null(ctx: EmitContext):
+                zeros = torch.zeros(ctx.capacity, dtype=torch.int8,
+                                    device=ctx.device)
+                return zeros, torch.zeros(ctx.capacity, dtype=torch.bool,
+                                          device=ctx.device)
+            return BoundExpr(type=ty, vocab=None, emit=emit_null)
+        if ty is EValueType.string:
+            # The literal is code 0 of its own one-entry vocabulary; every
+            # consumer reads the bytes through bound tables.
+            vocab = np.array([node.value], dtype=object)
+
+            def emit_str(ctx: EmitContext):
+                return (torch.zeros(ctx.capacity, dtype=torch.int32,
+                                    device=ctx.device),
+                        torch.ones(ctx.capacity, dtype=torch.bool,
+                                   device=ctx.device))
+            return BoundExpr(type=ty, vocab=vocab, emit=emit_str)
+        if not isinstance(ty, EValueType):
+            raise not_ported("Vector literals")
+        if ty is EValueType.uint64:
+            value = np.array([int(node.value) % (1 << 64)],
+                             dtype=np.uint64).view(np.int64)[0]
+        else:
+            value = np.asarray(node.value, dtype=_np_dtype_for(ty))
+        slot = self.ctx.add(value)
+
+        def emit(ctx: EmitContext):
+            return (ctx.bindings[slot].expand(ctx.capacity),
+                    torch.ones(ctx.capacity, dtype=torch.bool,
+                               device=ctx.device))
+        return BoundExpr(type=ty, vocab=None, emit=emit)
+
+    def _bind_TReference(self, node: ir.TReference) -> BoundExpr:
+        binding = self.ctx.columns.get(node.name)
+        if binding is None:
+            raise YtError(f"Unbound column {node.name!r}",
+                          code=EErrorCode.QueryExecutionError)
+        name = node.name
+
+        def emit(ctx: EmitContext):
+            return ctx.columns[name]
+        return BoundExpr(type=node.type, vocab=binding.vocab, emit=emit)
+
+    # -- operators ------------------------------------------------------------
+
+    def _bind_TUnary(self, node: ir.TUnary) -> BoundExpr:
+        operand = self.bind(node.operand)
+        op = node.op
+
+        def emit(ctx: EmitContext):
+            data, valid = operand.emit(ctx)
+            if op == "not":
+                return ~data.to(torch.bool), valid
+            if op == "-":
+                return -data, valid
+            if op == "~":
+                return ~data, valid
+            raise AssertionError(op)
+        return BoundExpr(type=node.type, vocab=None, emit=emit)
+
+    def _bind_TBinary(self, node: ir.TBinary) -> BoundExpr:
+        op = node.op
+        lhs_b = self.bind(node.lhs)
+        rhs_b = self.bind(node.rhs)
+
+        if op in ("and", "or"):
+            def emit_logical(ctx: EmitContext):
+                ld, lv = lhs_b.emit(ctx)
+                rd, rv = rhs_b.emit(ctx)
+                ld, rd = ld.to(torch.bool), rd.to(torch.bool)
+                if op == "and":
+                    known_false = (lv & ~ld) | (rv & ~rd)
+                    valid = (lv & rv) | known_false
+                    data = (ld | ~lv) & (rd | ~rv)
+                    return data & valid, valid
+                known_true = (lv & ld) | (rv & rd)
+                valid = (lv & rv) | known_true
+                return (ld & lv) | (rd & rv), valid
+            return BoundExpr(type=EValueType.boolean, vocab=None,
+                             emit=emit_logical)
+
+        if EValueType.string in (lhs_b.type, rhs_b.type) and \
+                lhs_b.type is not EValueType.null and \
+                rhs_b.type is not EValueType.null:
+            encoded = self._bind_string_literal_cmp(node, op, lhs_b, rhs_b)
+            if encoded is not None:
+                return encoded
+            # Decoded path: remap both sides onto their merged vocabulary.
+            merged = _merge_vocabs(lhs_b.vocab, rhs_b.vocab)
+            l_vocab = lhs_b.vocab if lhs_b.vocab is not None else _EMPTY_VOCAB
+            r_vocab = rhs_b.vocab if rhs_b.vocab is not None else _EMPTY_VOCAB
+            l_slot = self.ctx.add(_pad_np(_remap_table(l_vocab, merged),
+                                          _vocab_bucket(max(len(l_vocab), 1)),
+                                          0))
+            r_slot = self.ctx.add(_pad_np(_remap_table(r_vocab, merged),
+                                          _vocab_bucket(max(len(r_vocab), 1)),
+                                          0))
+            l_gather = _gather_binding(l_slot)
+            r_gather = _gather_binding(r_slot)
+
+            def emit_strcmp(ctx: EmitContext):
+                ld, lv = lhs_b.emit(ctx)
+                rd, rv = rhs_b.emit(ctx)
+                return _compare(op, l_gather(ctx, ld), r_gather(ctx, rd)), \
+                    lv & rv
+            return BoundExpr(type=EValueType.boolean, vocab=None,
+                             emit=emit_strcmp)
+
+        if op in _CMP_OPS:
+            def emit_cmp(ctx: EmitContext):
+                ld, lv = lhs_b.emit(ctx)
+                rd, rv = rhs_b.emit(ctx)
+                ld, rd = _comparable_pair(ld, lhs_b.type, rd, rhs_b.type)
+                return _compare(op, ld, rd), lv & rv
+            return BoundExpr(type=EValueType.boolean, vocab=None,
+                             emit=emit_cmp)
+
+        target = node.type
+        if target is EValueType.uint64 and op in ("/", "%", ">>"):
+            raise not_ported(f"uint64 operator {op!r}")
+
+        def emit(ctx: EmitContext):
+            ld, lv = lhs_b.emit(ctx)
+            rd, rv = rhs_b.emit(ctx)
+            valid = lv & rv
+            ld = cast_plane(ld, lhs_b.type, target)
+            rd = cast_plane(rd, rhs_b.type, target)
+            integer = not ld.is_floating_point()
+            if op == "+":
+                data = ld + rd
+            elif op == "-":
+                data = ld - rd
+            elif op == "*":
+                data = ld * rd
+            elif op in ("/", "%") and integer:
+                safe = torch.where(rd == 0, torch.ones_like(rd), rd)
+                data = torch.div(ld, safe, rounding_mode="trunc") \
+                    if op == "/" else torch.fmod(ld, safe)
+                valid = valid & (rd != 0)
+            elif op == "/":
+                data = ld / rd
+            elif op == "%":
+                data = torch.fmod(ld, rd)
+            elif op == "|":
+                data = ld | rd
+            elif op == "&":
+                data = ld & rd
+            elif op == "^":
+                data = ld ^ rd
+            elif op == "<<":
+                data = ld << rd
+            elif op == ">>":
+                data = ld >> rd
+            else:
+                raise AssertionError(op)
+            return data, valid
+        return BoundExpr(type=node.type, vocab=None, emit=emit)
+
+    def _bind_string_literal_cmp(self, node: ir.TBinary, op: str,
+                                 lhs_b: BoundExpr,
+                                 rhs_b: BoundExpr) -> Optional[BoundExpr]:
+        """A literal against a dict-encoded side compares CODES: =/!= bind
+        the literal's exact code (-1 when absent), range ops bind in the
+        doubled space of _range_code."""
+        if op not in _CMP_OPS:
+            return None
+        if not (lhs_b.type is EValueType.string
+                and rhs_b.type is EValueType.string):
+            return None
+        if isinstance(node.rhs, ir.TLiteral) and lhs_b.vocab is not None:
+            col_b, lit, lit_on_right = lhs_b, node.rhs.value, True
+        elif isinstance(node.lhs, ir.TLiteral) and rhs_b.vocab is not None:
+            col_b, lit, lit_on_right = rhs_b, node.lhs.value, False
+        else:
+            return None
+        if lit is None:
+            return None
+        vocab = col_b.vocab
+        if op in ("=", "!="):
+            slot = self.ctx.add(np.int32(_vocab_code(vocab, lit)))
+
+            def emit_eq(ctx: EmitContext):
+                data, valid = col_b.emit(ctx)
+                code = ctx.bindings[slot]
+                out = (data == code) if op == "=" else (data != code)
+                return out, valid
+            return BoundExpr(type=EValueType.boolean, vocab=None,
+                             emit=emit_eq)
+        slot = self.ctx.add(np.int32(_range_code(vocab, lit)))
+
+        def emit_rng(ctx: EmitContext):
+            data, valid = col_b.emit(ctx)
+            doubled = data.to(torch.int32) * 2 + 1
+            code = ctx.bindings[slot]
+            out = _compare(op, doubled, code) if lit_on_right \
+                else _compare(op, code, doubled)
+            return out, valid
+        return BoundExpr(type=EValueType.boolean, vocab=None, emit=emit_rng)
+
+    # -- functions ------------------------------------------------------------
+
+    def _bind_TFunction(self, node: ir.TFunction) -> BoundExpr:
+        name = node.name
+        if name not in ("if", "is_null", "int64", "uint64", "double",
+                        "boolean"):
+            raise not_ported(f"Function {name!r}")
+        args = [self.bind(a) for a in node.args]
+        if name == "if":
+            return self._bind_if(node, args)
+        if name == "is_null":
+            a = args[0]
+
+            def emit_is_null(ctx):
+                _, valid = a.emit(ctx)
+                return ~valid, torch.ones_like(valid)
+            return BoundExpr(type=EValueType.boolean, vocab=None,
+                             emit=emit_is_null)
+        a = args[0]
+        src, dst = a.type, node.type
+
+        def emit_cast(ctx):
+            data, valid = a.emit(ctx)
+            return cast_plane(data, src, dst), valid
+        return BoundExpr(type=dst, vocab=None, emit=emit_cast)
+
+    def _bind_if(self, node: ir.TFunction, args: list[BoundExpr]
+                 ) -> BoundExpr:
+        cond, then_b, else_b = args
+        ty = node.type
+
+        def branch(plane, b: BoundExpr):
+            if ty in (EValueType.null, EValueType.string):
+                return plane
+            if b.type is EValueType.null:
+                return plane.to(device_dtype(ty))
+            return cast_plane(plane, b.type, ty)
+
+        def select(planes):
+            cd, cv = planes[0]
+            td, tv = planes[1]
+            ed, ev = planes[2]
+            take_then = cv & cd.to(torch.bool)
+            take_else = cv & ~cd.to(torch.bool)
+            td, ed = branch(td, then_b), branch(ed, else_b)
+            if td.dtype != ed.dtype:
+                common = torch.promote_types(td.dtype, ed.dtype)
+                td, ed = td.to(common), ed.to(common)
+            data = torch.where(take_then, td, ed)
+            valid = torch.where(take_then, tv, take_else & ev)
+            return data, valid
+
+        if ty is EValueType.string:
+            merged = _merge_vocabs(then_b.vocab, else_b.vocab)
+            remap = {}
+            for i in (1, 2):
+                a = args[i]
+                vocab = a.vocab if a.vocab is not None else _EMPTY_VOCAB
+                slot = self.ctx.add(_pad_np(
+                    _remap_table(vocab, merged),
+                    _vocab_bucket(max(len(vocab), 1)), 0))
+                remap[i] = _gather_binding(slot)
+
+            def emit_str(ctx):
+                planes = []
+                for i, a in enumerate(args):
+                    d, v = a.emit(ctx)
+                    if i in remap and a.type is EValueType.string:
+                        d = remap[i](ctx, d)
+                    planes.append((d, v))
+                return select(planes)
+            return BoundExpr(type=ty, vocab=merged, emit=emit_str)
+
+        def emit(ctx):
+            return select([a.emit(ctx) for a in args])
+        return BoundExpr(type=ty, vocab=None, emit=emit)
+
+    # -- membership / ranges ---------------------------------------------------
+
+    def _bind_TIn(self, node: ir.TIn) -> BoundExpr:
+        operands = [self.bind(o) for o in node.operands]
+        n_bucket = next_pow2(len(node.values))
+        value_slots, valid_slots = self._bind_value_tuples(
+            operands, node.values, pad_to=n_bucket)
+        present_np = np.zeros(n_bucket, dtype=bool)
+        present_np[: len(node.values)] = True
+        present_slot = self.ctx.add(present_np)
+
+        def emit(ctx):
+            op_planes = [o.emit(ctx) for o in operands]
+            match_any = torch.zeros(ctx.capacity, dtype=torch.bool,
+                                    device=ctx.device)
+            present = ctx.bindings[present_slot]
+            for vi in range(n_bucket):
+                row_match = present[vi].expand(ctx.capacity)
+                for oi, (data, valid) in enumerate(op_planes):
+                    const = ctx.bindings[value_slots[oi]][vi]
+                    cvalid = ctx.bindings[valid_slots[oi]][vi]
+                    # A null element matches null rows; a value matches
+                    # equal valid rows (null == null, as CompareRowValues).
+                    row_match = row_match & torch.where(
+                        cvalid, valid & (data == const), ~valid)
+                match_any = match_any | row_match
+            return match_any, torch.ones(ctx.capacity, dtype=torch.bool,
+                                         device=ctx.device)
+        return BoundExpr(type=EValueType.boolean, vocab=None, emit=emit)
+
+    def _bind_TBetween(self, node: ir.TBetween) -> BoundExpr:
+        operands = [self.bind(o) for o in node.operands]
+        bound_ranges = []
+        for lower, upper in node.ranges:
+            lo = self._bind_value_tuples(operands[: len(lower)], [lower],
+                                         range_encode=True)
+            up = self._bind_value_tuples(operands[: len(upper)], [upper],
+                                         range_encode=True)
+            bound_ranges.append((len(lower), lo, len(upper), up))
+
+        def emit(ctx):
+            op_planes = []
+            for operand in operands:
+                data, valid = operand.emit(ctx)
+                if operand.type is EValueType.string:
+                    data = data.to(torch.int32) * 2 + 1   # see _range_code
+                elif operand.type is EValueType.uint64:
+                    data = data ^ _SIGN64                 # unsigned order
+                op_planes.append((data, valid))
+            in_any = torch.zeros(ctx.capacity, dtype=torch.bool,
+                                 device=ctx.device)
+            for lo_len, lo_slots, up_len, up_slots in bound_ranges:
+                ge = _lex_compare(ctx, op_planes[:lo_len], lo_slots, 0, ">=")
+                le = _lex_compare(ctx, op_planes[:up_len], up_slots, 0, "<=")
+                in_any = in_any | (ge & le)
+            result = ~in_any if node.negated else in_any
+            return result, torch.ones(ctx.capacity, dtype=torch.bool,
+                                      device=ctx.device)
+        return BoundExpr(type=EValueType.boolean, vocab=None, emit=emit)
+
+    def _bind_TTransform(self, node: ir.TTransform) -> BoundExpr:
+        raise not_ported("TRANSFORM")
+
+    def _bind_TStringPredicate(self, node: ir.TStringPredicate) -> BoundExpr:
+        raise not_ported(f"String predicate {node.kind!r}")
+
+    def _bind_value_tuples(self, operands: list[BoundExpr], values,
+                           range_encode: bool = False,
+                           pad_to: Optional[int] = None
+                           ) -> tuple[list[int], list[int]]:
+        """Bind literal tuples column-wise: one slot per operand with the
+        per-tuple constants (strings → codes; uint64 → int64 bits, sign
+        flipped for range compares) and one with the per-tuple element
+        validity (False where the literal is null).
+
+        range_encode=True (BETWEEN bounds): string literals absent from the
+        column's vocabulary still order correctly against row codes, in the
+        doubled space of _range_code."""
+        slots = []
+        valid_slots = []
+        for oi, operand in enumerate(operands):
+            col = [tup[oi] if oi < len(tup) else None for tup in values]
+            if operand.type is EValueType.string:
+                vocab = operand.vocab if operand.vocab is not None \
+                    else _EMPTY_VOCAB
+                if range_encode:
+                    arr = np.array([_range_code(vocab, v) if v is not None
+                                    else 0 for v in col], dtype=np.int32)
+                else:
+                    arr = np.array([_vocab_code(vocab, v) if v is not None
+                                    else -2 for v in col], dtype=np.int32)
+            elif operand.type is EValueType.uint64:
+                bits = [(int(v) % (1 << 64)) if v is not None else 0
+                        for v in col]
+                arr = np.array(bits, dtype=np.uint64).view(np.int64)
+                if range_encode:
+                    arr = arr ^ np.int64(_SIGN64)
+            else:
+                dt = _np_dtype_for(operand.type) \
+                    if operand.type is not EValueType.null else np.int64
+                arr = np.array([v if v is not None else 0 for v in col],
+                               dtype=dt)
+            ok = np.array([v is not None for v in col], dtype=bool)
+            if len(arr) == 0:
+                arr = np.zeros(1, dtype=arr.dtype)
+                ok = np.zeros(1, dtype=bool)
+            if pad_to is not None and len(arr) < pad_to:
+                arr = _pad_np(arr, pad_to, 0)
+                ok = _pad_np(ok, pad_to, False)
+            slots.append(self.ctx.add(arr))
+            valid_slots.append(self.ctx.add(ok))
+        return slots, valid_slots
+
+
+def _lex_compare(ctx: EmitContext, op_planes, slots, vi: int,
+                 op: str) -> torch.Tensor:
+    """Lexicographic tuple comparison against bound constants (tuple index
+    vi). Null sorts before every value and equals null."""
+    value_slots, valid_slots = slots
+    cap = ctx.capacity
+    result = torch.full((cap,), op in ("<=", ">="), dtype=torch.bool,
+                        device=ctx.device)
+    for oi in range(len(op_planes) - 1, -1, -1):
+        data, valid = op_planes[oi]
+        const = ctx.bindings[value_slots[oi]][vi]
+        cvalid = ctx.bindings[valid_slots[oi]][vi]
+        eq = torch.where(cvalid, valid & (data == const), ~valid)
+        if op in ("<=", "<"):
+            lt = cvalid & ((~valid) | (data < const))
+            result = lt | (eq & result)
+        else:
+            gt = torch.where(cvalid, valid & (data > const), valid)
+            result = gt | (eq & result)
+    return result

@@ -1,0 +1,378 @@
+"""Port of the JAX package's `query/functions.py`: a copy, with imports pointed at
+this package (it imports nothing of the JAX package).
+
+Builtin function registry: typing rules for scalar and aggregate functions.
+
+Analog of the reference's builtin function registry
+(library/query/base/builtin_function_registry.cpp).  Implementations live in
+the engine (query/engine/expr.py); this module owns signatures.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+from ytsaurus_tpu_torch.errors import EErrorCode, YtError
+from ytsaurus_tpu_torch.schema import EValueType, VectorType
+
+_NUMERIC_RANK = {EValueType.int64: 1, EValueType.uint64: 2, EValueType.double: 3}
+
+
+def is_numeric(ty: EValueType) -> bool:
+    return ty in _NUMERIC_RANK
+
+
+def promote_numeric(a: EValueType, b: EValueType, context: str) -> EValueType:
+    if a is EValueType.null:
+        return b
+    if b is EValueType.null:
+        return a
+    if not is_numeric(a) or not is_numeric(b):
+        raise YtError(f"Type mismatch in {context}: {a.value} vs {b.value}",
+                      code=EErrorCode.QueryTypeError)
+    return a if _NUMERIC_RANK[a] >= _NUMERIC_RANK[b] else b
+
+
+def unify(a: EValueType, b: EValueType, context: str) -> EValueType:
+    """Common type for comparisons / IF branches."""
+    if a is b:
+        return a
+    if a is EValueType.null:
+        return b
+    if b is EValueType.null:
+        return a
+    if is_numeric(a) and is_numeric(b):
+        return promote_numeric(a, b, context)
+    raise YtError(f"Type mismatch in {context}: {a.value} vs {b.value}",
+                  code=EErrorCode.QueryTypeError)
+
+
+def _type_error(name, arg_types):
+    return YtError(
+        f"Function {name!r} does not accept arguments "
+        f"({', '.join(t.value for t in arg_types)})",
+        code=EErrorCode.QueryTypeError)
+
+
+@dataclass(frozen=True)
+class ScalarFunction:
+    name: str
+    infer: Callable[[tuple[EValueType, ...]], EValueType]
+    min_args: int = 1
+    max_args: Optional[int] = None
+
+
+def _infer_if(ts):
+    if len(ts) != 3 or unify(ts[0], EValueType.boolean, "if") is not EValueType.boolean:
+        raise _type_error("if", ts)
+    return unify(ts[1], ts[2], "if branches")
+
+
+def _infer_is_null(ts):
+    return EValueType.boolean
+
+
+def _infer_if_null(ts):
+    return unify(ts[0], ts[1], "if_null")
+
+
+def _cast(to):
+    def infer(ts):
+        src = ts[0]
+        if src is EValueType.null or is_numeric(src) or \
+                (src is EValueType.boolean and to is not EValueType.double):
+            return to
+        raise _type_error(to.value, ts)
+    return infer
+
+
+def _infer_same_numeric(name):
+    def infer(ts):
+        if not is_numeric(ts[0]) and ts[0] is not EValueType.null:
+            raise _type_error(name, ts)
+        return ts[0]
+    return infer
+
+
+def _infer_string_to_string(ts):
+    if ts[0] not in (EValueType.string, EValueType.null):
+        raise _type_error("string fn", ts)
+    return EValueType.string
+
+
+def _infer_string_to_int(ts):
+    if ts[0] not in (EValueType.string, EValueType.null):
+        raise _type_error("length", ts)
+    return EValueType.int64
+
+
+def _infer_string_pred(ts):
+    if any(t not in (EValueType.string, EValueType.null) for t in ts):
+        raise _type_error("string predicate", ts)
+    return EValueType.boolean
+
+
+def _infer_double_math(ts):
+    if not is_numeric(ts[0]) and ts[0] is not EValueType.null:
+        raise _type_error("math fn", ts)
+    return EValueType.double
+
+
+def _infer_int_math(ts):
+    if not is_numeric(ts[0]) and ts[0] is not EValueType.null:
+        raise _type_error("math fn", ts)
+    return EValueType.int64
+
+
+def _infer_hash(ts):
+    return EValueType.uint64
+
+
+SCALAR_FUNCTIONS: dict[str, ScalarFunction] = {}
+
+
+def _register(name, infer, min_args=1, max_args=None):
+    SCALAR_FUNCTIONS[name] = ScalarFunction(
+        name=name, infer=infer, min_args=min_args,
+        max_args=max_args if max_args is not None else min_args)
+
+
+_register("if", _infer_if, 3)
+_register("is_null", _infer_is_null, 1)
+_register("if_null", _infer_if_null, 2)
+_register("int64", _cast(EValueType.int64), 1)
+_register("uint64", _cast(EValueType.uint64), 1)
+_register("double", _cast(EValueType.double), 1)
+_register("boolean", _cast(EValueType.boolean), 1)
+_register("abs", _infer_same_numeric("abs"), 1)
+_register("floor", _infer_double_math, 1)
+_register("ceil", _infer_double_math, 1)
+_register("sqrt", _infer_double_math, 1)
+_register("lower", _infer_string_to_string, 1)
+_register("upper", _infer_string_to_string, 1)
+
+
+def _infer_concat(ts):
+    if any(t not in (EValueType.string, EValueType.null) for t in ts):
+        raise _type_error("concat", ts)
+    return EValueType.string
+
+
+def _infer_float_pred(ts):
+    if ts[0] not in (EValueType.double, EValueType.null):
+        raise _type_error("float predicate", ts)
+    return EValueType.boolean
+
+
+_register("concat", _infer_concat, 2)
+_register("is_finite", _infer_float_pred, 1)
+_register("is_nan", _infer_float_pred, 1)
+
+
+def _infer_timestamp(name):
+    def infer(ts):
+        if ts[0] not in (EValueType.int64, EValueType.uint64, EValueType.null):
+            raise _type_error(name, ts)
+        return EValueType.int64
+    return infer
+
+
+for _name in ("timestamp_floor_hour", "timestamp_floor_day",
+              "timestamp_floor_week", "timestamp_floor_month",
+              "timestamp_floor_year"):
+    _register(_name, _infer_timestamp(_name), 1)
+_register("length", _infer_string_to_int, 1)
+_register("is_prefix", _infer_string_pred, 2)
+_register("is_substr", _infer_string_pred, 2)
+_register("farm_hash", _infer_hash, 1, 16)
+
+
+def _infer_string_hash(ts):
+    # bigb_hash hashes uid STRINGS (ref bigb_hash registration) — the
+    # lowering builds a per-vocabulary table, so non-string input is a
+    # type error, not silent zeros.
+    if ts[0] not in (EValueType.string, EValueType.null):
+        raise _type_error("bigb_hash", ts)
+    return EValueType.uint64
+
+
+_register("bigb_hash", _infer_string_hash, 1, 1)
+_register("min_of", lambda ts: _min_of(ts), 2, 16)
+_register("max_of", lambda ts: _min_of(ts), 2, 16)
+
+
+# Regex family (ref base/builtin_function_registry.cpp regex_* — RE2
+# there, Python re here; the QL surface is identical for the shared
+# syntax subset).  Pattern (and rewrite) arguments must be literals:
+# they compile at plan time against the column vocabulary.
+def _infer_regex_match(ts):
+    if any(t not in (EValueType.string, EValueType.null) for t in ts):
+        raise _type_error("regex match", ts)
+    return EValueType.boolean
+
+
+def _infer_regex_replace(ts):
+    if any(t not in (EValueType.string, EValueType.null) for t in ts):
+        raise _type_error("regex replace", ts)
+    return EValueType.string
+
+
+_register("regex_full_match", _infer_regex_match, 2)
+_register("regex_partial_match", _infer_regex_match, 2)
+_register("regex_replace_first", _infer_regex_replace, 3)
+_register("regex_replace_all", _infer_regex_replace, 3)
+_register("regex_escape", _infer_string_to_string, 1)
+_register("sha256", _infer_string_to_string, 1)
+_register("parse_int64", _infer_string_to_int, 1)
+
+
+def _infer_substr(ts):
+    if ts[0] not in (EValueType.string, EValueType.null):
+        raise _type_error("substr", ts)
+    for t in ts[1:]:
+        if t not in (EValueType.int64, EValueType.uint64):
+            raise _type_error("substr", ts)
+    return EValueType.string
+
+
+_register("substr", _infer_substr, 2, 3)
+
+
+def _infer_distance(name):
+    """(vector<float,N>, vector<float,N>) -> double: the NEAREST distance
+    family.  Both args must be vectors of the SAME dim (the interned
+    VectorType makes that an identity check)."""
+    def infer(ts):
+        if len(ts) != 2 or not all(isinstance(t, VectorType) for t in ts):
+            raise YtError(
+                f"Function {name!r} expects two vector arguments, got "
+                f"({', '.join(t.value for t in ts)})",
+                code=EErrorCode.QueryTypeError)
+        if ts[0] is not ts[1]:
+            raise YtError(
+                f"Function {name!r} dim mismatch: "
+                f"{ts[0].value} vs {ts[1].value}",
+                code=EErrorCode.QueryTypeError)
+        return EValueType.double
+    return infer
+
+
+_register("l2_distance", _infer_distance("l2_distance"), 2)
+_register("distance", _infer_distance("distance"), 2)
+_register("cosine_distance", _infer_distance("cosine_distance"), 2)
+_register("dot_product", _infer_distance("dot_product"), 2)
+
+
+def _min_of(ts):
+    ty = ts[0]
+    for t in ts[1:]:
+        ty = unify(ty, t, "min_of/max_of")
+    return ty
+
+
+@dataclass(frozen=True)
+class AggregateFunction:
+    name: str
+    infer_result: Callable[[EValueType], EValueType]
+    infer_state: Callable[[EValueType], EValueType]
+
+
+def _agg_same(ty: EValueType) -> EValueType:
+    return ty
+
+
+def _agg_numeric(ty: EValueType) -> EValueType:
+    if not is_numeric(ty) and ty is not EValueType.null:
+        raise YtError(f"Aggregate requires a numeric argument, got {ty.value}",
+                      code=EErrorCode.QueryTypeError)
+    return ty
+
+
+# argmin/argmax take (value_expr, by_expr); result type = value type.
+TWO_ARG_AGGREGATES = {"argmin", "argmax"}
+
+AGGREGATE_FUNCTIONS: dict[str, AggregateFunction] = {
+    "argmin": AggregateFunction("argmin", _agg_same, _agg_same),
+    "argmax": AggregateFunction("argmax", _agg_same, _agg_same),
+    "sum": AggregateFunction("sum", _agg_numeric, _agg_numeric),
+    "min": AggregateFunction("min", _agg_same, _agg_same),
+    "max": AggregateFunction("max", _agg_same, _agg_same),
+    "avg": AggregateFunction("avg", lambda ty: (_agg_numeric(ty), EValueType.double)[1],
+                             lambda ty: EValueType.double),
+    "count": AggregateFunction("count", lambda ty: EValueType.int64,
+                               lambda ty: EValueType.int64),
+    "first": AggregateFunction("first", _agg_same, _agg_same),
+    "cardinality": AggregateFunction("cardinality", lambda ty: EValueType.uint64,
+                                     lambda ty: EValueType.uint64),
+}
+
+
+def is_aggregate(name: str) -> bool:
+    return name in AGGREGATE_FUNCTIONS
+
+
+# --- window functions ---------------------------------------------------------
+#
+# Signature registry for `fn(...) OVER (...)` (the reference has no window
+# functions — layer-6 gap in VERDICT.md; the CH dialect spelling is shared).
+# Lowerings live in query/engine/window.py as segmented prefix scans.
+
+
+@dataclass(frozen=True)
+class WindowFunction:
+    name: str
+    min_args: int
+    max_args: int
+    infer_result: Callable[[Optional[EValueType]], EValueType]
+    needs_order: bool = False        # ranking/offset require ORDER BY
+    is_aggregate: bool = False       # framed aggregates accept ROWS frames
+
+
+def _win_int64(ty):
+    return EValueType.int64
+
+
+def _win_same(ty):
+    return ty
+
+
+def _win_numeric(ty):
+    if not is_numeric(ty) and ty is not EValueType.null:
+        raise YtError(
+            f"Window aggregate requires a numeric argument, got {ty.value}",
+            code=EErrorCode.QueryTypeError)
+    return ty
+
+
+def _win_avg(ty):
+    _win_numeric(ty)
+    return EValueType.double
+
+
+WINDOW_FUNCTIONS: dict[str, WindowFunction] = {
+    "row_number": WindowFunction("row_number", 0, 0, _win_int64,
+                                 needs_order=False),
+    "rank": WindowFunction("rank", 0, 0, _win_int64, needs_order=True),
+    "dense_rank": WindowFunction("dense_rank", 0, 0, _win_int64,
+                                 needs_order=True),
+    "lag": WindowFunction("lag", 1, 3, _win_same, needs_order=True),
+    "lead": WindowFunction("lead", 1, 3, _win_same, needs_order=True),
+    # first/last_value honor the frame (standard semantics: with ORDER
+    # BY and the default RANGE-peers frame, last_value is the end of the
+    # current row's PEER group — the current row when keys are unique).
+    "first_value": WindowFunction("first_value", 1, 1, _win_same,
+                                  is_aggregate=True),
+    "last_value": WindowFunction("last_value", 1, 1, _win_same,
+                                 is_aggregate=True),
+    "sum": WindowFunction("sum", 1, 1, _win_numeric, is_aggregate=True),
+    "min": WindowFunction("min", 1, 1, _win_same, is_aggregate=True),
+    "max": WindowFunction("max", 1, 1, _win_same, is_aggregate=True),
+    "avg": WindowFunction("avg", 1, 1, _win_avg, is_aggregate=True),
+    "count": WindowFunction("count", 1, 1, lambda ty: EValueType.int64,
+                            is_aggregate=True),
+}
+
+
+def is_window_function(name: str) -> bool:
+    return name in WINDOW_FUNCTIONS

@@ -1,0 +1,483 @@
+"""Port of the JAX package's `query/ir.py`: a copy, with imports pointed at
+this package (it imports nothing of the JAX package).
+
+Typed query plan IR.
+
+Mirrors the reference plan IR (library/query/base/query.h: TExpression tree,
+TGroupClause/TJoinClause/TOrderClause/TProjectClause, TQuery with the
+bottom/front split) as immutable typed dataclasses.  CASE is desugared to
+nested IF and LIKE to vocabulary-level predicates during building, so the IR
+the lowering consumes stays small.
+
+Every node is hashable; `fingerprint(query)` produces the stable key for the
+compiled-executable cache — the analog of the reference's llvm::FoldingSet
+fingerprint (library/query/engine/folding_profiler.cpp).
+"""
+
+from __future__ import annotations
+
+import hashlib
+from dataclasses import dataclass, field
+from typing import Optional
+
+from ytsaurus_tpu_torch.schema import EValueType, TableSchema
+
+
+class TExpr:
+    """Base of typed expressions; every node carries its result type."""
+    type: EValueType
+
+
+@dataclass(frozen=True)
+class TLiteral(TExpr):
+    type: EValueType
+    value: object            # python scalar; bytes for strings; None for null
+
+
+@dataclass(frozen=True)
+class TReference(TExpr):
+    type: EValueType
+    name: str                # resolved name in the stage's row namespace
+
+
+@dataclass(frozen=True)
+class TFunction(TExpr):
+    type: EValueType
+    name: str
+    args: tuple[TExpr, ...]
+
+
+@dataclass(frozen=True)
+class TUnary(TExpr):
+    type: EValueType
+    op: str
+    operand: TExpr
+
+
+@dataclass(frozen=True)
+class TBinary(TExpr):
+    type: EValueType
+    op: str
+    lhs: TExpr
+    rhs: TExpr
+
+
+@dataclass(frozen=True)
+class TIn(TExpr):
+    type: EValueType         # boolean
+    operands: tuple[TExpr, ...]
+    values: tuple[tuple, ...]
+
+
+@dataclass(frozen=True)
+class TBetween(TExpr):
+    type: EValueType         # boolean
+    operands: tuple[TExpr, ...]
+    ranges: tuple[tuple, ...]
+    negated: bool
+
+
+@dataclass(frozen=True)
+class TTransform(TExpr):
+    type: EValueType
+    operands: tuple[TExpr, ...]
+    from_values: tuple[tuple, ...]
+    to_values: tuple[object, ...]
+    default: Optional[TExpr]
+
+
+@dataclass(frozen=True)
+class TStringPredicate(TExpr):
+    """Vocabulary-level string predicate (LIKE / prefix / substring / regex).
+
+    Evaluated host-side against the chunk dictionary, then gathered on device.
+    `kind` in {like, prefix, substr, regex}; pattern is a bytes literal.
+    """
+    type: EValueType         # boolean
+    operand: TExpr           # string-typed expr
+    kind: str
+    pattern: bytes
+    case_insensitive: bool = False
+    negated: bool = False
+
+
+def expr_references(expr):
+    """Yield every TReference name inside an expression tree."""
+    import dataclasses as _dc
+    if isinstance(expr, TReference):
+        yield expr.name
+        return
+    if not isinstance(expr, TExpr):
+        return
+    for field in _dc.fields(expr):
+        value = getattr(expr, field.name)
+        if isinstance(value, TExpr):
+            yield from expr_references(value)
+        elif isinstance(value, (tuple, list)):
+            for item in value:
+                if isinstance(item, TExpr):
+                    yield from expr_references(item)
+
+
+def referenced_columns(query: "Query") -> "Optional[set[str]]":
+    """Input-namespace columns the plan actually reads, or None when
+    every schema column flows to the output (bare select: no projection
+    and no grouping).  Used to prune planes before expensive data
+    movement (e.g. the partitioned-join exchange)."""
+    if query.project is None and query.group is None:
+        return None
+    refs: set[str] = set()
+
+    def add(expr) -> None:
+        if expr is not None:
+            refs.update(expr_references(expr))
+
+    add(query.where)
+    if query.group is not None:
+        for item in query.group.group_items:
+            add(item.expr)
+        for agg in query.group.aggregate_items:
+            add(agg.argument)
+            add(agg.by_argument)
+    add(query.having)
+    if query.window is not None:
+        for item in query.window.partition_items:
+            add(item.expr)
+        for oi in query.window.order_items:
+            add(oi.expr)
+        for w in query.window.items:
+            add(w.argument)
+            add(w.default)
+    if query.order is not None:
+        for item in query.order.items:
+            add(item.expr)
+    if query.project is not None:
+        for item in query.project.items:
+            add(item.expr)
+    for join in query.joins:
+        for eq in join.self_equations:
+            add(eq)
+    return refs
+
+
+@dataclass(frozen=True)
+class NamedExpr:
+    name: str
+    expr: TExpr
+
+
+@dataclass(frozen=True)
+class AggregateItem:
+    """One aggregate: `name` is its slot in the post-group namespace."""
+    name: str
+    function: str            # sum | min | max | avg | count | first | argmin...
+    argument: Optional[TExpr]
+    type: EValueType         # result type
+    state_type: EValueType   # partial-state type (avg keeps (sum,count))
+    by_argument: Optional[TExpr] = None   # argmin/argmax comparison key
+
+
+@dataclass(frozen=True)
+class GroupClause:
+    group_items: tuple[NamedExpr, ...]
+    aggregate_items: tuple[AggregateItem, ...]
+    totals: bool = False
+
+
+# Normalized frame: (start_kind, start_offset, end_kind, end_offset) with
+# kind in {unbounded, offset, peer}; offsets are SIGNED row deltas relative
+# to the current row (k PRECEDING → -k, k FOLLOWING → +k).  "peer" (end
+# only) extends to the last row of the current ORDER-BY peer group — the
+# SQL-standard default frame (RANGE UNBOUNDED PRECEDING .. CURRENT ROW):
+# tied order keys share one value.  Explicit ROWS frames stay row-exact.
+Frame = tuple[str, int, str, int]
+
+WHOLE_PARTITION_FRAME: Frame = ("unbounded", 0, "unbounded", 0)
+PEERS_FRAME: Frame = ("unbounded", 0, "peer", 0)
+
+
+@dataclass(frozen=True)
+class WindowItem:
+    """One window function: `name` is its slot in the output namespace."""
+    name: str
+    function: str            # row_number | rank | dense_rank | lag | lead |
+                             # first_value | last_value | sum | min | max |
+                             # avg | count
+    argument: Optional[TExpr]
+    type: EValueType         # result type
+    frame: Frame = WHOLE_PARTITION_FRAME
+    offset: int = 1          # lag/lead row distance (>= 0)
+    default: Optional[TExpr] = None   # lag/lead out-of-partition fill
+
+
+@dataclass(frozen=True)
+class WindowClause:
+    """Window stage: ONE shared (partition, order) spec for every item
+    (per-item frames vary).  Computed over the post-WHERE rowset in the
+    input namespace; each item adds a column, no rows move."""
+    partition_items: tuple[NamedExpr, ...]
+    order_items: tuple["OrderItem", ...]
+    items: tuple[WindowItem, ...]
+
+
+@dataclass(frozen=True)
+class OrderItem:
+    expr: TExpr
+    descending: bool
+
+
+@dataclass(frozen=True)
+class OrderClause:
+    items: tuple[OrderItem, ...]
+
+
+@dataclass(frozen=True)
+class ProjectClause:
+    items: tuple[NamedExpr, ...]
+
+
+@dataclass(frozen=True)
+class JoinClause:
+    foreign_table: str
+    foreign_schema: TableSchema
+    alias: Optional[str]
+    self_equations: tuple[TExpr, ...]      # evaluated in self namespace
+    foreign_equations: tuple[TExpr, ...]   # evaluated in foreign namespace
+    foreign_columns: tuple[str, ...]       # columns pulled from foreign table
+    is_left: bool
+
+
+@dataclass(frozen=True)
+class Query:
+    """A single-stage query plan (ref TQuery, base/query.h:532).
+
+    Namespaces: `schema` names the input row namespace.  If `group` is set,
+    having/order/project run in the post-group namespace (group item names +
+    aggregate names); otherwise they run in the input namespace.
+    """
+    schema: TableSchema                    # input namespace (incl. join columns)
+    source: Optional[str] = None           # table path (None = provided rowset)
+    joins: tuple[JoinClause, ...] = ()
+    where: Optional[TExpr] = None
+    group: Optional[GroupClause] = None
+    window: Optional[WindowClause] = None
+    having: Optional[TExpr] = None
+    order: Optional[OrderClause] = None
+    project: Optional[ProjectClause] = None
+    offset: int = 0
+    limit: Optional[int] = None
+
+    @property
+    def is_ordered_scan(self) -> bool:
+        return self.order is None and self.limit is not None
+
+    def post_group_schema(self) -> TableSchema:
+        assert self.group is not None
+        cols = [(item.name, item.expr.type.value) for item in self.group.group_items]
+        cols += [(agg.name, agg.type.value) for agg in self.group.aggregate_items]
+        return TableSchema.make(cols)
+
+    def output_schema(self) -> TableSchema:
+        if self.project is not None:
+            return TableSchema.make(
+                [(item.name, item.expr.type.value) for item in self.project.items])
+        if self.group is not None:
+            return self.post_group_schema()
+        cols = [(c.name, c.type.value) for c in self.schema.to_unsorted()]
+        if self.window is not None:
+            # Identity projection carries the window slots along so a
+            # front stage can still reference them.
+            cols += [(w.name, w.type.value) for w in self.window.items]
+        return TableSchema.make(cols)
+
+
+@dataclass(frozen=True)
+class FrontQuery:
+    """Coordinator-side merge query (ref TFrontQuery, base/query.h:559).
+
+    Runs over the concatenation of bottom-query outputs: re-groups partial
+    aggregate states, re-applies window/having/order/project/offset/limit.
+    """
+    schema: TableSchema                    # = bottom intermediate schema
+    group: Optional[GroupClause] = None    # merge-combine aggregates
+    window: Optional[WindowClause] = None  # recompute over the merged rowset
+    having: Optional[TExpr] = None
+    order: Optional[OrderClause] = None
+    project: Optional[ProjectClause] = None
+    offset: int = 0
+    limit: Optional[int] = None
+
+    def output_schema(self) -> TableSchema:
+        if self.project is not None:
+            return TableSchema.make(
+                [(item.name, item.expr.type.value) for item in self.project.items])
+        if self.group is not None:
+            cols = [(i.name, i.expr.type.value) for i in self.group.group_items]
+            cols += [(a.name, a.type.value) for a in self.group.aggregate_items]
+            return TableSchema.make(cols)
+        if self.window is not None:
+            cols = [(c.name, c.type.value) for c in self.schema]
+            cols += [(w.name, w.type.value) for w in self.window.items]
+            return TableSchema.make(cols)
+        return self.schema
+
+
+def map_expr(expr, fn):
+    """Bottom-up rewrite: apply `fn` to every node, recursing first.
+
+    `fn(node)` returns a replacement node or the node itself.  Shared by the
+    coordinator's avg-state substitution and the totals-plan key nulling —
+    extend HERE when a new expression node type is added.
+    """
+    from dataclasses import replace as dc_replace
+
+    if expr is None:
+        return None
+    e = expr
+    if isinstance(e, TFunction):
+        e = dc_replace(e, args=tuple(map_expr(a, fn) for a in e.args))
+    elif isinstance(e, TUnary):
+        e = dc_replace(e, operand=map_expr(e.operand, fn))
+    elif isinstance(e, TBinary):
+        e = dc_replace(e, lhs=map_expr(e.lhs, fn), rhs=map_expr(e.rhs, fn))
+    elif isinstance(e, TIn):
+        e = dc_replace(e, operands=tuple(map_expr(o, fn) for o in e.operands))
+    elif isinstance(e, TBetween):
+        e = dc_replace(e, operands=tuple(map_expr(o, fn) for o in e.operands))
+    elif isinstance(e, TTransform):
+        e = dc_replace(e, operands=tuple(map_expr(o, fn) for o in e.operands),
+                       default=map_expr(e.default, fn))
+    elif isinstance(e, TStringPredicate):
+        e = dc_replace(e, operand=map_expr(e.operand, fn))
+    return fn(e)
+
+
+# --- fingerprinting -----------------------------------------------------------
+
+
+# Literal types whose VALUES may be hoisted out of a parameterized
+# fingerprint (query/parameterize.py): the lowering binds these values
+# as runtime binding slots, so the traced program is value-independent.
+# booleans and nulls are STATIC RESIDUE — the lexer keeps true/false/
+# null as keywords (workload.normalize_query never hoists them), and
+# their two-or-one-value domains cannot grow a shape spectrum anyway.
+HOISTABLE_LITERAL_TYPES = frozenset(
+    (EValueType.int64, EValueType.uint64, EValueType.double,
+     EValueType.string))
+
+
+def _repr_expr(e, omit_values: bool = False) -> str:
+    # Deterministic structural serialization.  With omit_values=False
+    # literal VALUES are included (the historical per-constant
+    # fingerprint).  With omit_values=True (the parameterized shape
+    # fingerprint — the analog of InferName(omitValues) feeding the
+    # reference's llvm::FoldingSet profiler) hoistable literal values
+    # collapse to `?`: the lowering passes them as runtime bindings, so
+    # one compiled program serves every constant of the shape.  Counts
+    # stay structural — IN-list membership loops, BETWEEN range lists
+    # and TRANSFORM tables trace a fixed iteration count (IN bucketed
+    # pow2 by the binder; the others exact).
+    def rec(x):
+        return _repr_expr(x, omit_values)
+
+    if isinstance(e, TLiteral):
+        if omit_values and not isinstance(e.type, EValueType):
+            # Vector (parametric-type) literal: the query vector is a
+            # runtime binding; the dim stays in the type spelling so one
+            # program serves every query vector of that dim.
+            return f"L({e.type.value},?)"
+        if omit_values and e.type in HOISTABLE_LITERAL_TYPES:
+            return f"L({e.type.value},?)"
+        return f"L({e.type.value},{e.value!r})"
+    if isinstance(e, TReference):
+        return f"R({e.name})"
+    if isinstance(e, TFunction):
+        return f"F({e.name};{','.join(map(rec, e.args))})"
+    if isinstance(e, TUnary):
+        return f"U({e.op};{rec(e.operand)})"
+    if isinstance(e, TBinary):
+        return f"B({e.op};{rec(e.lhs)};{rec(e.rhs)})"
+    if isinstance(e, TIn):
+        if omit_values:
+            from ytsaurus_tpu_torch.chunks.columnar import next_pow2
+            return (f"I({','.join(map(rec, e.operands))};"
+                    f"#{next_pow2(len(e.values))})")
+        return f"I({','.join(map(rec, e.operands))};{e.values!r})"
+    if isinstance(e, TBetween):
+        if omit_values:
+            lens = tuple((len(lo), len(hi)) for lo, hi in e.ranges)
+            return (f"W({','.join(map(rec, e.operands))};#{lens!r};"
+                    f"{e.negated})")
+        return f"W({','.join(map(rec, e.operands))};{e.ranges!r};{e.negated})"
+    if isinstance(e, TTransform):
+        if omit_values:
+            widths = tuple(len(t) for t in e.from_values)
+            return (f"T({','.join(map(rec, e.operands))};#{widths!r};"
+                    f"{rec(e.default) if e.default else ''})")
+        return (f"T({','.join(map(rec, e.operands))};{e.from_values!r};"
+                f"{e.to_values!r};{rec(e.default) if e.default else ''})")
+    if isinstance(e, TStringPredicate):
+        pattern = "?" if omit_values else repr(e.pattern)
+        return (f"S({e.kind};{rec(e.operand)};{pattern};"
+                f"{e.case_insensitive};{e.negated})")
+    if e is None:
+        return "-"
+    raise TypeError(f"Unknown expr node {type(e).__name__}")
+
+
+def fingerprint(query: "Query | FrontQuery",
+                omit_values: bool = False) -> str:
+    """Stable plan fingerprint.  omit_values=True produces the
+    PARAMETERIZED shape fingerprint: hoistable literal values and the
+    exact OFFSET/LIMIT collapse (limits to their pow2 bucket — they
+    shape the compiled program's top-k candidate count, so they are
+    static residue that buckets instead of hoisting).  Callers should
+    normally go through query/parameterize.plan_fingerprint, which
+    consults CompileConfig."""
+    def rec(e):
+        return _repr_expr(e, omit_values)
+
+    parts: list[str] = [type(query).__name__]
+    parts.append(",".join(f"{c.name}:{c.type.value}" for c in query.schema))
+    if isinstance(query, Query):
+        parts.append(str(query.source))
+        for j in query.joins:
+            parts.append(
+                f"J({j.foreign_table};{j.alias};{j.is_left};"
+                f"{','.join(map(rec, j.self_equations))};"
+                f"{','.join(map(rec, j.foreign_equations))};"
+                f"{','.join(j.foreign_columns)})")
+        parts.append(rec(query.where))
+    if query.group:
+        parts.append("G(" + ";".join(
+            f"{i.name}={rec(i.expr)}" for i in query.group.group_items) + ")")
+        parts.append("A(" + ";".join(
+            f"{a.name}={a.function}({rec(a.argument) if a.argument else ''}"
+            f";{rec(a.by_argument) if a.by_argument else ''})"
+            for a in query.group.aggregate_items) + f";{query.group.totals})")
+    if query.window:
+        parts.append("WIN(" + ";".join(
+            f"{i.name}={rec(i.expr)}"
+            for i in query.window.partition_items) + "|" + ";".join(
+            f"{rec(i.expr)}:{i.descending}"
+            for i in query.window.order_items) + "|" + ";".join(
+            f"{w.name}={w.function}({rec(w.argument) if w.argument else ''}"
+            f";{w.frame};{w.offset};"
+            f"{rec(w.default) if w.default else ''})"
+            for w in query.window.items) + ")")
+    parts.append(rec(query.having))
+    if query.order:
+        parts.append("O(" + ";".join(
+            f"{rec(i.expr)}:{i.descending}" for i in query.order.items) + ")")
+    if query.project:
+        parts.append("P(" + ";".join(
+            f"{i.name}={rec(i.expr)}" for i in query.project.items) + ")")
+    if omit_values:
+        from ytsaurus_tpu_torch.chunks.columnar import next_pow2
+        off_b = next_pow2(query.offset) if query.offset > 0 else 0
+        lim_b = next_pow2(max(query.limit, 1)) \
+            if query.limit is not None else None
+        parts.append(f"{off_b}/{lim_b}")
+    else:
+        parts.append(f"{query.offset}/{query.limit}")
+    return hashlib.sha256("|".join(parts).encode()).hexdigest()[:24]
