@@ -5,20 +5,31 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. environment: the card's name and power limit, torch and CUDA versions;
-  2. build: the hist_rank kernel from csrc/hist_rank.cu, with nvcc;
-  3. kernel against its plain version on the card, exactly, at N = 2048,
-     8192 and 67,108,864, bits 1, 6 and 8, digits all equal, all 2^bits - 1
-     and random; and the kernel's radix argsort against torch.sort(stable)
-     on the same keys;
+  2. build: every kernel source of the port (csrc/hist_rank.cu,
+     csrc/radix_upsweep.cu, csrc/radix_onesweep.cu), one nvcc each, all
+     started together;
+  3. each kernel against its plain version on the card, exactly:
+     hist_rank at N = 2048, 8192 and 67,108,864, bits 1, 6 and 8;
+     radix_upsweep (with and without a permutation) and radix_onesweep
+     (every tile layout, every digit position) at N = 2048, 10,000 and
+     67,108,864; digits all equal, all 255 (all 2^bits - 1) and random.
+     Then the radix argsort against torch.sort(stable=True) on 67,108,864
+     single-word keys with ties and on 67,108,864 two-word keys (int64
+     below 2^40, so three of eight digit passes are constant and skipped);
   4. the slice: TPC-H lineitem at 64,000,000 rows (SF ~10.7) made from
      --seed, then select_rows(Q1) and select_rows(Q18_AGG) on the card,
      checked against numpy oracles (Q1: groups and counts exact, doubles to
      rtol=1e-9; Q18_AGG: keys, order, sums and line counts exact). Each
-     query runs once with the kernel's launch count set to 0 before it and
-     read after it, then REPS more times for its warm time, then once
-     under torch.profiler for its device time by kernel and idle share;
-  5. the `kernels` line: each kernel's time at the main path's shape, its
-     plain version's time, its bound, and its launches on the main path.
+     query runs once with every kernel's launch count set to 0 before it
+     and read after it (it fails unless radix_upsweep and radix_onesweep
+     were launched), then REPS more times for its warm time, then once
+     under torch.profiler for its device time by kernel and idle share (it
+     fails unless the trace holds as many kernels of each port kernel as
+     were launched);
+  5. the `kernels` line: each kernel's time at the main path's shape (the
+     one-sweep pass at every tile layout), its plain version's time, its
+     bound, a library call's time where one PyTorch call computes the same
+     function, and its launches on the main path.
 
 The last line of standard output is {"ok": true, "device": {...}}. With
 --record, a JSON record of the run is also written to PATH.
@@ -41,6 +52,16 @@ H100_BYTES_PER_S = 3.35e12
 ROWS = 64_000_000            # lineitem rows: the repo's q1 bench size
 MAIN_N = 67_108_864          # pad_capacity(ROWS): the main path's sort width
 REPS = 5                     # warm runs per query; the median is reported
+M32 = 0xFFFFFFFF
+# Each port kernel by its wrapper's name, and the name of its CUDA kernel
+# in a profiler trace.
+TRACE_NAMES = {"hist_rank": "hist_rank_kernel",
+               "radix_upsweep": "radix_upsweep_kernel",
+               "radix_onesweep": "radix_onesweep_kernel"}
+# The kernels that every query's sorts go through. hist_rank keeps the
+# Pallas kernel's interface and is checked against its plain version, but
+# the main path ranks its tiles inside radix_onesweep.
+PATH_KERNELS = ("radix_upsweep", "radix_onesweep")
 
 
 def _log(msg: str) -> None:
@@ -82,9 +103,41 @@ def _digits(kind: str, n: int, bits: int, gen):
                          device="cuda", generator=gen)
 
 
-def phase_kernel(hr, radix_argsort_u32, seed: int) -> dict:
+def _words(kind: str, n: int, gen):
+    """u32 sort words (int64): every digit equal (0x5A), every digit 255,
+    or random."""
     import torch
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if kind == "equal":
+        return torch.full((n,), 0x5A5A5A5A, dtype=torch.int64, device="cuda")
+    if kind == "max":
+        return torch.full((n,), M32, dtype=torch.int64, device="cuda")
+    return torch.randint(0, 1 << 32, (n,), dtype=torch.int64, device="cuda",
+                         generator=gen)
+
+
+def _launches(hr, rx) -> dict:
+    return {"hist_rank": hr.launches, **rx.launches}
+
+
+def _reset_launches(hr, rx) -> None:
+    hr.reset_launches()
+    rx.reset_launches()
+
+
+def _exact(name: str, got, want) -> int:
+    """0 when the tensors are equal; raises otherwise."""
+    import torch
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not torch.equal(got, want):
+        diff = "shape" if got.shape != want.shape else \
+            int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        raise AssertionError(f"{name} differs from its plain version: {diff}")
+    return 0
+
+
+def phase_hist_rank(hr, gen) -> int:
+    """The largest difference between hist_rank and its plain version (0,
+    or this raises)."""
     worst = 0
     for n in (2048, 8192, MAIN_N):
         for bits in (1, 6, 8):
@@ -92,32 +145,150 @@ def phase_kernel(hr, radix_argsort_u32, seed: int) -> dict:
                 d = _digits(kind, n, bits, gen)
                 counts, rank = hr.hist_rank(d, bits)
                 want_counts, want_rank = hr.hist_rank_plain(d, bits)
-                torch.cuda.synchronize()
-                err = max(int((counts - want_counts).abs().max()),
-                          int((rank - want_rank).abs().max()))
-                worst = max(worst, err)
-                if err:
-                    raise AssertionError(
-                        f"hist_rank differs from its plain version at "
-                        f"N={n} bits={bits} digits={kind}: {err}")
+                where = f"hist_rank at N={n} bits={bits} digits={kind}"
+                worst = max(worst, _exact(where, counts, want_counts),
+                            _exact(where, rank, want_rank))
                 del d, counts, rank, want_counts, want_rank
         _log(f"hist_rank == plain at N={n}, bits 1/6/8, "
              "digits equal/max/random")
+    return worst
+
+
+def phase_radix_kernels(rx, gen) -> dict:
+    """The largest difference between each radix kernel and its plain
+    version (0, or this raises)."""
+    import torch
+    worst = {"radix_upsweep": 0, "radix_onesweep": 0}
+    for n in (2048, 10_000, MAIN_N):
+        perm = torch.randperm(n, device="cuda", generator=gen
+                              ).to(torch.int32)
+        for kind in ("equal", "max", "random"):
+            w = _words(kind, n, gen)
+            for p in (None, perm):
+                got = rx.radix_upsweep(w, p, rx.MAX_POSITIONS)
+                want = rx.radix_upsweep_plain(w, p, rx.MAX_POSITIONS)
+                where = (f"radix_upsweep at N={n} words={kind} "
+                         f"perm={'none' if p is None else 'random'}")
+                worst["radix_upsweep"] = max(worst["radix_upsweep"],
+                                             _exact(where, got[0], want[0]),
+                                             _exact(where, got[1], want[1]))
+            key, hist = rx.radix_upsweep(w, None, rx.MAX_POSITIONS)
+            bin_start = torch.cumsum(hist, 1, dtype=torch.int32) - hist
+            for pos in range(rx.MAX_POSITIONS):
+                shift = rx.DIGIT_BITS * pos
+                want = rx.radix_onesweep_plain(key, perm, shift)
+                for items in rx.LAYOUTS:
+                    got = rx.radix_onesweep(key, perm, shift, bin_start[pos],
+                                            items=items)
+                    where = (f"radix_onesweep at N={n} digits={kind} "
+                             f"shift={shift} items={items}")
+                    worst["radix_onesweep"] = max(
+                        worst["radix_onesweep"],
+                        _exact(where, got[0], want[0]),
+                        _exact(where, got[1], want[1]))
+                del want, got
+            del w, key, hist, bin_start
+        _log(f"radix_upsweep == plain at N={n} (permutation none/random), "
+             f"radix_onesweep == plain at N={n} (shifts 0/8/16/24, items "
+             f"{'/'.join(map(str, rx.LAYOUTS))}); digits equal/max/random")
+    return worst
+
+
+def phase_argsort(rx, gen) -> dict:
+    import torch
     keys = torch.randint(0, 1 << 32, (MAIN_N,), dtype=torch.int64,
                          device="cuda", generator=gen)
-    keys[: MAIN_N // 4] = keys[: MAIN_N // 4] & 0xFF    # many ties
-    perm = radix_argsort_u32([keys])
+    keys[: MAIN_N // 4] &= 0xFF                          # many ties
+    perm = rx.radix_argsort_u32([keys])
     want = torch.sort(keys, stable=True).indices
     torch.cuda.synchronize()
     if not torch.equal(perm, want):
-        raise AssertionError("radix argsort differs from torch.sort(stable)")
-    radix_ms = _cuda_ms(lambda: radix_argsort_u32([keys]), iters=3)
-    sort_ms = _cuda_ms(lambda: torch.sort(keys, stable=True), iters=3)
-    _log(f"radix argsort == torch.sort(stable) on {MAIN_N} u32 keys; "
-         f"radix_argsort_u32 {radix_ms:.3f} ms, torch.sort(stable) "
-         f"{sort_ms:.3f} ms (yardstick only, not on the port's path)")
-    return {"max_abs_err": worst, "argsort_ms": radix_ms,
-            "torch_sort_stable_ms": sort_ms}
+        raise AssertionError("radix argsort differs from torch.sort(stable) "
+                             "on one-word keys")
+    # Two words of an int64 key below 2^40: the high word's digits 1-3 are
+    # zero in every row, so three of the eight passes are skipped.
+    wide = torch.randint(0, 1 << 40, (MAIN_N,), dtype=torch.int64,
+                         device="cuda", generator=gen)
+    rx.reset_launches()
+    perm = rx.radix_argsort_u32([wide >> 32, wide & M32])
+    torch.cuda.synchronize()
+    passes = dict(rx.launches)
+    want = torch.sort(wide, stable=True).indices
+    torch.cuda.synchronize()
+    if not torch.equal(perm, want):
+        raise AssertionError("radix argsort differs from torch.sort(stable) "
+                             "on two-word keys")
+    if passes != {"radix_upsweep": 2, "radix_onesweep": 5}:
+        raise AssertionError(f"two-word keys below 2^40 took {passes}, not "
+                             "2 upsweeps and 5 one-sweep passes")
+    del wide, perm, want
+    radix_ms = _cuda_ms(lambda: rx.radix_argsort_u32([keys]), iters=5)
+    sort_ms = _cuda_ms(lambda: torch.sort(keys, stable=True), iters=5)
+    _log(f"radix argsort == torch.sort(stable) on {MAIN_N} one-word keys "
+         f"and on {MAIN_N} two-word keys (3 constant passes skipped: "
+         f"{passes}); radix_argsort_u32 {radix_ms:.4f} ms, "
+         f"torch.sort(stable) {sort_ms:.4f} ms on the one-word keys")
+    return {"argsort_ms": radix_ms, "torch_sort_stable_ms": sort_ms,
+            "two_word_launches": passes}
+
+
+def _profile(run, hr, rx) -> dict:
+    """One run of `run` under torch.profiler: device time by kernel name
+    and by the torch op that launched it, and the device's idle share of
+    the wall time (both as seen under the profiler, which slows the host).
+    Busy time is the union of the device events' spans; `listed_sum_ms` is
+    their plain sum, so that the two show any overlap. Raises unless the
+    trace holds as many kernels of each port kernel as the run launched."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    _reset_launches(hr, rx)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    launched = _launches(hr, rx)
+    by_kernel: dict = {}
+    spans = []
+    traced = dict.fromkeys(TRACE_NAMES, 0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and \
+                not getattr(e, "is_user_annotation", False):
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total
+            spans.append((e.time_range.start, e.time_range.end))
+            for kernel, trace_name in TRACE_NAMES.items():
+                traced[kernel] += trace_name in e.name
+    if traced != launched:
+        raise AssertionError(f"the trace holds {traced} port kernels, the "
+                             f"run launched {launched}")
+    listed_us = sum(by_kernel.values())
+    busy_us = _busy_us(spans)
+    if busy_us <= 0:
+        raise AssertionError("the trace holds no device time")
+    by_op = sorted(((e.key, e.self_device_time_total, e.count)
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CPU
+                    and e.self_device_time_total > 0),
+                   key=lambda x: -x[1])[:8]
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    port_ms = {kernel: sum(us for name, us in by_kernel.items()
+                           if trace_name in name) / 1e3
+               for kernel, trace_name in TRACE_NAMES.items()}
+    return {
+        "wall_ms": wall_us / 1e3,
+        "launched": launched,
+        "traced": traced,
+        "port_kernels_ms": port_ms,
+        "listed_sum_ms": listed_us / 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "idle_share": 1 - busy_us / wall_us,
+        "top_kernels_ms": [[name[:90], us / 1e3] for name, us in top],
+        "top_ops_self_device_ms": [[key, us / 1e3, count]
+                                   for key, us, count in by_op],
+    }
 
 
 def _busy_us(spans: list) -> float:
@@ -129,57 +300,6 @@ def _busy_us(spans: list) -> float:
             busy += end - max(start, reach)
             reach = end
     return busy
-
-
-def _profile(run, hr) -> dict:
-    """One run of `run` under torch.profiler: device time by kernel name
-    and by the torch op that launched it, and the device's idle share of
-    the wall time (both as seen under the profiler, which slows the host).
-    Busy time is the union of the device events' spans; `listed_sum_ms`
-    is their plain sum, so that the two show any overlap. Busy time and
-    idle share read "not measured" when the trace is empty or lacks a
-    hist_rank kernel that the run launched."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    hr.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-    launched = hr.launches
-    by_kernel: dict = {}
-    spans = []
-    traced_hist_rank = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and \
-                not getattr(e, "is_user_annotation", False):
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total
-            spans.append((e.time_range.start, e.time_range.end))
-            traced_hist_rank += "hist_rank" in e.name
-    listed_us = sum(by_kernel.values())
-    busy_us = _busy_us(spans)
-    complete = busy_us > 0 and traced_hist_rank == launched
-    by_op = sorted(((e.key, e.self_device_time_total, e.count)
-                    for e in prof.key_averages()
-                    if e.device_type == DeviceType.CPU
-                    and e.self_device_time_total > 0),
-                   key=lambda x: -x[1])[:8]
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    return {
-        "wall_ms": wall_us / 1e3,
-        "hist_rank_launched": launched,
-        "hist_rank_traced": traced_hist_rank,
-        "listed_sum_ms": listed_us / 1e3,
-        "device_busy_ms": busy_us / 1e3 if complete else "not measured",
-        "idle_share": 1 - busy_us / wall_us if complete else "not measured",
-        "top_kernels_ms": [[name[:90], us / 1e3] for name, us in top],
-        "top_ops_self_device_ms": [[key, us / 1e3, count]
-                                   for key, us, count in by_op],
-    }
 
 
 def _check_q1(rows: list, oracle: dict) -> None:
@@ -203,7 +323,7 @@ def _check_q18(rows: list, oracle: list) -> None:
                              f"{rows[:3]} vs {oracle[:3]}")
 
 
-def phase_slice(seed: int, hr, tpch, select_rows) -> dict:
+def phase_slice(seed: int, hr, rx, tpch, select_rows) -> dict:
     import torch
     t0 = time.perf_counter()
     arrays = tpch.lineitem_arrays(ROWS, seed=seed)
@@ -221,15 +341,17 @@ def phase_slice(seed: int, hr, tpch, select_rows) -> dict:
     out = {}
     for name, (query, check, oracle) in queries.items():
         torch.cuda.reset_peak_memory_stats()
-        hr.reset_launches()
+        torch.cuda.synchronize()
+        _reset_launches(hr, rx)
         result = select_rows(query, tables, device="cuda")
         torch.cuda.synchronize()
-        launches = hr.launches
+        launches = _launches(hr, rx)
         rows = result.to_rows()
         check(rows, oracle)
-        if launches <= 0:
-            raise AssertionError(f"{name}: the main path launched no "
-                                 "hist_rank kernel")
+        for kernel in PATH_KERNELS:
+            if launches[kernel] <= 0:
+                raise AssertionError(f"{name}: the main path launched no "
+                                     f"{kernel} kernel")
         times = []
         for _ in range(REPS):
             torch.cuda.synchronize()
@@ -240,34 +362,88 @@ def phase_slice(seed: int, hr, tpch, select_rows) -> dict:
         ms = statistics.median(times)
         peak = torch.cuda.max_memory_allocated()
         prof = _profile(lambda: select_rows(query, tables, device="cuda"),
-                        hr)
-        out[name] = {"rows_out": len(rows), "hist_rank_launches": launches,
+                        hr, rx)
+        out[name] = {"rows_out": len(rows), "launches": launches,
                      "median_ms": ms, "ms_runs": times,
                      "rows_per_s": ROWS / (ms / 1e3),
                      "peak_bytes": peak, "profile": prof}
-        _log(f"{name}: {len(rows)} rows match the oracle; hist_rank "
-             f"launches {launches}; warm median {ms:.3f} ms over "
-             f"{REPS} runs {[round(x, 3) for x in times]}; "
-             f"{ROWS / (ms / 1e3):.0f} rows/s; peak memory "
-             f"{peak / 1e9:.3f} GB")
+        _log(f"{name}: {len(rows)} rows match the oracle; launches "
+             f"{launches}; warm median {ms:.3f} ms over {REPS} runs "
+             f"{[round(x, 3) for x in times]}; {ROWS / (ms / 1e3):.0f} "
+             f"rows/s; peak memory {peak / 1e9:.3f} GB")
         _log(f"{name} profile: {json.dumps(prof)}")
     del chunk, tables
     torch.cuda.empty_cache()
     return out
 
 
-def phase_kernel_times(hr, seed: int) -> dict:
+def _bound_ms(nbytes: float) -> float:
+    return nbytes / H100_BYTES_PER_S * 1e3
+
+
+def phase_kernel_times(hr, rx, seed: int) -> dict:
+    """Each kernel's time at the main path's width, by CUDA events, beside
+    its plain version's, its bound and, where one PyTorch call computes the
+    same function, that call's."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    out = {}
     bits = hr.BITS
     d = _digits("random", MAIN_N, bits, gen)
-    ms = _cuda_ms(lambda: hr.hist_rank(d, bits), iters=20)
-    plain_ms = _cuda_ms(lambda: hr.hist_rank_plain(d, bits), iters=3)
-    # Each digit read once, each rank written once, one counts row per tile.
-    nbytes = MAIN_N * 4 + MAIN_N * 4 + (MAIN_N // hr.TILE) * (1 << bits) * 4
-    bound_ms = nbytes / H100_BYTES_PER_S * 1e3
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bytes": nbytes}
+    out["hist_rank"] = {
+        "ms": _cuda_ms(lambda: hr.hist_rank(d, bits), iters=20),
+        "plain_ms": _cuda_ms(lambda: hr.hist_rank_plain(d, bits), iters=3),
+        # Each digit read once, each rank written once, a counts row a tile.
+        "bound_ms": _bound_ms(MAIN_N * 8 + (MAIN_N // hr.TILE)
+                              * (1 << bits) * 4),
+        "library_ms": None,
+        "shape": f"N={MAIN_N}, bits={bits}"}
+    del d
+
+    word = _words("random", MAIN_N, gen)
+    perm = torch.randperm(MAIN_N, device="cuda", generator=gen
+                          ).to(torch.int32)
+    pos = rx.MAX_POSITIONS
+    hist_bytes = pos * rx.BINS * 4
+    out["radix_upsweep"] = {
+        "ms": _cuda_ms(lambda: rx.radix_upsweep(word, None, pos), iters=20),
+        "plain_ms": _cuda_ms(lambda: rx.radix_upsweep_plain(word, None, pos),
+                             iters=3),
+        # First word: the word read (8 B), the key plane written (4 B).
+        "bound_ms": _bound_ms(MAIN_N * 12 + hist_bytes),
+        "library_ms": None,
+        "gather_ms": _cuda_ms(lambda: rx.radix_upsweep(word, perm, pos),
+                              iters=20),
+        "gather_plain_ms": _cuda_ms(
+            lambda: rx.radix_upsweep_plain(word, perm, pos), iters=3),
+        # A later word: perm (4 B) and word (8 B) read, key (4 B) written.
+        "gather_bound_ms": _bound_ms(MAIN_N * 16 + hist_bytes),
+        "shape": f"N={MAIN_N}, {pos} digit positions; gather_*: through a "
+                 "random permutation"}
+
+    key, hist = rx.radix_upsweep(word, None, pos)
+    bin_start = (torch.cumsum(hist, 1, dtype=torch.int32) - hist)[0]
+    val = torch.arange(MAIN_N, dtype=torch.int32, device="cuda")
+    digit = key & 0xFF
+    layouts = {items: _cuda_ms(lambda: rx.radix_onesweep(
+                   key, val, 0, bin_start, items=items), iters=20)
+               for items in rx.LAYOUTS}
+    out["radix_onesweep"] = {
+        "ms": layouts[rx.ITEMS],
+        "plain_ms": _cuda_ms(lambda: rx.radix_onesweep_plain(key, val, 0),
+                             iters=3),
+        # Keys and values read once and written once; the bin starts read.
+        "bound_ms": _bound_ms(MAIN_N * 16 + rx.BINS * 4),
+        # One call that computes the pass's stable order by the digit.
+        "library_ms": _cuda_ms(lambda: torch.sort(digit, stable=True),
+                               iters=20),
+        "items": rx.ITEMS,
+        "layouts_ms": {f"{rx.THREADS}x{items}": ms
+                       for items, ms in layouts.items()},
+        "shape": f"N={MAIN_N}, 8-bit digit, random keys"}
+    _log(f"radix_onesweep by tile layout (threads x items): "
+         f"{out['radix_onesweep']['layouts_ms']} ms")
+    return out
 
 
 def main() -> int:
@@ -285,7 +461,7 @@ def main() -> int:
     from ytsaurus_tpu_torch import _build
     from ytsaurus_tpu_torch.models import tpch
     from ytsaurus_tpu_torch.ops import hist_rank as hr
-    from ytsaurus_tpu_torch.ops.radix import radix_argsort_u32
+    from ytsaurus_tpu_torch.ops import radix as rx
     from ytsaurus_tpu_torch.query import select_rows
 
     # 1. environment
@@ -297,48 +473,57 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    _build.load("hist_rank")
-    info = _build.build_info["hist_rank"]
-    _log(f"built hist_rank in {time.perf_counter() - t0:.2f} s "
-         f"(nvcc {info['seconds']:.2f} s)")
-    _log(info["log"].strip())
+    _build.load_all(list(TRACE_NAMES))
+    _log(f"built {', '.join(TRACE_NAMES)} in "
+         f"{time.perf_counter() - t0:.2f} s")
+    for name in TRACE_NAMES:
+        info = _build.build_info[name]
+        _log(f"{name}: nvcc {info['seconds']:.2f} s")
+        _log(info["log"].strip())
 
-    # 3. kernel against its plain version
-    kernel_check = phase_kernel(hr, radix_argsort_u32, args.seed)
+    # 3. kernels against their plain versions, and the argsort
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    errors = {"hist_rank": phase_hist_rank(hr, gen),
+              **phase_radix_kernels(rx, gen)}
+    argsort = phase_argsort(rx, gen)
 
     # 4. the slice
-    slice_result = phase_slice(args.seed, hr, tpch, select_rows)
+    slice_result = phase_slice(args.seed, hr, rx, tpch, select_rows)
 
     # 5. the kernels line
-    times = phase_kernel_times(hr, args.seed)
-    launches = {name: q["hist_rank_launches"]
-                for name, q in slice_result.items()}
-    kernels = {"kernels": [{
-        "name": "hist_rank",
-        "route": "cuda",
-        "source": "ytsaurus_tpu_torch/csrc/hist_rank.cu",
-        "replaces": "ytsaurus_tpu/ops/pallas_radix.py:51",
-        "launches": sum(launches.values()),
-        "launches_per_query": launches,
-        "max_abs_err": kernel_check["max_abs_err"],
-        "ms": times["ms"],
-        "plain_ms": times["plain_ms"],
-        "bound_ms": times["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": None,
-        "shape": f"N={MAIN_N}, bits={hr.BITS}",
-    }]}
+    times = phase_kernel_times(hr, rx, args.seed)
+    kernels = []
+    for name in TRACE_NAMES:
+        per_query = {q: r["launches"][name] for q, r in slice_result.items()}
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": f"ytsaurus_tpu_torch/csrc/{name}.cu",
+            "replaces": "ytsaurus_tpu/ops/pallas_radix.py:50",
+            "launches": sum(per_query.values()),
+            "launches_per_query": per_query,
+            "on_main_path": name in PATH_KERNELS,
+            "max_abs_err": errors[name],
+            "bound_by": "bytes",
+        }
+        entry.update(times[name])
+        kernels.append(entry)
+    kernels[-1]["argsort_ms"] = argsort["argsort_ms"]
+    kernels[-1]["argsort_library_ms"] = argsort["torch_sort_stable_ms"]
+    line = {"kernels": kernels}
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "rows": ROWS,
-              "seed": args.seed, "kernel_check": kernel_check,
-              "queries": slice_result, "kernels": kernels["kernels"]}
+              "seed": args.seed, "argsort": argsort,
+              "queries": slice_result, "kernels": kernels,
+              "ptxas": {name: _build.build_info[name]["log"]
+                        for name in TRACE_NAMES}}
     if args.record:
         os.makedirs(os.path.dirname(os.path.abspath(args.record)),
                     exist_ok=True)
         with open(args.record, "w") as f:
             json.dump(record, f, indent=1)
     _log(smi)
-    _log(json.dumps(kernels))
+    _log(json.dumps(line))
     _log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,11 +6,16 @@ docstring names the file it ports. It imports torch and numpy only:
 nothing of JAX and nothing of the JAX package, whose `__init__` would load
 jax and switch the whole process to 64-bit mode.
 
-Slice 1 runs one QL query over one columnar chunk on one device:
+It runs one QL query over one columnar chunk on one device:
   - query front end (lexer, parser, builder → typed IR), copied;
   - chunks/columnar.py — torch planes on an explicit device;
-  - ops/hist_rank.py + csrc/hist_rank.cu — the radix counting kernel;
-  - ops/radix.py, ops/segments.py — the sort and segment primitives;
+  - ops/radix.py + csrc/radix_upsweep.cu, csrc/radix_onesweep.cu — the
+    stable radix argsort, one-sweep passes written for Hopper;
+  - ops/hist_rank.py + csrc/hist_rank.cu — the Pallas counting kernel's
+    interface, sharing its tile ranking (csrc/tile_rank.cuh);
+  - ops/segments.py — the segment primitives;
+  - bench/onesweep_variants.py — design variants of the one-sweep pass,
+    timed on the card;
   - query/engine — expression binding, plan lowering, the evaluator;
   - models/tpch.py — lineitem, Q1 and the Q18 aggregation.
 

@@ -2,10 +2,11 @@
 
 Each `csrc/<name>.cu` is a file with a plain C interface. At first use it is
 compiled for Hopper (`sm_90a`) into a shared library under `_build/`, named
-by a hash of its source and flags, so a changed source builds anew and an
-unchanged one is loaded as it is. Nothing is built when the package is
-imported: the CPU, where there is no nvcc, never reaches this module's
-`load`.
+by a hash of its source, the `csrc/*.cuh` headers and the flags, so a
+changed source builds anew and an unchanged one is loaded as it is.
+`load_all` builds several sources with one nvcc each, all at once. Nothing
+is built when the package is imported: the CPU, where there is no nvcc,
+never reaches this module's `load`.
 """
 
 from __future__ import annotations
@@ -49,39 +50,64 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """Where the library of `csrc/<name>.cu` lives: named by a hash of the
+    source, the headers beside it and the flags."""
+    digest = hashlib.sha256()
+    for part in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        digest.update(part.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def load_all(names) -> dict[str, ctypes.CDLL]:
+    """The shared library of each `csrc/<name>.cu`, building first every
+    source that has not been built yet, with one nvcc process each, all
+    started together."""
+    with _lock:
+        started = {}
+        for name in names:
+            if name in _loaded or name in started:
+                continue
+            out = library_path(name)
+            if out.exists():
+                build_info[name] = {"seconds": 0.0, "log": ""}
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            started[name] = (proc, tmp, out, time.perf_counter())
+        failed = []
+        for name, (proc, tmp, out, t0) in started.items():
+            log, _ = proc.communicate()
+            seconds = time.perf_counter() - t0
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append(f"nvcc failed to build {name}.cu:\n{log}")
+                continue
+            os.replace(tmp, out)
+            build_info[name] = {"seconds": seconds, "log": log}
+        if failed:
+            raise YtError("\n".join(failed), code=EErrorCode.InvalidConfig)
+        for name in names:
+            if name not in _loaded:
+                _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        return {name: _loaded[name] for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The shared library built from `csrc/<name>.cu`, building it first
     if this source has not been built yet."""
-    with _lock:
-        lib = _loaded.get(name)
-        if lib is not None:
-            return lib
-        out = library_path(name)
-        if out.exists():
-            build_info[name] = {"seconds": 0.0, "log": ""}
-        else:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-                capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise YtError(f"nvcc failed to build {name}.cu:\n"
-                              f"{proc.stdout}{proc.stderr}",
-                              code=EErrorCode.InvalidConfig)
-            os.replace(tmp, out)
-            build_info[name] = {"seconds": seconds,
-                                "log": proc.stdout + proc.stderr}
-        lib = ctypes.CDLL(str(out))
-        _loaded[name] = lib
-        return lib
+    return load_all([name])[name]
+
+
+def function(name: str, symbol: str, argtypes: list):
+    """The C function `symbol` of `csrc/<name>.cu`, typed with `argtypes`
+    and returning an int (a cudaError_t)."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

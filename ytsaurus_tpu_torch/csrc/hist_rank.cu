@@ -13,31 +13,27 @@
 // instructions per element. At N = 67,108,864 and 6 bits that is about 545 MB,
 // or about 0.16 ms at the H100's 3.35 TB/s.
 //
-// Design, simple first. One block of 256 threads (8 warps) per tile. Warp w
-// owns the 256 elements [256w, 256w + 256) of the tile and walks them 32 at a
-// time, in order, so every load is one coalesced 128-byte line. In each step
-// __match_any_sync gives the lanes that hold the same digit, the popcount of
-// the peers below a lane gives its rank within the step, and the warp's
-// running count for that digit, kept in shared memory, lifts it to a rank
-// within the warp; the lowest peer then adds the number of peers to that
-// count. After a barrier, an exclusive scan over the 8 warps of each bin turns
-// the warp counts into warp offsets (their total is the tile's counts row),
-// and each element adds its warp's offset to its rank. The whole state is
-// 8 x 256 ints of shared memory, so many blocks fit on each SM and the loads
-// of one block overlap the scan of another. Nothing here is tuned: a one-sweep
-// design with a decoupled look-back would also fold the caller's scatter in.
+// Design. One block of 256 threads (8 warps) per tile; the rank and the
+// histogram come from tile_rank::rank (tile_rank.cuh), the same device code
+// that ranks each tile inside the one-sweep radix pass (radix_onesweep.cu).
+// Warp w owns the 256 elements [256w, 256w + 256) of the tile and walks them
+// 32 at a time, so every load is one coalesced 128-byte line. The whole state
+// is 9 x 256 ints of shared memory, so many blocks fit on each SM and the
+// loads of one block overlap the scan of another. This kernel keeps the
+// Pallas kernel's interface and leaves the scan across tiles and the scatter
+// to its caller; radix_onesweep.cu folds both into the pass.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tile_rank.cuh"
 
 namespace {
 
 constexpr int kTile = 2048;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kPerWarp = kTile / kWarps;   // 256
-constexpr int kSteps = kPerWarp / 32;      // 8
-constexpr int kMaxBins = 256;
+constexpr int kItems = kTile / kThreads;   // 8 digits per thread
 
 __global__ void __launch_bounds__(kThreads)
 hist_rank_kernel(const int32_t* __restrict__ digits,
@@ -45,56 +41,30 @@ hist_rank_kernel(const int32_t* __restrict__ digits,
                  int32_t* __restrict__ rank,
                  int nbins)
 {
-    __shared__ int32_t warp_count[kWarps][kMaxBins];
+    __shared__ tile_rank::Counts<kWarps> warp_counts;
+    __shared__ int32_t total[tile_rank::kBins];
 
     const int64_t tile = blockIdx.x;
     const int warp = threadIdx.x >> 5;
     const int lane = threadIdx.x & 31;
-
-    for (int i = threadIdx.x; i < kWarps * kMaxBins; i += kThreads) {
-        warp_count[i / kMaxBins][i % kMaxBins] = 0;
-    }
-    __syncthreads();
-
-    const int64_t base = tile * kTile + warp * kPerWarp;
-    const unsigned below = (1u << lane) - 1u;
+    const int64_t base = tile * kTile + warp * (32 * kItems) + lane;
     // Digits are below nbins by contract; the mask only keeps a bad
     // input inside shared memory.
     const int digit_mask = nbins - 1;
-    int digit[kSteps];
-    int local_rank[kSteps];
-
+    int digit[kItems];
+    int local_rank[kItems];
 #pragma unroll
-    for (int s = 0; s < kSteps; ++s) {
-        const int d = digits[base + s * 32 + lane] & digit_mask;
-        const unsigned peers = __match_any_sync(0xffffffffu, d);
-        const int before = __popc(peers & below);
-        const int running = warp_count[warp][d];
-        __syncwarp();
-        if (before == 0) {
-            warp_count[warp][d] = running + __popc(peers);
-        }
-        __syncwarp();
-        digit[s] = d;
-        local_rank[s] = running + before;
+    for (int s = 0; s < kItems; ++s) {
+        digit[s] = digits[base + s * 32] & digit_mask;
     }
-    __syncthreads();
-
+    tile_rank::rank<kWarps, kItems>([&](int s) { return digit[s]; },
+                                    local_rank, warp_counts, total, nbins);
     for (int b = threadIdx.x; b < nbins; b += kThreads) {
-        int acc = 0;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) {
-            const int c = warp_count[w][b];
-            warp_count[w][b] = acc;
-            acc += c;
-        }
-        counts[tile * nbins + b] = acc;
+        counts[tile * nbins + b] = total[b];
     }
-    __syncthreads();
-
 #pragma unroll
-    for (int s = 0; s < kSteps; ++s) {
-        rank[base + s * 32 + lane] = local_rank[s] + warp_count[warp][digit[s]];
+    for (int s = 0; s < kItems; ++s) {
+        rank[base + s * 32] = local_rank[s];
     }
 }
 

@@ -12,6 +12,12 @@ stable counting sort,
 On a CUDA tensor `hist_rank` launches the hand-written kernel
 `csrc/hist_rank.cu`; on a CPU tensor it runs `hist_rank_plain`, written from
 the definition above. There is no fallback from one to the other.
+
+The port's sort does not run this kernel: `ops/radix.py` does each pass in
+one launch of `radix_onesweep`, whose tiles are ranked by the same device
+code (`csrc/tile_rank.cuh`). `hist_rank` keeps the Pallas kernel's interface,
+so that the ranking is held against it there, and `radix_pass`, written on
+`hist_rank_plain`, is the one-sweep pass's plain version.
 """
 
 from __future__ import annotations
@@ -65,13 +71,10 @@ def hist_rank(digits: torch.Tensor, bits: int = BITS
 
 def _kernel():
     from ytsaurus_tpu_torch import _build
-    lib = _build.load("hist_rank")
-    fn = lib.hist_rank_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    return _build.function(
+        "hist_rank", "hist_rank_launch",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 
 
 def _hist_rank_cuda(digits: torch.Tensor, bits: int
@@ -128,13 +131,14 @@ def hist_rank_plain(digits: torch.Tensor, bits: int = BITS
 
 def radix_pass(digit: torch.Tensor, payload: torch.Tensor, bits: int = BITS
                ) -> torch.Tensor:
-    """One stable partition of `payload` by `digit` (< 2^bits): the counting
-    step, the destination arithmetic, and a scatter (each destination is
-    written once). digit and payload are (N,) with N % TILE == 0."""
+    """One stable partition of `payload` by `digit` (< 2^bits) in plain
+    torch, on any device: the counting step (`hist_rank_plain`), the
+    destination arithmetic, and a scatter (each destination is written
+    once). digit and payload are (N,) with N % TILE == 0."""
     n = digit.shape[0]
     nt = n // TILE
     digit = digit.to(torch.int32)
-    counts, rank = hist_rank(digit, bits=bits)
+    counts, rank = hist_rank_plain(digit, bits)
     # Tile t's run of digit b starts after every smaller digit in all tiles
     # and digit b in the tiles before t: one exclusive scan of the counts
     # in bin-major order. (torch's scan down the columns of the (tiles,

@@ -17,8 +17,8 @@ Differences from the reference, all of them forced by torch:
     (`index_add_`, `scatter_reduce_`), the JAX package's CPU engine. On
     CUDA these add floats with atomics in no fixed order, so double sums
     agree with the reference to a relative tolerance, not bit for bit.
-  * Every stable argsort is the radix engine (`ops/radix.py`), whose
-    counting step is the `hist_rank` kernel on the card.
+  * Every stable argsort is the radix engine (`ops/radix.py`): the
+    `radix_upsweep` and `radix_onesweep` kernels on the card.
   * Segment ids past the last segment are dropped explicitly: torch
     raises on an out-of-range index where JAX drops or clamps.
 """
@@ -333,10 +333,10 @@ def pack_key_planes_bits(items) -> tuple[list[torch.Tensor], list[int]]:
 def stable_argsort_u32(words: list[torch.Tensor],
                        word_bits: "list[int] | None" = None) -> torch.Tensor:
     """Stable ascending argsort over u32 key words (major first); int64
-    indices. Always the radix engine: on a CUDA tensor its counting step is
-    the hist_rank kernel, on a CPU tensor the kernel's plain version. A
-    stable argsort has one answer, so this agrees with every engine of the
-    reference."""
+    indices. Always the radix engine: on a CUDA tensor its kernels
+    (`radix_upsweep`, `radix_onesweep`), on a CPU tensor their plain
+    versions. A stable argsort has one answer, so this agrees with every
+    engine of the reference."""
     return radix_argsort_u32(words, word_bits)
 
 
