@@ -19,13 +19,20 @@ Phases (any failure exits non-zero and prints no result line):
   4. the slice: TPC-H lineitem at 64,000,000 rows (SF ~10.7) made from
      --seed, then select_rows(Q1) and select_rows(Q18_AGG) on the card,
      checked against numpy oracles (Q1: groups and counts exact, doubles to
-     rtol=1e-9; Q18_AGG: keys, order, sums and line counts exact). Each
-     query runs once with every kernel's launch count set to 0 before it
-     and read after it (it fails unless radix_upsweep and radix_onesweep
-     were launched), then REPS more times for its warm time, then once
-     under torch.profiler for its device time by kernel and idle share (it
-     fails unless the trace holds as many kernels of each port kernel as
-     were launched);
+     rtol=1e-9; Q18_AGG: keys, order, sums and line counts exact); then
+     TPC-H Q3, the lineitem chunk joined with 16,000,000 orders (seed 1):
+     the 10 order keys and their order exact, revenue to rtol=1e-9 (two
+     orders whose oracle revenues lie within that tolerance may swap);
+     then the window query of the repo's window benchmark over 64,000,000
+     rows in 1000 partitions made from --seed: the running sum and the rank
+     exact, in the input's row order. Each query runs once with every
+     kernel's launch count set to 0 before it and read after it (it fails
+     unless radix_upsweep and radix_onesweep were launched), then REPS more
+     times for its warm time, then once under torch.profiler for its device
+     time by kernel and idle share (it fails unless the trace holds as many
+     kernels of each port kernel as were launched); Q3's profile also gives
+     the device time of the join's phases (foreign sort, binary search,
+     materialization);
   5. the `kernels` line: each kernel's time at the main path's shape (the
      one-sweep pass at every tile layout), its plain version's time, its
      bound, a library call's time where one PyTorch call computes the same
@@ -50,6 +57,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # Published peak memory rate of one H100 SXM (NVIDIA's data sheet).
 H100_BYTES_PER_S = 3.35e12
 ROWS = 64_000_000            # lineitem rows: the repo's q1 bench size
+ORDERS = 16_000_000          # orders rows: Q3's n_orders at ROWS lines
+ORDERS_SEED = 1              # the reference generator's default seed
+WINDOW_ROWS = 64_000_000     # rows of the window query
 MAIN_N = 67_108_864          # pad_capacity(ROWS): the main path's sort width
 REPS = 5                     # warm runs per query; the median is reported
 M32 = 0xFFFFFFFF
@@ -62,6 +72,8 @@ TRACE_NAMES = {"hist_rank": "hist_rank_kernel",
 # Pallas kernel's interface and is checked against its plain version, but
 # the main path ranks its tiles inside radix_onesweep.
 PATH_KERNELS = ("radix_upsweep", "radix_onesweep")
+# Profiler ranges of a join's phases (query/engine/joins.py).
+JOIN_RANGES = ("join.sort_foreign", "join.search", "join.materialize")
 
 
 def _log(msg: str) -> None:
@@ -232,13 +244,15 @@ def phase_argsort(rx, gen) -> dict:
             "two_word_launches": passes}
 
 
-def _profile(run, hr, rx) -> dict:
+def _profile(run, hr, rx, ranges=()) -> dict:
     """One run of `run` under torch.profiler: device time by kernel name
     and by the torch op that launched it, and the device's idle share of
     the wall time (both as seen under the profiler, which slows the host).
     Busy time is the union of the device events' spans; `listed_sum_ms` is
     their plain sum, so that the two show any overlap. Raises unless the
-    trace holds as many kernels of each port kernel as the run launched."""
+    trace holds as many kernels of each port kernel as the run launched.
+    For each profiler range named in `ranges`, the device time of the
+    kernels launched inside it and its share of the busy time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -277,7 +291,17 @@ def _profile(run, hr, rx) -> dict:
     port_ms = {kernel: sum(us for name, us in by_kernel.items()
                            if trace_name in name) / 1e3
                for kernel, trace_name in TRACE_NAMES.items()}
+    in_range = {name: 0.0 for name in ranges}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name in in_range:
+            in_range[e.name] += e.device_time_total
+    if ranges and not any(in_range.values()):
+        raise AssertionError(f"the trace shows no device time in the "
+                             f"ranges {list(ranges)}")
     return {
+        "ranges_ms": {name: us / 1e3 for name, us in in_range.items()},
+        "ranges_share": {name: us / busy_us
+                         for name, us in in_range.items()},
         "wall_ms": wall_us / 1e3,
         "launched": launched,
         "traced": traced,
@@ -302,7 +326,8 @@ def _busy_us(spans: list) -> float:
     return busy
 
 
-def _check_q1(rows: list, oracle: dict) -> None:
+def _check_q1(result, oracle: dict) -> int:
+    rows = result.to_rows()
     got = {(r["l_returnflag"], r["l_linestatus"]): r for r in rows}
     if set(got) != set(oracle):
         raise AssertionError(f"Q1 groups {sorted(got)} != {sorted(oracle)}")
@@ -315,12 +340,98 @@ def _check_q1(rows: list, oracle: dict) -> None:
             if abs(row[name] - value) > 1e-9 * abs(value):
                 raise AssertionError(f"Q1 {key} {name} {row[name]!r} != "
                                      f"{value!r} (rtol 1e-9)")
+    return len(rows)
 
 
-def _check_q18(rows: list, oracle: list) -> None:
+def _check_q18(result, oracle: list) -> int:
+    rows = result.to_rows()
     if rows != oracle:
         raise AssertionError(f"Q18_AGG rows differ from the oracle: "
                              f"{rows[:3]} vs {oracle[:3]}")
+    return len(rows)
+
+
+def _check_q3(result, oracle: list) -> int:
+    """The oracle lists more than the query's 10 rows, so that a row whose
+    revenue ties the 10th within the tolerance can be told apart from a
+    wrong one. Keys and order are exact where revenues differ by more
+    than rtol=1e-9."""
+    rows = result.to_rows()
+    revenue = {r["l_orderkey"]: r["revenue"] for r in oracle}
+    if not rows or len(rows) > len(oracle):
+        raise AssertionError(f"Q3 gave {len(rows)} rows")
+    for i, (row, want) in enumerate(zip(rows, oracle)):
+        key = row["l_orderkey"]
+        if key not in revenue or \
+                abs(row["revenue"] - revenue[key]) > 1e-9 * revenue[key]:
+            raise AssertionError(f"Q3 row {i} {row} does not match the "
+                                 f"oracle's revenue {revenue.get(key)}")
+        if key != want["l_orderkey"] and \
+                abs(revenue[key] - want["revenue"]) > 1e-9 * want["revenue"]:
+            raise AssertionError(f"Q3 row {i} is order {key}, the oracle's "
+                                 f"is {want}")
+    return len(rows)
+
+
+def _check_window(result, oracle: tuple) -> int:
+    """The running sum and the rank exactly, row for row in the input's
+    order, read back as planes (to_rows would take minutes at this
+    size)."""
+    import numpy as np
+    s, r = oracle
+    n = len(s)
+    planes = result.to_numpy()["planes"]
+    if result.row_count != n:
+        raise AssertionError(f"WINDOW gave {result.row_count} rows, not {n}")
+    if not np.array_equal(planes["k"][0][:n], np.arange(n)):
+        raise AssertionError("WINDOW rows are not in the input's order")
+    for name, want in (("s", s), ("r", r)):
+        data, valid = planes[name]
+        if not valid[:n].all() or not np.array_equal(data[:n], want):
+            bad = int(np.flatnonzero(data[:n] != want)[:1].sum())
+            raise AssertionError(f"WINDOW {name} differs from the oracle "
+                                 f"(first at row {bad})")
+    return n
+
+
+def _run_query(name: str, query: str, tables: dict, check, oracle,
+               rows_in: int, hr, rx, select_rows, ranges=()) -> dict:
+    """One query of the slice: a checked run whose launches are counted,
+    REPS warm runs, and one run under the profiler."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _reset_launches(hr, rx)
+    result = select_rows(query, tables, device="cuda")
+    torch.cuda.synchronize()
+    launches = _launches(hr, rx)
+    rows_out = check(result, oracle)
+    del result
+    for kernel in PATH_KERNELS:
+        if launches[kernel] <= 0:
+            raise AssertionError(f"{name}: the main path launched no "
+                                 f"{kernel} kernel")
+    times = []
+    for _ in range(REPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        select_rows(query, tables, device="cuda")
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    ms = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated()
+    prof = _profile(lambda: select_rows(query, tables, device="cuda"),
+                    hr, rx, ranges)
+    out = {"rows_in": rows_in, "rows_out": rows_out, "launches": launches,
+           "median_ms": ms, "ms_runs": times,
+           "rows_per_s": rows_in / (ms / 1e3), "peak_bytes": peak,
+           "profile": prof}
+    _log(f"{name}: {rows_out} rows match the oracle; launches {launches}; "
+         f"warm median {ms:.3f} ms over {REPS} runs "
+         f"{[round(x, 3) for x in times]}; {rows_in / (ms / 1e3):.0f} "
+         f"rows/s; peak memory {peak / 1e9:.3f} GB")
+    _log(f"{name} profile: {json.dumps(prof)}")
+    return out
 
 
 def phase_slice(seed: int, hr, rx, tpch, select_rows) -> dict:
@@ -329,50 +440,42 @@ def phase_slice(seed: int, hr, rx, tpch, select_rows) -> dict:
     arrays = tpch.lineitem_arrays(ROWS, seed=seed)
     chunk = tpch.lineitem_chunk(arrays, device="cuda")
     torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
     _log(f"lineitem: {ROWS} rows, capacity {chunk.capacity}, "
-         f"{chunk.nbytes / 1e9:.3f} GB on the card, made in {setup_s:.1f} s "
-         f"(seed {seed})")
-    queries = {
-        "q1": (tpch.Q1, _check_q1, tpch.q1_oracle(arrays)),
-        "q18_agg": (tpch.Q18_AGG, _check_q18, tpch.q18_agg_oracle(arrays)),
-    }
+         f"{chunk.nbytes / 1e9:.3f} GB on the card, made in "
+         f"{time.perf_counter() - t0:.1f} s (seed {seed})")
     tables = {"//tpch/lineitem": chunk}
-    out = {}
-    for name, (query, check, oracle) in queries.items():
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        _reset_launches(hr, rx)
-        result = select_rows(query, tables, device="cuda")
-        torch.cuda.synchronize()
-        launches = _launches(hr, rx)
-        rows = result.to_rows()
-        check(rows, oracle)
-        for kernel in PATH_KERNELS:
-            if launches[kernel] <= 0:
-                raise AssertionError(f"{name}: the main path launched no "
-                                     f"{kernel} kernel")
-        times = []
-        for _ in range(REPS):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            select_rows(query, tables, device="cuda")
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-        ms = statistics.median(times)
-        peak = torch.cuda.max_memory_allocated()
-        prof = _profile(lambda: select_rows(query, tables, device="cuda"),
-                        hr, rx)
-        out[name] = {"rows_out": len(rows), "launches": launches,
-                     "median_ms": ms, "ms_runs": times,
-                     "rows_per_s": ROWS / (ms / 1e3),
-                     "peak_bytes": peak, "profile": prof}
-        _log(f"{name}: {len(rows)} rows match the oracle; launches "
-             f"{launches}; warm median {ms:.3f} ms over {REPS} runs "
-             f"{[round(x, 3) for x in times]}; {ROWS / (ms / 1e3):.0f} "
-             f"rows/s; peak memory {peak / 1e9:.3f} GB")
-        _log(f"{name} profile: {json.dumps(prof)}")
-    del chunk, tables
+    out = {
+        "q1": _run_query("q1", tpch.Q1, tables, _check_q1,
+                         tpch.q1_oracle(arrays), ROWS, hr, rx, select_rows),
+        "q18_agg": _run_query("q18_agg", tpch.Q18_AGG, tables, _check_q18,
+                              tpch.q18_agg_oracle(arrays), ROWS, hr, rx,
+                              select_rows),
+    }
+
+    t0 = time.perf_counter()
+    orders = tpch.orders_arrays(ORDERS, seed=ORDERS_SEED)
+    tables["//tpch/orders"] = tpch.orders_chunk(orders, device="cuda")
+    torch.cuda.synchronize()
+    _log(f"orders: {ORDERS} rows, capacity "
+         f"{tables['//tpch/orders'].capacity}, made in "
+         f"{time.perf_counter() - t0:.1f} s (seed {ORDERS_SEED})")
+    oracle = tpch.q3_oracle(arrays, orders, limit=2 * tpch.Q3_LIMIT)
+    out["q3"] = _run_query("q3", tpch.Q3, tables, _check_q3, oracle, ROWS,
+                           hr, rx, select_rows, ranges=JOIN_RANGES)
+    del chunk, tables, arrays, orders
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    w_arrays = tpch.window_arrays(WINDOW_ROWS, seed=seed)
+    w_chunk = tpch.window_chunk(w_arrays, device="cuda")
+    torch.cuda.synchronize()
+    _log(f"window table: {WINDOW_ROWS} rows in {tpch.WINDOW_PARTITIONS} "
+         f"partitions, capacity {w_chunk.capacity}, made in "
+         f"{time.perf_counter() - t0:.1f} s (seed {seed})")
+    out["window"] = _run_query(
+        "window", tpch.WINDOW, {"//t": w_chunk}, _check_window,
+        tpch.window_oracle(w_arrays), WINDOW_ROWS, hr, rx, select_rows)
+    del w_chunk, w_arrays
     torch.cuda.empty_cache()
     return out
 
@@ -512,7 +615,8 @@ def main() -> int:
     kernels[-1]["argsort_library_ms"] = argsort["torch_sort_stable_ms"]
     line = {"kernels": kernels}
     record = {"device": smi, "torch": torch.__version__,
-              "cuda": torch.version.cuda, "rows": ROWS,
+              "cuda": torch.version.cuda, "rows": ROWS, "orders": ORDERS,
+              "window_rows": WINDOW_ROWS,
               "seed": args.seed, "argsort": argsort,
               "queries": slice_result, "kernels": kernels,
               "ptxas": {name: _build.build_info[name]["log"]

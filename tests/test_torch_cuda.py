@@ -111,3 +111,104 @@ def test_radix_argsort_skips_constant_digits_on_the_card(cuda_device):
     assert rx.launches == {"radix_upsweep": 2, "radix_onesweep": 5}
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   np.argsort(keys, kind="stable"))
+
+
+# --- the join, window and totals paths on the card ----------------------------
+
+
+def _run_on(device, query: str, tables: dict):
+    from ytsaurus_tpu_torch.chunks.columnar import chunk_from_numpy
+    from ytsaurus_tpu_torch.query import select_rows
+    moved = {path: chunk_from_numpy(**{**spec, "device": device})
+             for path, spec in tables.items()}
+    return select_rows(query, moved, device=device)
+
+
+def _q3_tables() -> dict:
+    from ytsaurus_tpu_torch.models import tpch
+    lineitem = tpch.lineitem_chunk(tpch.lineitem_arrays(50_000, seed=4),
+                                   device="cpu").to_numpy()
+    orders = tpch.orders_chunk(tpch.orders_arrays(12_500, seed=1),
+                               device="cpu").to_numpy()
+    return {"//tpch/lineitem": lineitem, "//tpch/orders": orders}
+
+
+def _spec(chunk_numpy: dict) -> dict:
+    return {k: chunk_numpy[k] for k in ("schema_spec", "row_count", "planes",
+                                        "dictionaries", "sorted_by")}
+
+
+@pytest.mark.parametrize("query", [
+    "__Q3__",
+    "l_orderkey, o_orderdate FROM [//tpch/lineitem] LEFT JOIN "
+    "[//tpch/orders] ON l_orderkey = o_orderkey * 2 LIMIT 5000",
+    "l_returnflag, count(*) AS n, sum(l_quantity) AS q FROM "
+    "[//tpch/lineitem] JOIN [//tpch/orders] ON l_orderkey = o_orderkey "
+    "WHERE o_orderdate < 9000 GROUP BY l_returnflag WITH TOTALS",
+])
+def test_join_on_the_card_matches_the_cpu(cuda_device, query):
+    """Rows in the same order, launched through the radix kernels; the
+    doubles to rtol 1e-9 (atomic float sums)."""
+    from ytsaurus_tpu_torch.models import tpch
+    if query == "__Q3__":
+        query = tpch.Q3
+    tables = {p: _spec(c) for p, c in _q3_tables().items()}
+    rx.reset_launches()
+    got = _run_on(cuda_device, query, tables).to_rows()
+    torch.cuda.synchronize()
+    assert rx.launches["radix_upsweep"] > 0
+    want = _run_on("cpu", query, tables).to_rows()
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for name, value in w.items():
+            if isinstance(value, float):
+                assert g[name] == pytest.approx(value, rel=1e-9), name
+            else:
+                assert g[name] == value, name
+
+
+def test_window_on_the_card_matches_the_cpu(cuda_device):
+    from ytsaurus_tpu_torch.models import tpch
+    arrays = tpch.window_arrays(300_000, seed=5)
+    spec = _spec(tpch.window_chunk(arrays, device="cpu").to_numpy())
+    query = ("k, sum(v) OVER (PARTITION BY g ORDER BY k) AS s, "
+             "dense_rank() OVER (PARTITION BY g ORDER BY k) AS r, "
+             "lag(v, 2, -1) OVER (PARTITION BY g ORDER BY k) AS l, "
+             "min(v) OVER (PARTITION BY g ORDER BY k ROWS BETWEEN 3 "
+             "PRECEDING AND 2 FOLLOWING) AS m, "
+             "avg(v) OVER (PARTITION BY g) AS a FROM [//t]")
+    rx.reset_launches()
+    got = _run_on(cuda_device, query, {"//t": spec}).to_numpy()["planes"]
+    torch.cuda.synchronize()
+    assert rx.launches["radix_onesweep"] > 0
+    want = _run_on("cpu", query, {"//t": spec}).to_numpy()["planes"]
+    for name in ("k", "s", "r", "l", "m"):
+        np.testing.assert_array_equal(got[name][0], want[name][0])
+        np.testing.assert_array_equal(got[name][1], want[name][1])
+    np.testing.assert_allclose(got["a"][0], want["a"][0], rtol=1e-9)
+    s, _ = tpch.window_oracle(arrays)
+    np.testing.assert_array_equal(got["s"][0][:300_000], s)
+
+
+def test_segment_scans_on_the_card_match_the_cpu(cuda_device):
+    from ytsaurus_tpu_torch.ops import segments as seg
+    rng = np.random.default_rng(6)
+    n = 1 << 20
+    starts = rng.random(n) < 0.001
+    starts[0] = True
+    x = rng.integers(-1000, 1000, n)
+    f = rng.normal(size=n)
+    for fn in ("segment_start_index", "segment_end_index",
+               "segment_position"):
+        got = getattr(seg, fn)(torch.from_numpy(starts).to(cuda_device))
+        want = getattr(seg, fn)(torch.from_numpy(starts))
+        assert torch.equal(got.cpu(), want), fn
+    for name in ("sum", "min", "max"):
+        for data in (x, f):
+            got = seg.segment_scan(name, torch.from_numpy(data).to(
+                cuda_device), torch.from_numpy(starts).to(cuda_device))
+            want = seg.segment_scan(name, torch.from_numpy(data),
+                                    torch.from_numpy(starts))
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                       rtol=1e-12)

@@ -305,7 +305,9 @@ def test_asking_for_the_card_without_one_raises():
 
 def test_port_runs_with_jax_and_the_jax_package_blocked():
     """The port imports neither jax nor the JAX package: with both blocked
-    in sys.modules, a CPU query runs end to end in a fresh interpreter."""
+    in sys.modules, CPU queries (an aggregation, the Q3 join and the
+    window query) run end to end in a fresh interpreter, through the
+    join, window and planner modules."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -317,6 +319,20 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
         rows = select_rows(tpch.Q18_AGG, {"//tpch/lineitem": chunk},
                            device="cpu").to_rows()
         assert rows == tpch.q18_agg_oracle(arrays), rows
+        from ytsaurus_tpu_torch.query import planner  # noqa: F401
+        from ytsaurus_tpu_torch.query.engine import joins, window  # noqa: F401
+        orders = tpch.orders_arrays(128, seed=9)
+        q3 = select_rows(tpch.Q3, {
+            "//tpch/lineitem": chunk,
+            "//tpch/orders": tpch.orders_chunk(orders, device="cpu")},
+            device="cpu").to_rows()
+        assert [r["l_orderkey"] for r in q3] == \
+            [r["l_orderkey"] for r in tpch.q3_oracle(arrays, orders)], q3
+        w_arrays = tpch.window_arrays(4096, seed=9)
+        w = select_rows(tpch.WINDOW, {"//t": tpch.window_chunk(
+            w_arrays, device="cpu")}, device="cpu").to_numpy()["planes"]
+        s, r = tpch.window_oracle(w_arrays)
+        assert (w["s"][0][:4096] == s).all() and (w["r"][0][:4096] == r).all()
         assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                              if v is not None}
         print("ok", len(rows))

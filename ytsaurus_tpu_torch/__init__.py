@@ -6,18 +6,22 @@ docstring names the file it ports. It imports torch and numpy only:
 nothing of JAX and nothing of the JAX package, whose `__init__` would load
 jax and switch the whole process to 64-bit mode.
 
-It runs one QL query over one columnar chunk on one device:
+It runs QL queries over columnar chunks on one device:
   - query front end (lexer, parser, builder → typed IR), copied;
-  - chunks/columnar.py — torch planes on an explicit device;
+  - query/planner.py — the cost-based order of multi-way joins;
+  - chunks/columnar.py — torch planes on an explicit device, chunk
+    concatenation and the column statistics the planner reads;
   - ops/radix.py + csrc/radix_upsweep.cu, csrc/radix_onesweep.cu — the
     stable radix argsort, one-sweep passes written for Hopper;
   - ops/hist_rank.py + csrc/hist_rank.cu — the Pallas counting kernel's
     interface, sharing its tile ranking (csrc/tile_rank.cuh);
-  - ops/segments.py — the segment primitives;
+  - ops/segments.py — the segment primitives and scans;
   - bench/onesweep_variants.py — design variants of the one-sweep pass,
     timed on the card;
-  - query/engine — expression binding, plan lowering, the evaluator;
-  - models/tpch.py — lineitem, Q1 and the Q18 aggregation.
+  - query/engine — expression binding, plan lowering, joins, window
+    functions, the evaluator (with WITH TOTALS);
+  - models/tpch.py — lineitem and orders, Q1, Q3, the Q18 aggregation
+    and the window workload.
 
 Every entry point takes `device=`, which defaults to "cuda" and raises
 when no card is present (see device.py).

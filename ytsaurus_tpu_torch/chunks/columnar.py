@@ -1,7 +1,10 @@
 """Columnar chunks: the unit of table data, as torch planes on a device.
 
 Port of the JAX package's `chunks/columnar.py` (`next_pow2`, `pad_capacity`,
-`Column`, `ColumnarChunk`, `from_rows`, `from_arrays`, `to_rows`):
+`Column`, `ColumnarChunk`, `from_rows`, `from_arrays`, `to_rows`,
+`unify_dictionaries`, `concat_chunks`, and the column statistics the join
+planner reads: `chunk_column_stats`, `column_ndv_sketch`, `ndv_estimate`,
+`merge_column_stats`):
 
   * A chunk is a struct-of-arrays: one fixed-width plane per column plus a
     validity plane, padded to a static capacity (a power of two times 128).
@@ -12,8 +15,9 @@ Port of the JAX package's `chunks/columnar.py` (`next_pow2`, `pad_capacity`,
     grouping and sorting on strings are integer work on the device.
   * uint64 planes hold int64 bit patterns (see schema.py).
 
-Left out of this slice: the invariants hook, hunks, stats and sketches,
-`concat_chunks`, `any` and vector columns.
+The statistics are host (numpy) code, as in the reference, over the planes
+read back from the device. Left out: the invariants hook, hunks, `any` and
+vector columns (and so their statistics).
 
 `chunk_from_numpy` / `ColumnarChunk.to_numpy` carry a chunk across as plain
 numpy arrays, so a caller can hand the port the exact bytes another
@@ -22,7 +26,7 @@ implementation computed over.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
@@ -354,3 +358,322 @@ def _build_column(ty: EValueType, values: Sequence[Any], cap: int,
     return Column(type=ty, data=torch.from_numpy(data_np).to(device),
                   valid=torch.from_numpy(valid_np).to(device),
                   dictionary=vocab)
+
+
+# --- dictionary unification and concatenation ------------------------------
+
+
+def unify_dictionaries(columns: Sequence[Column]
+                       ) -> tuple[list[Column], np.ndarray]:
+    """Re-encode string columns onto a shared sorted vocabulary: the
+    remapped columns and the unified vocab. Columns that already share one
+    vocabulary object come back untouched."""
+    string_cols = [c for c in columns if c.type is EValueType.string]
+    if string_cols and all(c.dictionary is not None for c in string_cols):
+        first = string_cols[0].dictionary
+        if all(c.dictionary is first for c in string_cols[1:]):
+            return list(columns), np.asarray(first, dtype=object)
+    vocabs = [c.dictionary for c in columns if c.dictionary is not None]
+    if vocabs:
+        merged = np.unique(np.concatenate(
+            [np.asarray(v, dtype=object) for v in vocabs]))
+    else:
+        merged = np.array([], dtype=object)
+    merged = np.asarray(merged, dtype=object)
+    out = []
+    for col in columns:
+        if col.type is not EValueType.string:
+            out.append(col)
+            continue
+        old_vocab = col.dictionary if col.dictionary is not None \
+            else np.array([], dtype=object)
+        remap_np = np.searchsorted(
+            merged, np.asarray(old_vocab, dtype=object)).astype(np.int32) \
+            if len(old_vocab) else np.zeros(1, dtype=np.int32)
+        remap = torch.from_numpy(remap_np).to(col.data.device)
+        new_codes = remap[col.data.to(torch.int64).clamp(
+            0, len(remap_np) - 1)]
+        out.append(replace(col, data=new_codes.to(torch.int32),
+                           dictionary=merged))
+    return out, merged
+
+
+def concat_chunks(chunks: Sequence[ColumnarChunk]) -> ColumnarChunk:
+    """Concatenate chunks of identical schema into one, on their device,
+    padded to the capacity of the total row count; string columns move to
+    the union of their vocabularies."""
+    if not chunks:
+        raise YtError("concat_chunks: empty input")
+    if len(chunks) == 1:
+        return chunks[0]
+    schema = chunks[0].schema
+    for c in chunks[1:]:
+        if c.schema != schema:
+            raise YtError("concat_chunks: schema mismatch",
+                          code=EErrorCode.ChunkFormatError)
+    device = chunks[0].device
+    total = sum(c.row_count for c in chunks)
+    cap = pad_capacity(max(total, 1))
+    columns: dict[str, Column] = {}
+    for col_schema in schema:
+        name = col_schema.name
+        cols = [c.column(name) for c in chunks]
+        vocab = None
+        if col_schema.type is EValueType.string:
+            cols, vocab = unify_dictionaries(cols)
+        data = torch.zeros(cap, dtype=device_dtype(col_schema.type),
+                           device=device)
+        valid = torch.zeros(cap, dtype=torch.bool, device=device)
+        data[:total] = torch.cat([col.data[:chunk.row_count].to(data.dtype)
+                                  for chunk, col in zip(chunks, cols)])
+        valid[:total] = torch.cat([col.valid[:chunk.row_count]
+                                   for chunk, col in zip(chunks, cols)])
+        columns[name] = Column(type=col_schema.type, data=data, valid=valid,
+                               dictionary=vocab)
+    return ColumnarChunk(schema=schema, row_count=total, columns=columns)
+
+
+# --- column statistics ------------------------------------------------------
+#
+# A fixed 64-register hash-max sketch (the HLL register layout) per column
+# beside min/max/has_null: the cost-based join planner (query/planner.py)
+# reads NDV off it, and sketches merge across chunks by register max.
+
+# Bound on string min/max stat values.
+_STAT_STRING_CAP = 64
+NDV_SKETCH_SLOTS = 64
+_NDV_SLOT_BITS = 6
+_NDV_MAX_RANK = 58              # 64 - slot bits: ranks fit one byte
+
+
+def _splitmix64(x: np.ndarray) -> np.ndarray:
+    """Vectorized splitmix64 over a uint64 array (wrapping arithmetic)."""
+    with np.errstate(over="ignore"):
+        x = x + np.uint64(0x9E3779B97F4A7C15)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return x ^ (x >> np.uint64(31))
+
+
+def _ndv_sketch_from_hashes(hashes: np.ndarray) -> bytes:
+    """Fold uniform uint64 hashes into the 64-register sketch: low bits
+    pick the register, the rank is 1 + trailing-zero count of the rest."""
+    regs = np.zeros(NDV_SKETCH_SLOTS, dtype=np.uint8)
+    if len(hashes):
+        h = hashes.astype(np.uint64)
+        slots = (h & np.uint64(NDV_SKETCH_SLOTS - 1)).astype(np.int64)
+        rest = h >> np.uint64(_NDV_SLOT_BITS)
+        with np.errstate(over="ignore"):
+            lsb = rest & (~rest + np.uint64(1))
+        # log2 of an exact power of two is exact in float64 up to 2^58.
+        rank = np.where(rest == 0, _NDV_MAX_RANK,
+                        1 + np.log2(np.maximum(lsb, 1).astype(np.float64))
+                        ).astype(np.uint8)
+        np.maximum.at(regs, slots, rank)
+    return regs.tobytes()
+
+
+def _hash_string_vocab(vocab: np.ndarray) -> np.ndarray:
+    """Deterministic uint64 content hash per vocab entry: a wrapping
+    polynomial fold per entry over one concatenated byte buffer, the
+    length folded in, then splitmix."""
+    n = len(vocab)
+    if n == 0:
+        return np.zeros(0, dtype=np.uint64)
+    entries = [bytes(v) for v in vocab]
+    lengths = np.fromiter((len(e) for e in entries), count=n,
+                          dtype=np.int64)
+    # A leading sentinel byte per entry keeps every reduceat segment
+    # non-empty and distinguishes b"" from absent.
+    data = np.frombuffer(b"\x01" + b"\x01".join(entries),
+                         dtype=np.uint8).astype(np.uint64)
+    seg_lengths = lengths + 1
+    starts = np.zeros(n, dtype=np.int64)
+    np.cumsum(seg_lengths[:-1], out=starts[1:])
+    p = np.uint64(0x9E3779B97F4A7C15 | 1)
+    with np.errstate(over="ignore"):
+        powers = np.empty(int(seg_lengths.max()), dtype=np.uint64)
+        powers[0] = 1
+        np.cumprod(np.full(len(powers) - 1, p, dtype=np.uint64),
+                   out=powers[1:])
+        pos = np.arange(len(data), dtype=np.int64) - \
+            np.repeat(starts, seg_lengths)
+        h = np.add.reduceat(data * powers[pos], starts)
+        h = h ^ (lengths.astype(np.uint64) *
+                 np.uint64(0xBF58476D1CE4E5B9))
+    return _splitmix64(h)
+
+
+def _host_planes(col: Column, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """The first n rows of a column as numpy (uint64 data as np.uint64)."""
+    data = col.data[:n].cpu().numpy()
+    if col.type is EValueType.uint64:
+        data = data.view(np.uint64)
+    return data, col.valid[:n].cpu().numpy()
+
+
+def column_ndv_sketch(col: Column, row_count: int) -> "bytes | None":
+    """The column's distinct-count sketch over its valid values, or None
+    for types with no meaningful NDV (any/null)."""
+    if col.type in (EValueType.any, EValueType.null):
+        return None
+    n = row_count
+    if not n:
+        return _ndv_sketch_from_hashes(np.zeros(0, dtype=np.uint64))
+    data, valid = _host_planes(col, n)
+    if not valid.any():
+        return _ndv_sketch_from_hashes(np.zeros(0, dtype=np.uint64))
+    data = data[valid]
+    if col.type is EValueType.string:
+        vocab = col.dictionary if col.dictionary is not None \
+            else np.array([], dtype=object)
+        entry_hashes = _hash_string_vocab(vocab)
+        if len(entry_hashes) == 0:
+            hashes = np.zeros(0, dtype=np.uint64)
+        else:
+            hashes = entry_hashes[
+                np.clip(data.astype(np.int64), 0, len(entry_hashes) - 1)]
+    elif col.type is EValueType.double:
+        canon = np.where(data == 0.0, 0.0, data)   # -0.0 == +0.0
+        hashes = _splitmix64(canon.view(np.uint64))
+    else:
+        hashes = _splitmix64(data.astype(np.int64).view(np.uint64)
+                             if col.type is not EValueType.uint64
+                             else data.astype(np.uint64))
+    return _ndv_sketch_from_hashes(hashes)
+
+
+def _sketch_regs(sketch) -> "np.ndarray | None":
+    """Registers from a sketch payload (bytes, or the same bytes spelled
+    as a utf-8 str)."""
+    if sketch is None:
+        return None
+    if isinstance(sketch, str):
+        sketch = sketch.encode("utf-8")
+    regs = np.frombuffer(bytes(sketch), dtype=np.uint8)
+    if len(regs) != NDV_SKETCH_SLOTS:
+        return None                    # corrupt payload: unusable, not fatal
+    return regs
+
+
+def merge_ndv_sketches(sketches) -> "bytes | None":
+    """Elementwise register max: the sketch of the UNION of the inputs."""
+    merged = None
+    for s in sketches:
+        regs = _sketch_regs(s)
+        if regs is None:
+            continue
+        merged = regs.copy() if merged is None else np.maximum(merged, regs)
+    return None if merged is None else merged.tobytes()
+
+
+def ndv_estimate(sketch: "bytes | None") -> int:
+    """Distinct-count estimate off the registers (HLL harmonic mean with
+    the linear-counting small-range correction); >= 1 for a non-empty
+    sketch, 0 for no data."""
+    regs = _sketch_regs(sketch)
+    if regs is None:
+        return 0
+    regs = regs.astype(np.float64)
+    if not regs.any():
+        return 0
+    m = float(NDV_SKETCH_SLOTS)
+    est = 0.709 * m * m / np.sum(np.exp2(-regs))
+    zeros = int((regs == 0).sum())
+    if est <= 2.5 * m and zeros:
+        est = m * np.log(m / zeros)
+    return max(int(round(est)), 1)
+
+
+def merge_column_stats(stats_list: "Sequence[dict]") -> dict:
+    """Fold per-chunk column stats into table-level stats: min of mins,
+    max of maxes (None = unbounded wins), has_null ORs, `$row_count`
+    sums, sketches merge."""
+    def bound(v):
+        return v.encode("utf-8") if isinstance(v, str) else v
+
+    out: dict = {"$row_count": 0}
+    for stats in stats_list:
+        for name, entry in stats.items():
+            if name == "$row_count":
+                out["$row_count"] += int(entry)
+                continue
+            if not isinstance(entry, dict):
+                continue
+            entry = {**entry, "min": bound(entry.get("min")),
+                     "max": bound(entry.get("max"))}
+            cur = out.get(name)
+            if cur is None:
+                out[name] = {"min": entry.get("min"), "max": entry.get("max"),
+                             "has_null": bool(entry.get("has_null")),
+                             "ndv_sketch": entry.get("ndv_sketch"),
+                             "_empty": entry.get("min") is None
+                             and entry.get("max") is None}
+                continue
+            # A chunk with no valid rows (min AND max None) contributes
+            # nothing to the bounds; a lone None bound is unbounded and
+            # wins the merge.
+            entry_empty = entry.get("min") is None and \
+                entry.get("max") is None
+            if not entry_empty:
+                if cur.pop("_empty", False):
+                    cur["min"], cur["max"] = entry.get("min"), \
+                        entry.get("max")
+                else:
+                    for key, pick in (("min", min), ("max", max)):
+                        a, b = cur.get(key), entry.get(key)
+                        cur[key] = None if a is None or b is None \
+                            else pick(a, b)
+                cur["_empty"] = False
+            cur["has_null"] = cur["has_null"] or bool(entry.get("has_null"))
+            cur["ndv_sketch"] = merge_ndv_sketches(
+                [cur.get("ndv_sketch"), entry.get("ndv_sketch")])
+    for entry in out.values():
+        if isinstance(entry, dict):
+            entry.pop("_empty", None)
+    return out
+
+
+def _string_stat_upper(value: bytes) -> "bytes | None":
+    """An upper bound for `value` no longer than the cap: the value itself
+    when short, else the successor of its cap-length prefix; None when no
+    bounded successor exists."""
+    if len(value) <= _STAT_STRING_CAP:
+        return value
+    prefix = value[:_STAT_STRING_CAP].rstrip(b"\xff")
+    if not prefix:
+        return None
+    return prefix[:-1] + bytes([prefix[-1] + 1])
+
+
+def chunk_column_stats(chunk: ColumnarChunk) -> dict:
+    """Per-column min/max/has_null/ndv_sketch statistics, plus
+    `$row_count`."""
+    out: dict[str, dict] = {}
+    n = chunk.row_count
+    for name, col in chunk.columns.items():
+        if col.type in (EValueType.any, EValueType.null):
+            continue
+        data, valid = _host_planes(col, n)
+        entry: dict = {"has_null": bool((~valid).any()) if n else True,
+                       "min": None, "max": None}
+        if n and valid.any():
+            data = data[valid]
+            if col.type is EValueType.string:
+                entry["min"] = bytes(
+                    col.dictionary[int(data.min())])[:_STAT_STRING_CAP]
+                entry["max"] = _string_stat_upper(
+                    bytes(col.dictionary[int(data.max())]))
+            elif col.type is EValueType.boolean:
+                entry["min"] = bool(data.min())
+                entry["max"] = bool(data.max())
+            elif col.type is EValueType.double:
+                entry["min"] = float(data.min())
+                entry["max"] = float(data.max())
+            else:
+                entry["min"] = int(data.min())
+                entry["max"] = int(data.max())
+        entry["ndv_sketch"] = column_ndv_sketch(col, n)
+        out[name] = entry
+    out["$row_count"] = n
+    return out

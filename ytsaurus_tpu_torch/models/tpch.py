@@ -1,13 +1,16 @@
-"""TPC-H lineitem, Q1 and the aggregation of Q18, with numpy oracles.
+"""TPC-H lineitem and orders, Q1, Q3 and the aggregation of Q18, and the
+window workload, with numpy oracles.
 
-Port of the JAX package's `models/tpch.py` (`LINEITEM_SCHEMA`, `Q1`,
-`generate_lineitem`, `q1_reference_numpy`). The generator makes the same
-`np.random.default_rng(seed)` draws in the same order, so its planes match
-the reference's bit for bit.
+Port of the JAX package's `models/tpch.py` (`LINEITEM_SCHEMA`,
+`ORDERS_SCHEMA`, `Q1`, `Q3`, `generate_lineitem`, `q1_reference_numpy`;
+`orders_arrays` draws as `generate_orders` does). The generators make the same
+`np.random.default_rng(seed)` draws in the same order, so their planes
+match the reference's bit for bit.
 
 `Q18_AGG` is TPC-H Q18's inner aggregation (orders whose lines sum to a
-quantity above 300) with its LIMIT 100; the join to orders waits for the
-join slice.
+quantity above 300) with its LIMIT 100. `WINDOW` is the window query of
+the repo's window benchmark (a running sum and a rank over 1000
+partitions), over `window_arrays`.
 """
 
 from __future__ import annotations
@@ -30,11 +33,25 @@ LINEITEM_SCHEMA = TableSchema.make([
     ("l_shipdate", "int64"),          # days since epoch
 ])
 
+ORDERS_SCHEMA = TableSchema.make([
+    ("o_orderkey", "int64", "ascending"),
+    ("o_custkey", "int64"),
+    ("o_orderdate", "int64"),
+    ("o_shippriority", "int64"),
+])
+
+WINDOW_SCHEMA = TableSchema.make([
+    ("k", "int64", "ascending"),
+    ("g", "int64"),
+    ("v", "int64"),
+])
+
 RETURNFLAGS = np.array([b"A", b"N", b"R"], dtype=object)
 LINESTATUSES = np.array([b"F", b"O"], dtype=object)
 
-# TPC-H date constant expressed as days since 1970-01-01.
+# TPC-H date constants expressed as days since 1970-01-01.
 _DATE_1998_09_02 = 10471
+_DATE_1995_03_15 = 9204
 
 Q1 = (
     "l_returnflag, l_linestatus, "
@@ -49,6 +66,22 @@ Q1 = (
     f"FROM [//tpch/lineitem] WHERE l_shipdate <= {_DATE_1998_09_02} "
     "GROUP BY l_returnflag, l_linestatus"
 )
+
+Q3 = (
+    "l_orderkey, "
+    "sum(l_extendedprice * (1 - l_discount)) AS revenue "
+    "FROM [//tpch/lineitem] "
+    "JOIN [//tpch/orders] ON l_orderkey = o_orderkey "
+    f"WHERE o_orderdate < {_DATE_1995_03_15} "
+    "GROUP BY l_orderkey "
+    "ORDER BY sum(l_extendedprice * (1 - l_discount)) DESC, l_orderkey "
+    "LIMIT 10"
+)
+Q3_LIMIT = 10
+
+WINDOW = ("k, sum(v) OVER (PARTITION BY g ORDER BY k) AS s, "
+          "rank() OVER (PARTITION BY g ORDER BY k) AS r FROM [//t]")
+WINDOW_PARTITIONS = 1000
 
 _Q1_COLUMNS = ("l_quantity", "l_extendedprice", "l_discount", "l_tax",
                "l_returnflag", "l_linestatus", "l_shipdate")
@@ -102,6 +135,41 @@ def generate_lineitem(n_rows: int, seed: int = 0,
                       device: "str | torch.device" = DEFAULT_DEVICE
                       ) -> ColumnarChunk:
     return lineitem_chunk(lineitem_arrays(n_rows, seed, n_orders), device)
+
+
+def orders_arrays(n_orders: int, seed: int = 1) -> dict[str, np.ndarray]:
+    """The orders columns as numpy arrays, drawn exactly as the
+    reference's generate_orders."""
+    rng = np.random.default_rng(seed)
+    return {
+        "o_orderkey": np.arange(n_orders),
+        "o_custkey": rng.integers(0, max(n_orders // 10, 1), n_orders),
+        "o_orderdate": rng.integers(8000, 10600, n_orders),
+        "o_shippriority": rng.integers(0, 2, n_orders),
+    }
+
+
+def orders_chunk(arrays: dict[str, np.ndarray],
+                 device: "str | torch.device" = DEFAULT_DEVICE
+                 ) -> ColumnarChunk:
+    return ColumnarChunk.from_arrays(ORDERS_SCHEMA, arrays, device=device)
+
+
+def window_arrays(n_rows: int, seed: int = 0) -> dict[str, np.ndarray]:
+    """The window workload: k the row number, g the partition (uniform in
+    [0, 1000)), v the value (uniform in [0, 1000)), all int64."""
+    rng = np.random.default_rng(seed)
+    return {
+        "k": np.arange(n_rows, dtype=np.int64),
+        "g": rng.integers(0, WINDOW_PARTITIONS, n_rows, dtype=np.int64),
+        "v": rng.integers(0, 1000, n_rows, dtype=np.int64),
+    }
+
+
+def window_chunk(arrays: dict[str, np.ndarray],
+                 device: "str | torch.device" = DEFAULT_DEVICE
+                 ) -> ColumnarChunk:
+    return ColumnarChunk.from_arrays(WINDOW_SCHEMA, arrays, device=device)
 
 
 def q1_reference_numpy(chunk: ColumnarChunk) -> dict:
@@ -168,3 +236,45 @@ def q18_agg_oracle(arrays: dict[str, np.ndarray],
     order = np.lexsort((hit, -sums[hit]))[:Q18_LIMIT]
     return [{"l_orderkey": int(hit[i]), "sum_qty": float(sums[hit[i]]),
              "n_lines": int(counts[hit[i]])} for i in order]
+
+
+def q3_oracle(lineitem: dict[str, np.ndarray],
+              orders: dict[str, np.ndarray],
+              limit: int = Q3_LIMIT) -> list[dict]:
+    """Q3's rows in order, from the generators' arrays: lines join their
+    order through o_orderkey == arange, orders dated before 1995-03-15
+    keep their lines, revenue sums per order, and the top `limit` (the
+    query's 10 by default) come by (revenue descending, orderkey)."""
+    keys = lineitem["l_orderkey"]
+    assert np.array_equal(orders["o_orderkey"],
+                          np.arange(len(orders["o_orderkey"])))
+    keep = orders["o_orderdate"][keys] < _DATE_1995_03_15
+    revenue = lineitem["l_extendedprice"] * (1 - lineitem["l_discount"])
+    size = len(orders["o_orderkey"])
+    sums = np.bincount(keys[keep], weights=revenue[keep], minlength=size)
+    counts = np.bincount(keys[keep], minlength=size)
+    hit = np.nonzero(counts > 0)[0]
+    order = np.lexsort((hit, -sums[hit]))[:limit]
+    return [{"l_orderkey": int(hit[i]), "revenue": float(sums[hit[i]])}
+            for i in order]
+
+
+def window_oracle(arrays: dict[str, np.ndarray]
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """WINDOW's (s, r) planes in the input row order: a stable sort by g
+    (k is the row number, so it keeps k's order inside each partition),
+    the running sum of v within each partition, and rank = position in
+    the partition + 1 (k is unique, so no two rows tie)."""
+    g = arrays["g"]
+    order = np.argsort(g, kind="stable")
+    g_sorted = g[order]
+    total = np.cumsum(arrays["v"][order])
+    starts = np.flatnonzero(np.r_[True, g_sorted[1:] != g_sorted[:-1]])
+    lengths = np.diff(np.r_[starts, len(g)])
+    first = np.repeat(starts, lengths)
+    before = np.where(first > 0, total[np.maximum(first - 1, 0)], 0)
+    s = np.empty_like(total)
+    r = np.empty_like(total)
+    s[order] = total - before
+    r[order] = np.arange(len(g)) - first + 1
+    return s, r

@@ -1,26 +1,34 @@
 """The query evaluator: plan + chunk → result chunk, eagerly in torch.
 
 Port of the JAX package's `query/engine/evaluator.py` (`Evaluator.run_plan`,
-`_PendingResult.finish`, `_project_chunk`, `select_rows`). PyTorch runs
-eagerly, so the JAX evaluator's compile cache, AOT layers, tiering, compile
-observatory and buffer donation have no counterpart here. Plans with joins
-or `WITH TOTALS` raise until their slices.
+`_PendingResult.finish`, `_project_chunk`, the join cascade with
+`_initial_namespace` / `_extend_namespace`, WITH TOTALS with
+`_make_totals_plan`, `_typed_null` and `_zero_value`, `select_rows`).
+PyTorch runs eagerly, so the JAX evaluator's compile cache, AOT layers,
+tiering, compile observatory, buffer donation and query statistics have no
+counterpart here.
+
+Joins run first, in the planner's order (query/planner.py) when there are
+several, each widening the namespace (query/engine/joins.py); the rest of
+the plan runs over the joined chunk. A WITH TOTALS plan runs twice, the
+second time as the grand-total plan, and the totals row comes last.
 """
 
 from __future__ import annotations
 
+from dataclasses import replace as dc_replace
 from typing import Mapping, Optional, Sequence
 
 import torch
 
-from ytsaurus_tpu_torch.chunks.columnar import Column, ColumnarChunk
+from ytsaurus_tpu_torch.chunks.columnar import Column, ColumnarChunk, concat_chunks
 from ytsaurus_tpu_torch.device import DEFAULT_DEVICE, resolve_device, same_device
 from ytsaurus_tpu_torch.errors import EErrorCode, YtError
-from ytsaurus_tpu_torch.query import ir
+from ytsaurus_tpu_torch.query import ir, planner
 from ytsaurus_tpu_torch.query.builder import build_query
-from ytsaurus_tpu_torch.query.engine.expr import not_ported
+from ytsaurus_tpu_torch.query.engine.joins import execute_join
 from ytsaurus_tpu_torch.query.engine.lowering import prepare
-from ytsaurus_tpu_torch.schema import TableSchema
+from ytsaurus_tpu_torch.schema import EValueType, TableSchema
 
 
 class _PendingResult:
@@ -61,24 +69,68 @@ class Evaluator:
     def run_plan(self, plan: "ir.Query | ir.FrontQuery", chunk: ColumnarChunk,
                  foreign_chunks: Optional[Mapping[str, ColumnarChunk]] = None
                  ) -> ColumnarChunk:
-        """Execute a plan over one input chunk, which must lie on this
-        evaluator's device."""
-        if isinstance(plan, ir.Query) and (plan.joins or foreign_chunks):
-            raise not_ported("JOIN")
+        """Execute a plan over one input chunk (and the foreign chunks of
+        its joins, by table path), all on this evaluator's device."""
+        self._check_device(chunk)
+        if isinstance(plan, ir.Query) and plan.joins:
+            foreign_chunks = foreign_chunks or {}
+            if len(plan.joins) > 1:
+                plan, _ = planner.reorder_for_chunks(
+                    plan, chunk.row_count, foreign_chunks)
+            namespace = _initial_namespace(plan)
+            current = _project_chunk(chunk, TableSchema.make(namespace))
+            for join in plan.joins:
+                foreign = foreign_chunks.get(join.foreign_table)
+                if foreign is None:
+                    raise YtError(
+                        f"No data provided for join table "
+                        f"{join.foreign_table!r}",
+                        code=EErrorCode.QueryExecutionError)
+                self._check_device(foreign)
+                namespace = _extend_namespace(namespace, join)
+                current = execute_join(current, TableSchema.make(namespace),
+                                       join, foreign)
+            chunk = current
+        elif isinstance(plan, ir.Query):
+            chunk = _project_chunk(chunk, plan.schema)
         if plan.group is not None and plan.group.totals:
-            raise not_ported("GROUP BY ... WITH TOTALS")
+            result = self._execute(plan, chunk)
+            totals = self._execute(_make_totals_plan(plan), chunk)
+            return concat_chunks([result, totals])
+        return self._execute(plan, chunk)
+
+    def _check_device(self, chunk: ColumnarChunk) -> None:
         if chunk.columns and not same_device(chunk.device, self.device):
             raise YtError(f"Chunk lies on {chunk.device}, the evaluator runs "
                           f"on {self.device}",
                           code=EErrorCode.QueryExecutionError)
-        if isinstance(plan, ir.Query):
-            chunk = _project_chunk(chunk, plan.schema)
+
+    def _execute(self, plan, chunk: ColumnarChunk) -> ColumnarChunk:
         prepared = prepare(plan, chunk)
         columns = {c.name: (chunk.columns[c.name].data,
                             chunk.columns[c.name].valid)
                    for c in plan.schema}
         planes, count = prepared.run(columns, chunk.row_valid)
         return _PendingResult(planes, count, prepared.output).finish()
+
+
+def _initial_namespace(plan: ir.Query) -> list[tuple[str, str]]:
+    """Self-table columns = plan.schema minus columns contributed by joins."""
+    joined = set()
+    for join in plan.joins:
+        for fname in join.foreign_columns:
+            joined.add(f"{join.alias}.{fname}" if join.alias else fname)
+    return [(c.name, c.type.value) for c in plan.schema
+            if c.name not in joined]
+
+
+def _extend_namespace(namespace: list[tuple[str, str]],
+                      join: ir.JoinClause) -> list[tuple[str, str]]:
+    out = list(namespace)
+    for fname in join.foreign_columns:
+        flat = f"{join.alias}.{fname}" if join.alias else fname
+        out.append((flat, join.foreign_schema.get(fname).type.value))
+    return out
 
 
 def _project_chunk(chunk: ColumnarChunk, schema: TableSchema) -> ColumnarChunk:
@@ -97,6 +149,60 @@ def _project_chunk(chunk: ColumnarChunk, schema: TableSchema) -> ColumnarChunk:
         sorted_by.append(name)
     return ColumnarChunk(schema=schema, row_count=chunk.row_count,
                          columns=columns, sorted_by=tuple(sorted_by))
+
+
+def _typed_null(ty):
+    """A null-valued expression carrying type `ty`: if(false, zero, null)."""
+    return ir.TFunction(
+        type=ty, name="if",
+        args=(ir.TLiteral(type=EValueType.boolean, value=False),
+              ir.TLiteral(type=ty, value=_zero_value(ty)),
+              ir.TLiteral(type=EValueType.null, value=None)))
+
+
+def _make_totals_plan(plan):
+    """The grand-total plan: one constant group key, the same aggregates,
+    the projection with group-key references nulled out, no HAVING
+    (totals are taken before HAVING), no ORDER BY or LIMIT."""
+    key_types = {item.name: item.expr.type for item in plan.group.group_items}
+
+    def subst(e):
+        return ir.map_expr(
+            e, lambda node: _typed_null(node.type)
+            if isinstance(node, ir.TReference) and node.name in key_types
+            else node)
+
+    const_key = ir.NamedExpr(
+        name="__totals", expr=ir.TLiteral(type=EValueType.int64, value=0))
+    group = ir.GroupClause(group_items=(const_key,),
+                           aggregate_items=plan.group.aggregate_items,
+                           totals=False)
+    if plan.project is not None:
+        project = ir.ProjectClause(items=tuple(
+            ir.NamedExpr(name=i.name, expr=subst(i.expr))
+            for i in plan.project.items))
+    else:
+        # Null keys + aggregate values: the main query's output schema.
+        items = [ir.NamedExpr(name=item.name,
+                              expr=_typed_null(item.expr.type))
+                 for item in plan.group.group_items]
+        items += [ir.NamedExpr(name=agg.name,
+                               expr=ir.TReference(type=agg.type,
+                                                  name=agg.name))
+                  for agg in plan.group.aggregate_items]
+        project = ir.ProjectClause(items=tuple(items))
+    return dc_replace(plan, group=group, having=None, order=None,
+                      project=project, offset=0, limit=None)
+
+
+def _zero_value(ty):
+    if ty is EValueType.string:
+        return b""
+    if ty is EValueType.boolean:
+        return False
+    if ty is EValueType.double:
+        return 0.0
+    return 0
 
 
 def select_rows(query: str,

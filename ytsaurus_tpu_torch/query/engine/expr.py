@@ -93,6 +93,17 @@ class BoundExpr:
     emit: Callable[[EmitContext], tuple[torch.Tensor, torch.Tensor]]
 
 
+def order_key_bits(bound: BoundExpr) -> int:
+    """Packed-key width of one sort key (ORDER BY, window PARTITION BY and
+    ORDER BY): dictionary codes and bools need few bits; everything else
+    is full-width."""
+    if bound.type is EValueType.boolean:
+        return 1
+    if bound.type is EValueType.string and bound.vocab is not None:
+        return max(len(bound.vocab) - 1, 1).bit_length()
+    return 64
+
+
 def bindings_to_device(bindings: list, device: torch.device) -> tuple:
     """Bound host arrays as torch tensors on `device` (uint64 as int64)."""
     out = []

@@ -7,6 +7,8 @@ Each clause becomes a batch transformation over static-capacity planes:
   group    = dense segment ids by stride arithmetic for small key domains,
              else exact-key radix sort → segment boundaries → reductions
   having   = a mask over the group stage
+  window   = one packed sort + segmented scans (window.py), scattered
+             back to the input order: the stage adds columns, no rows move
   order    = packed-key radix sort (single-key ORDER BY ... LIMIT k first
              narrows the rows to top-k candidates) → gather
   project  = elementwise expression evaluation
@@ -14,8 +16,8 @@ Each clause becomes a batch transformation over static-capacity planes:
 
 `prepare()` binds on the host; the returned `run` executes eagerly on the
 chunk's device. There is no compile cache, so OFFSET and LIMIT are plain
-values rather than bucketed bindings. Window functions and joins raise
-until their slices.
+values rather than bucketed bindings. Joins run before `prepare`, in the
+evaluator (joins.py).
 
 Ties in the top-k candidate pass are broken toward the lowest row index
 explicitly (`_topk_lowest_index`), the order `lax.top_k` gives and
@@ -52,7 +54,9 @@ from ytsaurus_tpu_torch.query.engine.expr import (
     bindings_to_device,
     cast_plane,
     not_ported,
+    order_key_bits,
 )
+from ytsaurus_tpu_torch.query.engine.window import WindowStage
 from ytsaurus_tpu_torch.schema import EValueType, TableSchema
 
 _SIGN64 = -(1 << 63)
@@ -133,12 +137,6 @@ def _ordered_int64(value: torch.Tensor, unsigned: bool) -> torch.Tensor:
 
 def prepare(plan: "ir.Query | ir.FrontQuery", chunk) -> PreparedQuery:
     """Bind a plan against one chunk's vocabularies and capacity."""
-    if isinstance(plan, ir.Query) and plan.joins:
-        raise not_ported("JOIN")
-    if plan.window is not None:
-        raise not_ported("Window functions")
-    if plan.group is not None and plan.group.totals:
-        raise not_ported("GROUP BY ... WITH TOTALS")
     capacity = chunk.capacity
     device = chunk.device
     bind_ctx = BindContext(columns=_column_bindings(plan.schema, chunk))
@@ -176,6 +174,17 @@ def prepare(plan: "ir.Query | ir.FrontQuery", chunk) -> PreparedQuery:
             having_b = post_binder.bind(plan.having)
     final_binder = post_binder if post_binder is not None else binder
 
+    # Window stage: binds partition/order/item expressions and registers
+    # the slot columns so ORDER BY and the projection can reference them.
+    window = plan.window
+    win_stage = None
+    if window is not None:
+        if group is not None:
+            raise YtError("Window functions cannot combine with GROUP BY",
+                          code=EErrorCode.QueryUnsupported)
+        win_stage = WindowStage(window, binder)
+        bind_ctx.columns.update(win_stage.slot_bindings())
+
     order_b: list[tuple[BoundExpr, bool]] = []
     if plan.order is not None:
         for item in plan.order.items:
@@ -200,12 +209,19 @@ def prepare(plan: "ir.Query | ir.FrontQuery", chunk) -> PreparedQuery:
                 (col_schema.name,
                  final_binder.bind(ir.TReference(type=col_schema.type,
                                                  name=col_schema.name))))
+        if window is not None:
+            # The identity projection carries the window slots.
+            for item in window.items:
+                project_b.append(
+                    (item.name,
+                     final_binder.bind(ir.TReference(type=item.type,
+                                                     name=item.name))))
 
     output = [OutputColumn(name=name, type=b.type, vocab=b.vocab)
               for name, b in project_b]
     offset = plan.offset
     limit = plan.limit
-    order_bits = [_order_key_bits(bound) for bound, _desc in order_b]
+    order_bits = [order_key_bits(bound) for bound, _desc in order_b]
 
     # --- dense GROUP BY -------------------------------------------------------
     # When every group key has a small known value domain (dictionary
@@ -275,6 +291,11 @@ def prepare(plan: "ir.Query | ir.FrontQuery", chunk) -> PreparedQuery:
         if having_b is not None:
             d, v = having_b.emit(ctx)
             mask = mask & v & d.to(torch.bool)
+
+        if win_stage is not None:
+            # Window columns join the namespace; no rows move.
+            ctx = emit_ctx({**ctx.columns, **win_stage.emit(ctx, mask)},
+                           stage_cap)
 
         if order_b:
             if use_topk:
@@ -453,16 +474,6 @@ def _aggregate(ctx, agg, arg, by_arg, gmask, order, seg, nseg):
     data, valid = arg.emit(ctx)
     return segment_aggregate(agg.function, rows(data), rows(valid) & gmask,
                              seg, nseg, agg.type)
-
-
-def _order_key_bits(bound: BoundExpr) -> int:
-    """Packed-key width for one ORDER BY item: dictionary codes and bools
-    need few bits; everything else is full-width."""
-    if bound.type is EValueType.boolean:
-        return 1
-    if bound.type is EValueType.string and bound.vocab is not None:
-        return max(len(bound.vocab) - 1, 1).bit_length()
-    return 64
 
 
 def _post_ref_t(name: str, ty: EValueType, vocab) -> BoundExpr:
