@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed 0] [--record PATH]
 
 Phases (any failure exits non-zero and prints no result line):
-  1. environment: the card's name and power limit, torch and CUDA versions;
+  1. environment: the card's name and power limit, torch and CUDA
+     versions, the host's memory (`free -g`);
   2. build: every kernel source of the port (csrc/hist_rank.cu,
      csrc/radix_upsweep.cu, csrc/radix_onesweep.cu), one nvcc each, all
      started together;
@@ -33,10 +34,41 @@ Phases (any failure exits non-zero and prints no result line):
      kernels of each port kernel as were launched); Q3's profile also gives
      the device time of the join's phases (foreign sort, binary search,
      materialization);
+     then the Sort operation and the MVCC read, each checked against a
+     numpy oracle, with its launches counted (it fails unless
+     radix_upsweep and radix_onesweep ran), its peak memory and a
+     profile that must hold every launch:
+     SORT: bench.py --config sort's table (64,000,000 rows of k int64 in
+     [0, 2^60) and p double in [0, 1), from --seed) through sort_chunk on
+     k; k and p exactly in numpy's stable argsort order. REPS warm runs;
+     TABLET: a sorted dynamic table (k key, g in [0, 10,000), v in
+     [0, 1000)) as 64,000,000 versions laid out by versioned_schema,
+     made from --seed: a base version per key 0..47,999,999, then
+     16,000,000 versions on random keys (99% partial writes of v, 1%
+     deletes), shuffled. visible_chunk at MAX_TIMESTAMP and at
+     56,000,000, each then GROUP BY g through select_rows; the
+     sorted_versioned_chunk of all versions; retained_chunk at
+     56,000,000. The visible rows, the groups and np.lexsort((-ts, k))'s
+     order exactly; the retained row count, and visible_chunk of the
+     retained versions equal to that of the originals at both
+     timestamps. REPS warm runs, with each operation's time;
+     EXTSORT: bench.py::_bench_sort_spill as written (BASELINE config 5):
+     1,000,000,000 rows in 16,000,000-row blocks, each made lazily in
+     its supplier by np.random.default_rng(1000 + i), through
+     external_sort at the default 8 GiB budget (10 ranges, 9 pivots);
+     one run (under the profiler), timed from the call to the last chunk
+     yielded, with the suppliers' seconds, the output checks' seconds and
+     each pass's host seconds. Every chunk sorted, each chunk's first key
+     at least the previous chunk's last, the row total, and two
+     order-independent wrapping sums, splitmix64(k) and
+     splitmix64(k ^ bits(p)), equal between the input (numpy, in the
+     suppliers) and the output (torch, on the card). If the host's
+     available memory cannot hold the spill, the rows are halved until it
+     can, and the line says so;
   5. the `kernels` line: each kernel's time at the main path's shape (the
      one-sweep pass at every tile layout), its plain version's time, its
      bound, a library call's time where one PyTorch call computes the same
-     function, and its launches on the main path.
+     function, and its launches on each path of the slice.
 
 The last line of standard output is {"ok": true, "device": {...}}. With
 --record, a JSON record of the run is also written to PATH.
@@ -60,6 +92,15 @@ ROWS = 64_000_000            # lineitem rows: the repo's q1 bench size
 ORDERS = 16_000_000          # orders rows: Q3's n_orders at ROWS lines
 ORDERS_SEED = 1              # the reference generator's default seed
 WINDOW_ROWS = 64_000_000     # rows of the window query
+SORT_ROWS = 64_000_000       # rows of the sort table: bench.py's sort size
+EXT_ROWS = 1_000_000_000     # rows of the spill sort (BASELINE config 5)
+EXT_BLOCK = 16_000_000       # rows per input block, as bench.py makes them
+TABLET_VERSIONS = 64_000_000  # versions of the dynamic table read by MVCC
+TABLET_BASE = 48_000_000     # keys, each with one base version
+TABLET_DELETE_SHARE = 0.01   # share of the later versions that delete
+TABLET_GROUPS = 10_000       # g uniform in [0, TABLET_GROUPS)
+TABLET_READ_TS = 56_000_000  # the historical read and compaction cut
+TABLET_QUERY = "g, sum(v) AS s, count(*) AS c FROM [//t] GROUP BY g"
 MAIN_N = 67_108_864          # pad_capacity(ROWS): the main path's sort width
 REPS = 5                     # warm runs per query; the median is reported
 M32 = 0xFFFFFFFF
@@ -74,6 +115,10 @@ TRACE_NAMES = {"hist_rank": "hist_rank_kernel",
 PATH_KERNELS = ("radix_upsweep", "radix_onesweep")
 # Profiler ranges of a join's phases (query/engine/joins.py).
 JOIN_RANGES = ("join.sort_foreign", "join.search", "join.materialize")
+# Profiler ranges of the external sort's passes (ops/bigsort.py).
+EXT_RANGES = ("bigsort.sample", "bigsort.route", "bigsort.sort_range")
+# Profiler ranges of the MVCC stages (tablet/mvcc.py).
+MVCC_RANGES = ("mvcc.sort", "mvcc.scan", "mvcc.compact")
 
 
 def _log(msg: str) -> None:
@@ -292,9 +337,11 @@ def _profile(run, hr, rx, ranges=()) -> dict:
                            if trace_name in name) / 1e3
                for kernel, trace_name in TRACE_NAMES.items()}
     in_range = {name: 0.0 for name in ranges}
+    host_range = {name: 0.0 for name in ranges}
     for e in prof.events():
         if e.device_type == DeviceType.CPU and e.name in in_range:
             in_range[e.name] += e.device_time_total
+            host_range[e.name] += e.time_range.end - e.time_range.start
     if ranges and not any(in_range.values()):
         raise AssertionError(f"the trace shows no device time in the "
                              f"ranges {list(ranges)}")
@@ -302,6 +349,7 @@ def _profile(run, hr, rx, ranges=()) -> dict:
         "ranges_ms": {name: us / 1e3 for name, us in in_range.items()},
         "ranges_share": {name: us / busy_us
                          for name, us in in_range.items()},
+        "ranges_host_ms": {name: us / 1e3 for name, us in host_range.items()},
         "wall_ms": wall_us / 1e3,
         "launched": launched,
         "traced": traced,
@@ -398,14 +446,24 @@ def _run_query(name: str, query: str, tables: dict, check, oracle,
                rows_in: int, hr, rx, select_rows, ranges=()) -> dict:
     """One query of the slice: a checked run whose launches are counted,
     REPS warm runs, and one run under the profiler."""
+    return _run_path(name, lambda: select_rows(query, tables, device="cuda"),
+                     lambda result: check(result, oracle), rows_in, hr, rx,
+                     ranges)
+
+
+def _run_path(name: str, run, check, rows_in: int, hr, rx,
+              ranges=()) -> dict:
+    """One path of the port: a run whose launches are counted and whose
+    result `check` holds against its oracle (it returns the rows out),
+    REPS warm runs, and one run under the profiler."""
     import torch
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     _reset_launches(hr, rx)
-    result = select_rows(query, tables, device="cuda")
+    result = run()
     torch.cuda.synchronize()
     launches = _launches(hr, rx)
-    rows_out = check(result, oracle)
+    rows_out = check(result)
     del result
     for kernel in PATH_KERNELS:
         if launches[kernel] <= 0:
@@ -415,13 +473,12 @@ def _run_query(name: str, query: str, tables: dict, check, oracle,
     for _ in range(REPS):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        select_rows(query, tables, device="cuda")
+        run()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
     ms = statistics.median(times)
     peak = torch.cuda.max_memory_allocated()
-    prof = _profile(lambda: select_rows(query, tables, device="cuda"),
-                    hr, rx, ranges)
+    prof = _profile(run, hr, rx, ranges)
     out = {"rows_in": rows_in, "rows_out": rows_out, "launches": launches,
            "median_ms": ms, "ms_runs": times,
            "rows_per_s": rows_in / (ms / 1e3), "peak_bytes": peak,
@@ -477,6 +534,471 @@ def phase_slice(seed: int, hr, rx, tpch, select_rows) -> dict:
         tpch.window_oracle(w_arrays), WINDOW_ROWS, hr, rx, select_rows)
     del w_chunk, w_arrays
     torch.cuda.empty_cache()
+    return out
+
+
+def _splitmix64_np(x):
+    """splitmix64 over a uint64 array, wrapping, in place on a copy."""
+    import numpy as np
+    x = x.astype(np.uint64, copy=True)
+    with np.errstate(over="ignore"):
+        x += np.uint64(0x9E3779B97F4A7C15)
+        x ^= x >> np.uint64(30)
+        x *= np.uint64(0xBF58476D1CE4E5B9)
+        x ^= x >> np.uint64(27)
+        x *= np.uint64(0x94D049BB133111EB)
+        x ^= x >> np.uint64(31)
+    return x
+
+
+def _splitmix64_torch(x):
+    """splitmix64 over an int64 tensor of uint64 bit patterns: wrapping
+    adds and multiplies, logical shifts by a mask."""
+    def lsr(v, s):
+        return (v >> s) & ((1 << (64 - s)) - 1)
+
+    def c(value):
+        return value - (1 << 64) if value >= 1 << 63 else value
+
+    x = x + c(0x9E3779B97F4A7C15)
+    x = (x ^ lsr(x, 30)) * c(0xBF58476D1CE4E5B9)
+    x = (x ^ lsr(x, 27)) * c(0x94D049BB133111EB)
+    return x ^ lsr(x, 31)
+
+
+def _hash_sums_np(k, p) -> tuple:
+    """The two order-independent sums of a block: splitmix64(k) and
+    splitmix64(k ^ bits(p)), each wrapping mod 2^64."""
+    import numpy as np
+    ku = k.view(np.uint64)
+    h1 = int(_splitmix64_np(ku).sum(dtype=np.uint64))
+    h2 = int(_splitmix64_np(ku ^ p.view(np.uint64)).sum(dtype=np.uint64))
+    return h1, h2
+
+
+def _port_entry_points():
+    """The port's entry points that the Sort and MVCC phases drive."""
+    from types import SimpleNamespace
+
+    from ytsaurus_tpu_torch.chunks.columnar import (
+        ColumnarChunk,
+        chunk_from_numpy,
+        pad_capacity,
+    )
+    from ytsaurus_tpu_torch.operations.sort_op import sort_chunk
+    from ytsaurus_tpu_torch.ops.bigsort import SpillStats, external_sort
+    from ytsaurus_tpu_torch.query import select_rows
+    from ytsaurus_tpu_torch.schema import TableSchema
+    from ytsaurus_tpu_torch.tablet.mvcc import (
+        retained_chunk,
+        sorted_versioned_chunk,
+        visible_chunk,
+    )
+    from ytsaurus_tpu_torch.tablet.tablet import versioned_schema
+    from ytsaurus_tpu_torch.tablet.timestamp import MAX_TIMESTAMP
+    return SimpleNamespace(
+        ColumnarChunk=ColumnarChunk, chunk_from_numpy=chunk_from_numpy,
+        pad_capacity=pad_capacity, sort_chunk=sort_chunk,
+        SpillStats=SpillStats, external_sort=external_sort,
+        select_rows=select_rows, TableSchema=TableSchema,
+        visible_chunk=visible_chunk,
+        sorted_versioned_chunk=sorted_versioned_chunk,
+        retained_chunk=retained_chunk, versioned_schema=versioned_schema,
+        MAX_TIMESTAMP=MAX_TIMESTAMP)
+
+
+def phase_sort(seed: int, hr, rx, port) -> dict:
+    """SORT: bench.py --config sort at its accelerator size, through
+    sort_chunk; k and p exactly as numpy's stable argsort orders them."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, 1 << 60, size=SORT_ROWS, dtype=np.int64)
+    p = rng.random(SORT_ROWS)
+    schema = port.TableSchema.make([("k", "int64"), ("p", "double")])
+    chunk = port.ColumnarChunk.from_arrays(schema, {"k": k, "p": p},
+                                           device="cuda")
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    order = np.argsort(k, kind="stable")
+    want_k, want_p = k[order], p[order]
+    del order
+    _log(f"sort table: {SORT_ROWS} rows, capacity {chunk.capacity}, made "
+         f"in {made_s:.1f} s (seed {seed}); oracle (numpy stable argsort) "
+         f"{time.perf_counter() - t0:.1f} s")
+
+    def check(out) -> int:
+        planes = out.to_numpy()["planes"]
+        n = SORT_ROWS
+        if out.row_count != n:
+            raise AssertionError(f"SORT gave {out.row_count} rows, not {n}")
+        for name, want in (("k", want_k), ("p", want_p)):
+            data, valid = planes[name]
+            if not valid[:n].all() or not np.array_equal(
+                    data[:n].view(np.int64), want.view(np.int64)):
+                raise AssertionError(f"SORT {name} differs from numpy's "
+                                     "stable argsort order")
+        return n
+
+    out = _run_path("sort", lambda: port.sort_chunk(chunk, ["k"],
+                                                    device="cuda"),
+                    check, SORT_ROWS, hr, rx)
+    del chunk
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tablet_data(seed: int) -> dict:
+    """TABLET's versions, in a shuffled order: one base version per key
+    (writing g and v), then later versions on random keys (99% partial
+    writes of v, 1% deletes). Arrays of TABLET_VERSIONS rows."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    n, base = TABLET_VERSIONS, TABLET_BASE
+    k = np.empty(n, dtype=np.int64)
+    k[:base] = np.arange(base)
+    k[base:] = rng.integers(0, base, n - base)
+    ts = np.arange(1, n + 1, dtype=np.int64)
+    tomb = np.zeros(n, dtype=bool)
+    tomb[base:] = rng.random(n - base) < TABLET_DELETE_SHARE
+    wg = np.zeros(n, dtype=bool)
+    wg[:base] = True
+    wv = ~tomb
+    g = np.zeros(n, dtype=np.int64)
+    g[:base] = rng.integers(0, TABLET_GROUPS, base)
+    v = np.where(wv, rng.integers(0, 1000, n), 0)
+    perm = rng.permutation(n)
+    return {name: a[perm] for name, a in (
+        ("k", k), ("$timestamp", ts), ("$tombstone", tomb), ("g", g),
+        ("$w:g", wg), ("v", v), ("$w:v", wv))}
+
+
+def _tablet_oracle(d: dict, read_points) -> dict:
+    """numpy MVCC: versions in np.lexsort((-ts, k)) order; per read
+    timestamp, the newest tombstone at or below it bounds each key's
+    versions, each column takes its newest written value after it; the
+    GROUP BY of those rows; the rows a compaction at each timestamp
+    keeps."""
+    import numpy as np
+    n = len(d["k"])
+    order = np.lexsort((-d["$timestamp"], d["k"]))
+    s = {name: a[order] for name, a in d.items()}
+    starts = np.ones(n, dtype=bool)
+    starts[1:] = s["k"][1:] != s["k"][:-1]
+    seg_start = np.flatnonzero(starts)
+    seg_id = np.cumsum(starts) - 1
+    idx = np.arange(n, dtype=np.int64)
+    out = {"order": order, "read": {}}
+    for ts in read_points:
+        elig = s["$timestamp"] <= ts
+        bound = np.minimum.reduceat(
+            np.where(elig & s["$tombstone"], idx, n), seg_start)
+        live = elig & (idx < bound[seg_id])
+        emit = np.logical_or.reduceat(live, seg_start)
+        cols = {"k": (s["k"][seg_start][emit], np.ones(int(emit.sum()), bool))}
+        for name in ("g", "v"):
+            first = np.minimum.reduceat(
+                np.where(live & s["$w:" + name], idx, n), seg_start)[emit]
+            has = first < n
+            value = s[name][np.minimum(first, n - 1)]
+            cols[name] = (np.where(has, value, 0), has)
+        g, g_valid = cols["g"]
+        v, v_valid = cols["v"]
+        if not v_valid.all():
+            raise AssertionError("TABLET oracle: a visible row lacks v")
+        sums = np.bincount(g[g_valid], weights=v[g_valid],
+                           minlength=TABLET_GROUPS)
+        counts = np.bincount(g[g_valid], minlength=TABLET_GROUPS)
+        groups = {int(i): (int(sums[i]), int(counts[i]))
+                  for i in np.flatnonzero(counts)}
+        if (~g_valid).any():
+            groups[None] = (int(v[~g_valid].sum()), int((~g_valid).sum()))
+        retained = int((~elig).sum()) + int(emit.sum())
+        out["read"][ts] = {"cols": cols, "groups": groups,
+                           "retained": retained}
+    return out
+
+
+def _same_visible(a, b) -> bool:
+    """Two visible chunks (on the card) agree: row count, validity, and
+    data where valid."""
+    import torch
+    if a.row_count != b.row_count:
+        return False
+    n = a.row_count
+    for name, col in a.columns.items():
+        other = b.columns[name]
+        va, vb = col.valid[:n], other.valid[:n]
+        if not torch.equal(va, vb) or not torch.equal(
+                torch.where(va, col.data[:n], 0),
+                torch.where(vb, other.data[:n], 0)):
+            return False
+    return True
+
+
+def phase_tablet(seed: int, hr, rx, port) -> dict:
+    """TABLET: a sorted dynamic table read through MVCC, then GROUP BY."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    versions = _tablet_data(seed)
+    table = port.TableSchema.make([("k", "int64", "ascending"),
+                                   ("g", "int64"), ("v", "int64")])
+    vschema = port.versioned_schema(table)
+    n = TABLET_VERSIONS
+    cap = port.pad_capacity(n)
+    planes = {}
+    for c in vschema:
+        values = np.zeros(cap, dtype=versions[c.name].dtype)
+        values[:n] = versions[c.name]
+        valid = np.zeros(cap, dtype=bool)
+        valid[:n] = versions["$w:" + c.name] if c.name in ("g", "v") else True
+        planes[c.name] = (values, valid)
+    spec = [(c.name, c.type.value) + ((c.sort_order.value,)
+            if c.sort_order is not None else ()) for c in vschema]
+    chunk = port.chunk_from_numpy(spec, n, planes, device="cuda")
+    del planes
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    read_points = (port.MAX_TIMESTAMP, TABLET_READ_TS)
+    oracle = _tablet_oracle(versions, read_points)
+    _log(f"tablet: {n} versions of {TABLET_BASE} keys ({n - TABLET_BASE} "
+         f"later: {1 - TABLET_DELETE_SHARE:.0%} partial writes of v, "
+         f"{TABLET_DELETE_SHARE:.0%} deletes), capacity {chunk.capacity}, "
+         f"{chunk.nbytes / 1e9:.3f} GB on the card, made in {made_s:.1f} s "
+         f"(seed {seed}); oracle (numpy) {time.perf_counter() - t0:.1f} s")
+    op_ms: list = []
+
+    def label(what: str, ts: int) -> str:
+        return f"{what}@{'max' if ts == port.MAX_TIMESTAMP else ts}"
+
+    def run() -> dict:
+        ms: dict = {}
+        out: dict = {}
+
+        def timed(label, fn):
+            t = time.perf_counter()
+            out[label] = fn()
+            torch.cuda.synchronize()
+            ms[label] = (time.perf_counter() - t) * 1e3
+
+        for ts in read_points:
+            timed(label("visible", ts), lambda ts=ts: port.visible_chunk(
+                chunk, table, ts, device="cuda"))
+            timed(label("group_by", ts), lambda ts=ts: port.select_rows(
+                TABLET_QUERY, {"//t": out[label("visible", ts)]},
+                device="cuda"))
+        timed("sorted", lambda: port.sorted_versioned_chunk(
+            chunk, table, device="cuda"))
+        timed(label("retained", TABLET_READ_TS), lambda: port.retained_chunk(
+            chunk, table, TABLET_READ_TS, device="cuda"))
+        op_ms.append(ms)
+        return out
+
+    def check(out: dict) -> int:
+        rows = 0
+        for ts in read_points:
+            want = oracle["read"][ts]
+            vis = out[label("visible", ts)]
+            got = vis.to_numpy()["planes"]
+            m = len(want["cols"]["k"][0])
+            if vis.row_count != m:
+                raise AssertionError(f"TABLET visible@{ts}: "
+                                     f"{vis.row_count} rows, not {m}")
+            for name, (w_data, w_valid) in want["cols"].items():
+                data, valid = got[name]
+                if not np.array_equal(valid[:m], w_valid) or \
+                        not np.array_equal(np.where(w_valid, data[:m], 0),
+                                           w_data):
+                    raise AssertionError(f"TABLET visible@{ts} column "
+                                         f"{name} differs from the oracle")
+            groups = {r["g"]: (r["s"], r["c"])
+                      for r in out[label("group_by", ts)].to_rows()}
+            if groups != want["groups"]:
+                raise AssertionError(f"TABLET GROUP BY @{ts} differs from "
+                                     "the oracle")
+            rows += m + len(groups)
+        srt = out["sorted"].to_numpy()["planes"]
+        order = oracle["order"]
+        if out["sorted"].row_count != n:
+            raise AssertionError("TABLET sorted: wrong row count")
+        for name, values in versions.items():
+            valid = versions["$w:" + name] if name in ("g", "v") else \
+                np.ones(n, dtype=bool)
+            if not np.array_equal(srt[name][0][:n], values[order]) or \
+                    not np.array_equal(srt[name][1][:n], valid[order]):
+                raise AssertionError(f"TABLET sorted: {name} is not in "
+                                     "np.lexsort((-ts, k)) order")
+        retained = out[label("retained", TABLET_READ_TS)]
+        want_rows = oracle["read"][TABLET_READ_TS]["retained"]
+        if retained.row_count != want_rows:
+            raise AssertionError(f"TABLET retained: {retained.row_count} "
+                                 f"rows, not {want_rows}")
+        for ts in read_points:
+            again = port.visible_chunk(retained, table, ts, device="cuda")
+            if not _same_visible(again, out[label("visible", ts)]):
+                raise AssertionError(f"TABLET: the retained versions read "
+                                     f"differently at {ts}")
+        return rows + n + retained.row_count
+
+    out = _run_path("tablet", run, check, n, hr, rx, MVCC_RANGES)
+    out["op_ms_runs"] = op_ms[1:1 + REPS]
+    out["op_median_ms"] = {label: statistics.median(r[label]
+                                                    for r in op_ms[1:1 + REPS])
+                           for label in op_ms[0]}
+    _log(f"tablet by operation (warm median ms): "
+         f"{json.dumps(out['op_median_ms'])}")
+    del chunk
+    torch.cuda.empty_cache()
+    return out
+
+
+def _host_memory() -> tuple:
+    """(`free -g`'s output, bytes available) from /proc/meminfo."""
+    try:
+        text = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                              check=True).stdout.strip()
+    except (OSError, subprocess.CalledProcessError):
+        text = "free: not available"
+    avail = 0
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = int(line.split()[1]) * 1024
+    return text, avail
+
+
+def phase_extsort(hr, rx, port) -> dict:
+    """EXTSORT: bench.py::_bench_sort_spill as written (BASELINE config 5):
+    blocks made lazily in their suppliers, external_sort at the default
+    budget, one run, timed from the call to the last chunk yielded. The
+    run is the one under the profiler: it holds few enough ops that the
+    profiler's cost is small beside its seconds."""
+    import numpy as np
+    import torch
+    _, avail = _host_memory()
+    rows = EXT_ROWS
+    cut = None
+    # The host planes and the range buffers hold about 2x 18 B per row.
+    while avail and rows * 18 * 2.5 > avail * 0.8:
+        rows //= 2
+        cut = (f"rows halved to {rows}: {avail / 2**30:.1f} GiB of host "
+               f"memory available")
+    schema = port.TableSchema.make([("k", "int64"), ("p", "double")])
+    supplier_s = {"generate": 0.0, "hash": 0.0, "chunk": 0.0}
+    in_sums = [0, 0]
+
+    def supplier(i, n):
+        def make():
+            t0 = time.perf_counter()
+            rng = np.random.default_rng(1000 + i)
+            k = rng.integers(0, 1 << 60, size=n, dtype=np.int64)
+            p = rng.random(n)
+            t1 = time.perf_counter()
+            h1, h2 = _hash_sums_np(k, p)
+            in_sums[0] = (in_sums[0] + h1) % (1 << 64)
+            in_sums[1] = (in_sums[1] + h2) % (1 << 64)
+            t2 = time.perf_counter()
+            chunk = port.ColumnarChunk.from_arrays(schema, {"k": k, "p": p},
+                                                   device="cuda")
+            torch.cuda.synchronize()
+            supplier_s["generate"] += t1 - t0
+            supplier_s["hash"] += t2 - t1
+            supplier_s["chunk"] += time.perf_counter() - t2
+            return chunk
+        return make
+
+    suppliers = []
+    left, i = rows, 0
+    while left > 0:
+        n = min(EXT_BLOCK, left)
+        suppliers.append(supplier(i, n))
+        left -= n
+        i += 1
+    result: dict = {}
+
+    def run() -> None:
+        stats = port.SpillStats()
+        t0 = time.perf_counter()
+        total = 0
+        prev_last = None
+        out_sums = [0, 0]
+        check_s = 0.0
+        chunks = 0
+        for out in port.external_sort(suppliers, ["k"], stats=stats,
+                                      device="cuda"):
+            tc = time.perf_counter()
+            n = out.row_count
+            k = out.columns["k"].data[:n]
+            p = out.columns["p"].data[:n]
+            valid = bool(out.columns["k"].valid[:n].all()) and \
+                bool(out.columns["p"].valid[:n].all())
+            ordered = bool((k[1:] >= k[:-1]).all())
+            first, last = int(k[0]), int(k[-1])
+            if not (valid and ordered):
+                raise AssertionError(f"EXTSORT chunk {chunks} is not "
+                                     "sorted (or has nulls)")
+            if prev_last is not None and first < prev_last:
+                raise AssertionError(f"EXTSORT chunk {chunks} starts below "
+                                     "the previous chunk's last key")
+            prev_last = last
+            out_sums[0] += int(_splitmix64_torch(k).sum())
+            out_sums[1] += int(_splitmix64_torch(
+                k ^ p.view(torch.int64)).sum())
+            total += n
+            chunks += 1
+            del out, k, p
+            check_s += time.perf_counter() - tc
+        wall_s = time.perf_counter() - t0
+        result.update(stats=stats, wall_s=wall_s, total=total,
+                      chunks=chunks, check_s=check_s,
+                      out_sums=[x % (1 << 64) for x in out_sums])
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prof = _profile(run, hr, rx, EXT_RANGES)
+    peak = torch.cuda.max_memory_allocated()
+    launches = prof["launched"]
+    for kernel in PATH_KERNELS:
+        if launches[kernel] <= 0:
+            raise AssertionError(f"extsort: the main path launched no "
+                                 f"{kernel} kernel")
+    if result["total"] != rows:
+        raise AssertionError(f"EXTSORT yielded {result['total']} rows, "
+                             f"not {rows}")
+    if result["out_sums"] != in_sums:
+        raise AssertionError(f"EXTSORT hash sums {result['out_sums']} != "
+                             f"the input's {in_sums}: a row was lost, "
+                             "doubled or mispaired")
+    stats = result["stats"]
+    made_s = sum(supplier_s.values())
+    net_s = result["wall_s"] - made_s - result["check_s"]
+    passes_s = {name: ms / 1e3 for name, ms in
+                prof["ranges_host_ms"].items()}
+    out = {"rows_in": rows, "rows_out": result["total"], "cut": cut,
+           "launches": launches, "wall_s": result["wall_s"],
+           "rows_per_s": rows / result["wall_s"], "supplier_s": supplier_s,
+           "check_s": result["check_s"], "net_s": net_s,
+           "passes_host_s": passes_s, "chunks": result["chunks"],
+           "stats": {"blocks": stats.blocks, "ranges": stats.ranges,
+                     "resplits": stats.resplits,
+                     "peak_range_rows": stats.peak_range_rows,
+                     "budget_rows": stats.budget_rows,
+                     "range_rows": stats.range_rows},
+           "peak_bytes": peak, "profile": prof}
+    _log(f"extsort: {rows} rows in {len(suppliers)} blocks"
+         f"{' (' + cut + ')' if cut else ''}; every chunk sorted, in "
+         f"order across chunks, hash sums match; launches {launches}; "
+         f"one run {result['wall_s']:.3f} s ({rows / result['wall_s']:.0f} "
+         f"rows/s) of which suppliers {made_s:.3f} s {supplier_s} and "
+         f"output checks {result['check_s']:.3f} s, net {net_s:.3f} s; "
+         f"passes (host s) {passes_s}; {stats.ranges} ranges, "
+         f"{stats.resplits} resplits, budget {stats.budget_rows} rows; "
+         f"peak memory {peak / 1e9:.3f} GB")
+    _log(f"extsort profile: {json.dumps(prof)}")
     return out
 
 
@@ -573,6 +1095,8 @@ def main() -> int:
     _log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
          f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
          f"{torch.cuda.device_count()}")
+    free_text, _ = _host_memory()
+    _log(free_text)
 
     # 2. build
     t0 = time.perf_counter()
@@ -590,21 +1114,25 @@ def main() -> int:
               **phase_radix_kernels(rx, gen)}
     argsort = phase_argsort(rx, gen)
 
-    # 4. the slice
-    slice_result = phase_slice(args.seed, hr, rx, tpch, select_rows)
+    # 4. the slice: the queries, then the Sort operation and MVCC reads
+    paths = phase_slice(args.seed, hr, rx, tpch, select_rows)
+    port = _port_entry_points()
+    paths["sort"] = phase_sort(args.seed, hr, rx, port)
+    paths["tablet"] = phase_tablet(args.seed, hr, rx, port)
+    paths["extsort"] = phase_extsort(hr, rx, port)
 
     # 5. the kernels line
     times = phase_kernel_times(hr, rx, args.seed)
     kernels = []
     for name in TRACE_NAMES:
-        per_query = {q: r["launches"][name] for q, r in slice_result.items()}
+        per_path = {q: r["launches"][name] for q, r in paths.items()}
         entry = {
             "name": name,
             "route": "cuda",
             "source": f"ytsaurus_tpu_torch/csrc/{name}.cu",
             "replaces": "ytsaurus_tpu/ops/pallas_radix.py:50",
-            "launches": sum(per_query.values()),
-            "launches_per_query": per_query,
+            "launches": sum(per_path.values()),
+            "launches_per_path": per_path,
             "on_main_path": name in PATH_KERNELS,
             "max_abs_err": errors[name],
             "bound_by": "bytes",
@@ -616,9 +1144,11 @@ def main() -> int:
     line = {"kernels": kernels}
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "rows": ROWS, "orders": ORDERS,
-              "window_rows": WINDOW_ROWS,
+              "window_rows": WINDOW_ROWS, "sort_rows": SORT_ROWS,
+              "tablet_versions": TABLET_VERSIONS,
+              "extsort_rows": paths["extsort"]["rows_in"],
               "seed": args.seed, "argsort": argsort,
-              "queries": slice_result, "kernels": kernels,
+              "paths": paths, "kernels": kernels,
               "ptxas": {name: _build.build_info[name]["log"]
                         for name in TRACE_NAMES}}
     if args.record:

@@ -212,3 +212,127 @@ def test_segment_scans_on_the_card_match_the_cpu(cuda_device):
                                     torch.from_numpy(starts))
             np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                        rtol=1e-12)
+
+
+def _planes_on(chunk) -> dict:
+    return {name: (d.view(np.uint8) if d.dtype.kind == "f" else d, v)
+            for name, (d, v) in chunk.to_numpy()["planes"].items()}
+
+
+def _same_chunk(got, want) -> None:
+    assert got.row_count == want.row_count
+    assert got.capacity == want.capacity
+    g, w = _planes_on(got), _planes_on(want)
+    assert g.keys() == w.keys()
+    for name in w:
+        np.testing.assert_array_equal(g[name][0], w[name][0], name)
+        np.testing.assert_array_equal(g[name][1], w[name][1], name)
+
+
+def test_sort_chunk_on_the_card_matches_the_cpu(cuda_device):
+    from ytsaurus_tpu_torch.chunks.columnar import ColumnarChunk
+    from ytsaurus_tpu_torch.operations.sort_op import sort_chunk
+    from ytsaurus_tpu_torch.schema import TableSchema
+    rng = np.random.default_rng(8)
+    n = 1_000_000
+    schema = TableSchema.make([("k", "int64"), ("u", "uint64"),
+                               ("p", "double")])
+    arrays = {"k": rng.integers(0, 1 << 20, n),
+              "u": rng.integers(0, 1 << 64, n, dtype=np.uint64),
+              "p": rng.random(n)}
+    for keys in (["k"], ["u", "k"], ["p"]):
+        rx.reset_launches()
+        got = sort_chunk(ColumnarChunk.from_arrays(schema, arrays,
+                                                   device=cuda_device),
+                         keys, device=cuda_device)
+        torch.cuda.synchronize()
+        assert rx.launches["radix_upsweep"] > 0
+        assert rx.launches["radix_onesweep"] > 0
+        want = sort_chunk(ColumnarChunk.from_arrays(schema, arrays,
+                                                    device="cpu"),
+                          keys, device="cpu")
+        _same_chunk(got, want)
+    order = np.argsort(arrays["p"], kind="stable")
+    np.testing.assert_array_equal(got.to_numpy()["planes"]["k"][0][:n],
+                                  arrays["k"][order])
+
+
+def test_external_sort_on_the_card_matches_the_cpu(cuda_device):
+    from ytsaurus_tpu_torch.chunks.columnar import ColumnarChunk
+    from ytsaurus_tpu_torch.ops.bigsort import SpillStats, external_sort
+    from ytsaurus_tpu_torch.schema import TableSchema
+    rng = np.random.default_rng(9)
+    schema = TableSchema.make([("k", "int64"), ("p", "double")])
+    n, block = 2_000_000, 250_000
+    keys = rng.integers(0, 1 << 60, n)
+    pay = rng.random(n)
+
+    def blocks(device):
+        return [ColumnarChunk.from_arrays(
+            schema, {"k": keys[lo:lo + block], "p": pay[lo:lo + block]},
+            device=device) for lo in range(0, n, block)]
+
+    budget = 300_000 * 18 * 2
+    rx.reset_launches()
+    got_stats, want_stats = SpillStats(), SpillStats()
+    got = list(external_sort(blocks(cuda_device), ["k"], budget,
+                             stats=got_stats, device=cuda_device))
+    torch.cuda.synchronize()
+    assert rx.launches["radix_upsweep"] > 0
+    want = list(external_sort(blocks("cpu"), ["k"], budget,
+                              stats=want_stats, device="cpu"))
+    assert got_stats == want_stats and got_stats.ranges > 1
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _same_chunk(g, w)
+    flat = np.concatenate([c.to_numpy()["planes"]["k"][0][:c.row_count]
+                           for c in got])
+    np.testing.assert_array_equal(flat, np.sort(keys))
+
+
+def test_mvcc_on_the_card_matches_the_cpu(cuda_device):
+    from ytsaurus_tpu_torch.chunks.columnar import chunk_from_numpy
+    from ytsaurus_tpu_torch.schema import TableSchema
+    from ytsaurus_tpu_torch.tablet import mvcc
+    from ytsaurus_tpu_torch.tablet.tablet import versioned_schema
+    rng = np.random.default_rng(10)
+    table = TableSchema.make([("k", "int64", "ascending"), ("g", "int64"),
+                              ("v", "int64")])
+    vschema = versioned_schema(table)
+    n_keys, n_later = 200_000, 100_000
+    n = n_keys + n_later
+    k = np.concatenate([np.arange(n_keys), rng.integers(0, n_keys, n_later)])
+    ts = np.arange(1, n + 1)
+    tomb = np.concatenate([np.zeros(n_keys, bool), rng.random(n_later) < .05])
+    wg = np.concatenate([np.ones(n_keys, bool), np.zeros(n_later, bool)])
+    wv = ~tomb
+    perm = rng.permutation(n)
+    cap = 1 << 19
+    planes = {}
+    for name, data, valid in (
+            ("k", k, np.ones(n, bool)), ("$timestamp", ts, np.ones(n, bool)),
+            ("$tombstone", tomb, np.ones(n, bool)),
+            ("g", rng.integers(0, 100, n), wg), ("$w:g", wg, np.ones(n, bool)),
+            ("v", rng.integers(0, 1000, n), wv),
+            ("$w:v", wv, np.ones(n, bool))):
+        d = np.zeros(cap, dtype=data.dtype)
+        m = np.zeros(cap, dtype=bool)
+        d[:n], m[:n] = data[perm], valid[perm]
+        planes[name] = (d, m)
+    spec = [(c.name, c.type.value) + ((c.sort_order.value,)
+            if c.sort_order is not None else ()) for c in vschema]
+    on_card = chunk_from_numpy(spec, n, planes, device=cuda_device)
+    on_cpu = chunk_from_numpy(spec, n, planes, device="cpu")
+    for read_ts in (n_keys + n_later // 2, 1 << 62):
+        rx.reset_launches()
+        got = mvcc.visible_chunk(on_card, table, read_ts, device=cuda_device)
+        torch.cuda.synchronize()
+        assert rx.launches["radix_onesweep"] > 0
+        _same_chunk(got, mvcc.visible_chunk(on_cpu, table, read_ts,
+                                            device="cpu"))
+    _same_chunk(mvcc.sorted_versioned_chunk(on_card, table,
+                                            device=cuda_device),
+                mvcc.sorted_versioned_chunk(on_cpu, table, device="cpu"))
+    _same_chunk(mvcc.retained_chunk(on_card, table, n_keys,
+                                    device=cuda_device),
+                mvcc.retained_chunk(on_cpu, table, n_keys, device="cpu"))

@@ -307,7 +307,8 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
     """The port imports neither jax nor the JAX package: with both blocked
     in sys.modules, CPU queries (an aggregation, the Q3 join and the
     window query) run end to end in a fresh interpreter, through the
-    join, window and planner modules."""
+    join, window and planner modules; so do a `sort_chunk`, an
+    `external_sort` that partitions and an MVCC `visible_chunk`."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -333,6 +334,35 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
             w_arrays, device="cpu")}, device="cpu").to_numpy()["planes"]
         s, r = tpch.window_oracle(w_arrays)
         assert (w["s"][0][:4096] == s).all() and (w["r"][0][:4096] == r).all()
+        import numpy as np
+        from ytsaurus_tpu_torch.chunks.columnar import ColumnarChunk
+        from ytsaurus_tpu_torch.operations.sort_op import sort_chunk
+        from ytsaurus_tpu_torch.ops.bigsort import external_sort
+        from ytsaurus_tpu_torch.schema import TableSchema
+        from ytsaurus_tpu_torch.tablet import mvcc
+        from ytsaurus_tpu_torch.tablet.tablet import versioned_schema
+        from ytsaurus_tpu_torch.tablet.timestamp import MAX_TIMESTAMP
+        keys = np.random.default_rng(9).integers(0, 1 << 40, 3000)
+        schema = TableSchema.make([("k", "int64"), ("p", "double")])
+        blocks = [ColumnarChunk.from_arrays(
+            schema, {"k": keys[lo:lo + 1000], "p": np.arange(1000.0)},
+            device="cpu") for lo in range(0, 3000, 1000)]
+        srt = sort_chunk(blocks[0], ["k"], device="cpu").to_numpy()
+        assert (srt["planes"]["k"][0][:1000] == np.sort(keys[:1000])).all()
+        out = list(external_sort(blocks, ["k"], budget_bytes=400 * 36,
+                                 device="cpu"))
+        assert len(out) > 1 and (np.concatenate(
+            [c.to_numpy()["planes"]["k"][0][:c.row_count] for c in out])
+            == np.sort(keys)).all()
+        table = TableSchema.make([("k", "int64", "ascending"),
+                                  ("v", "int64")])
+        versions = ColumnarChunk.from_rows(versioned_schema(table), [
+            (1, 10, False, 5, True), (1, 20, False, 6, True),
+            (2, 10, False, 7, True), (2, 30, True, None, False)],
+            device="cpu")
+        seen = mvcc.visible_chunk(versions, table, MAX_TIMESTAMP,
+                                  device="cpu").to_rows()
+        assert seen == [{"k": 1, "v": 6}], seen
         assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                              if v is not None}
         print("ok", len(rows))

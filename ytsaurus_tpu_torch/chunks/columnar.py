@@ -2,7 +2,8 @@
 
 Port of the JAX package's `chunks/columnar.py` (`next_pow2`, `pad_capacity`,
 `Column`, `ColumnarChunk`, `from_rows`, `from_arrays`, `to_rows`,
-`unify_dictionaries`, `concat_chunks`, and the column statistics the join
+`to_tuples`, `with_capacity`, `slice_rows`, `unify_dictionaries`,
+`concat_chunks`, and the column statistics the join
 planner reads: `chunk_column_stats`, `column_ndv_sketch`, `ndv_estimate`,
 `merge_column_stats`):
 
@@ -261,6 +262,36 @@ class ColumnarChunk:
         return [{name: decoded[name][i] for name in names}
                 for i in range(self.row_count)]
 
+    def to_tuples(self) -> list[tuple]:
+        decoded = [self.columns[name].decode(self.row_count)
+                   for name in self.schema.column_names]
+        return [tuple(col[i] for col in decoded)
+                for i in range(self.row_count)]
+
+    # --- transforms -----------------------------------------------------------
+
+    def with_capacity(self, capacity: int) -> "ColumnarChunk":
+        """Repad all planes to a new (>= row_count) capacity."""
+        if capacity == self.capacity:
+            return self
+        if capacity < self.row_count:
+            raise YtError("Cannot shrink chunk below its row count")
+        m = min(capacity, self.capacity)
+        columns = {name: _repadded(col, 0, m, capacity)
+                   for name, col in self.columns.items()}
+        return ColumnarChunk(schema=self.schema, row_count=self.row_count,
+                             columns=columns, sorted_by=self.sorted_by)
+
+    def slice_rows(self, start: int, end: int) -> "ColumnarChunk":
+        start = max(0, start)
+        end = min(self.row_count, end)
+        n = max(0, end - start)
+        cap = pad_capacity(max(n, 1))
+        columns = {name: _repadded(col, start, n, cap)
+                   for name, col in self.columns.items()}
+        return ColumnarChunk(schema=self.schema, row_count=n, columns=columns,
+                             sorted_by=self.sorted_by)
+
     def to_numpy(self) -> dict:
         """The chunk as numpy arrays, in `chunk_from_numpy`'s arguments:
         schema_spec, row_count, planes {name: (data, valid)} at full
@@ -278,6 +309,16 @@ class ColumnarChunk:
         return {"schema_spec": _schema_spec(self.schema),
                 "row_count": self.row_count, "planes": planes,
                 "dictionaries": dictionaries, "sorted_by": self.sorted_by}
+
+
+def _repadded(col: Column, start: int, n: int, capacity: int) -> Column:
+    """Rows [start, start + n) of a column at the front of new planes of
+    `capacity` rows (zero data, invalid beyond them)."""
+    data = torch.zeros(capacity, dtype=col.data.dtype, device=col.data.device)
+    valid = torch.zeros(capacity, dtype=torch.bool, device=col.valid.device)
+    data[:n] = col.data[start:start + n]
+    valid[:n] = col.valid[start:start + n]
+    return replace(col, data=data, valid=valid)
 
 
 def _schema_spec(schema: TableSchema) -> list[tuple]:

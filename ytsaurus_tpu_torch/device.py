@@ -34,3 +34,14 @@ def resolve_device(device: "str | torch.device | None" = DEFAULT_DEVICE
 
 def same_device(a: torch.device, b: torch.device) -> bool:
     return a.type == b.type and (a.type == "cpu" or a.index == b.index)
+
+
+def resolve_for(chunk, device: "str | torch.device | None", what: str
+                ) -> torch.device:
+    """`device` resolved as by `resolve_device`; raises YtError unless the
+    chunk (a ColumnarChunk) lies on it. `what` names the operation."""
+    dev = resolve_device(device)
+    if chunk.columns and not same_device(chunk.device, dev):
+        raise YtError(f"Chunk lies on {chunk.device}, {what} runs on {dev}",
+                      code=EErrorCode.InvalidConfig)
+    return dev
