@@ -21,19 +21,38 @@ Phases (any failure exits non-zero and prints no result line):
      --seed, then select_rows(Q1) and select_rows(Q18_AGG) on the card,
      checked against numpy oracles (Q1: groups and counts exact, doubles to
      rtol=1e-9; Q18_AGG: keys, order, sums and line counts exact); then
+     FUNCS over the same chunk (a calendar floor, farm_hash with an
+     unsigned modulo, the numeric functions and a LIKE on every row,
+     GROUP BY month and hash bucket): groups, counts, rev and mq exact,
+     dd to rtol 1e-9, with the host seconds of its binding; then
      TPC-H Q3, the lineitem chunk joined with 16,000,000 orders (seed 1):
      the 10 order keys and their order exact, revenue to rtol=1e-9 (two
      orders whose oracle revenues lie within that tolerance may swap);
      then the window query of the repo's window benchmark over 64,000,000
      rows in 1000 partitions made from --seed: the running sum and the rank
-     exact, in the input's row order. Each query runs once with every
+     exact, in the input's row order;
+     STRINGS: bench.py --config strings at its device size (10,000,000
+     rows over 1,000,000 distinct strings, from --seed): its GROUP BY s,
+     and upper / concat / length grouped under a LIKE OR a regex, each
+     with the host seconds of its binding, against integer oracles;
+     VECTOR: bench.py --config vector at its device size (4,000,000
+     vectors from np.random.default_rng(3), dim 64 then 256):
+     batched_nearest over k 8/64 x batch 1/16/64 (l2), each point held
+     to the float64 oracle's recall rule (relative slack 1e-5 on the k-th
+     measure, distances to rtol 1e-4), timed on the card and as a wall
+     time; at the headline (dim 256, k 8, batch 64) cosine and dot too,
+     the product / epilogue / top-k split against its bound, one profiled
+     run; then three QL queries (NEAREST l2 projecting the vectors,
+     NEAREST cosine under a WHERE, ORDER BY dot_product DESC LIMIT 8) over
+     the (k, g, emb) table. It fails unless TF32 is off and the float32
+     matmul precision is "highest". Each query runs once with every
      kernel's launch count set to 0 before it and read after it (it fails
      unless radix_upsweep and radix_onesweep were launched), then REPS more
-     times for its warm time, then once under torch.profiler for its device
-     time by kernel and idle share (it fails unless the trace holds as many
-     kernels of each port kernel as were launched); Q3's profile also gives
-     the device time of the join's phases (foreign sort, binary search,
-     materialization);
+     times for its warm time, then twice under torch.profiler, the second
+     run giving its device time by kernel and idle share (it fails unless
+     the trace holds as many kernels of each port kernel as were
+     launched); Q3's profile also gives the device time of the join's
+     phases (foreign sort, binary search, materialization);
      then the Sort operation and the MVCC read, each checked against a
      numpy oracle, with its launches counted (it fails unless
      radix_upsweep and radix_onesweep ran), its peak memory and a
@@ -88,6 +107,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Published peak memory rate of one H100 SXM (NVIDIA's data sheet).
 H100_BYTES_PER_S = 3.35e12
+# Published peak float32 rate of one H100 SXM outside the tensor cores.
+H100_FP32_FLOPS = 67e12
 ROWS = 64_000_000            # lineitem rows: the repo's q1 bench size
 ORDERS = 16_000_000          # orders rows: Q3's n_orders at ROWS lines
 ORDERS_SEED = 1              # the reference generator's default seed
@@ -102,6 +123,8 @@ TABLET_GROUPS = 10_000       # g uniform in [0, TABLET_GROUPS)
 TABLET_READ_TS = 56_000_000  # the historical read and compaction cut
 TABLET_QUERY = "g, sum(v) AS s, count(*) AS c FROM [//t] GROUP BY g"
 MAIN_N = 67_108_864          # pad_capacity(ROWS): the main path's sort width
+STRINGS_ROWS = 10_000_000    # bench.py --config strings at its device size
+VECTOR_ROWS = 4_000_000      # bench.py --config vector at its device size
 REPS = 5                     # warm runs per query; the median is reported
 M32 = 0xFFFFFFFF
 # Each port kernel by its wrapper's name, and the name of its CUDA kernel
@@ -113,6 +136,8 @@ TRACE_NAMES = {"hist_rank": "hist_rank_kernel",
 # Pallas kernel's interface and is checked against its plain version, but
 # the main path ranks its tiles inside radix_onesweep.
 PATH_KERNELS = ("radix_upsweep", "radix_onesweep")
+# The profiler range around the profiled run.
+RUN_RANGE = "chip_smoke.run"
 # Profiler ranges of a join's phases (query/engine/joins.py).
 JOIN_RANGES = ("join.sort_foreign", "join.search", "join.materialize")
 # Profiler ranges of the external sort's passes (ops/bigsort.py).
@@ -289,32 +314,43 @@ def phase_argsort(rx, gen) -> dict:
             "two_word_launches": passes}
 
 
-def _profile(run, hr, rx, ranges=()) -> dict:
-    """One run of `run` under torch.profiler: device time by kernel name
-    and by the torch op that launched it, and the device's idle share of
-    the wall time (both as seen under the profiler, which slows the host).
-    Busy time is the union of the device events' spans; `listed_sum_ms` is
-    their plain sum, so that the two show any overlap. Raises unless the
-    trace holds as many kernels of each port kernel as the run launched.
-    For each profiler range named in `ranges`, the device time of the
-    kernels launched inside it and its share of the busy time."""
+def _profile(run, hr, rx, ranges=(), runs: int = 2) -> dict:
+    """The last of `runs` runs of `run` under torch.profiler: device time
+    by kernel name and by the torch op that launched it, and the device's
+    idle share of the wall time (both as seen under the profiler, which
+    slows the host). Busy time is the union of the device events' spans;
+    `listed_sum_ms` is their plain sum, so that the two show any overlap.
+    Raises unless the trace holds as many kernels of each port kernel as
+    the run launched. For each profiler range named in `ranges`, the
+    device time of the kernels launched inside it and its share of the
+    busy time. Only events inside the last run's range count: late in a
+    long process the trace was seen to lose the first kernels of a
+    profiler session (VECTOR, chip_smoke), and the earlier runs take
+    that loss."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
-    _reset_launches(hr, rx)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        run()
+        for _ in range(runs - 1):
+            run()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
+        _reset_launches(hr, rx)
+        with record_function(RUN_RANGE):
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t) * 1e6
     launched = _launches(hr, rx)
+    run_start = min(e.time_range.start for e in prof.events()
+                    if e.name == RUN_RANGE)
     by_kernel: dict = {}
     spans = []
     traced = dict.fromkeys(TRACE_NAMES, 0)
     for e in prof.events():
         if e.device_type == DeviceType.CUDA and \
+                e.time_range.start >= run_start and \
                 not getattr(e, "is_user_annotation", False):
             by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total
             spans.append((e.time_range.start, e.time_range.end))
@@ -327,11 +363,16 @@ def _profile(run, hr, rx, ranges=()) -> dict:
     busy_us = _busy_us(spans)
     if busy_us <= 0:
         raise AssertionError("the trace holds no device time")
-    by_op = sorted(((e.key, e.self_device_time_total, e.count)
-                    for e in prof.key_averages()
-                    if e.device_type == DeviceType.CPU
-                    and e.self_device_time_total > 0),
-                   key=lambda x: -x[1])[:8]
+    op_acc: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and \
+                e.time_range.start >= run_start and \
+                e.self_device_time_total > 0:
+            acc = op_acc.setdefault(e.name, [0.0, 0])
+            acc[0] += e.self_device_time_total
+            acc[1] += 1
+    by_op = sorted(((name, us, count) for name, (us, count) in
+                    op_acc.items()), key=lambda x: -x[1])[:8]
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     port_ms = {kernel: sum(us for name, us in by_kernel.items()
                            if trace_name in name) / 1e3
@@ -339,7 +380,8 @@ def _profile(run, hr, rx, ranges=()) -> dict:
     in_range = {name: 0.0 for name in ranges}
     host_range = {name: 0.0 for name in ranges}
     for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name in in_range:
+        if e.device_type == DeviceType.CPU and e.name in in_range and \
+                e.time_range.start >= run_start:
             in_range[e.name] += e.device_time_total
             host_range[e.name] += e.time_range.end - e.time_range.start
     if ranges and not any(in_range.values()):
@@ -508,6 +550,15 @@ def phase_slice(seed: int, hr, rx, tpch, select_rows) -> dict:
                               tpch.q18_agg_oracle(arrays), ROWS, hr, rx,
                               select_rows),
     }
+    t0 = time.perf_counter()
+    funcs_oracle = tpch.funcs_oracle(arrays)
+    _log(f"funcs oracle: {len(funcs_oracle)} groups in "
+         f"{time.perf_counter() - t0:.1f} s")
+    funcs_bind = _bind_seconds(tpch.FUNCS, tables)
+    out["funcs"] = _run_query("funcs", tpch.FUNCS, tables, _check_funcs,
+                              funcs_oracle, ROWS, hr, rx, select_rows)
+    out["funcs"]["bind_host_s"] = funcs_bind
+    _log(f"funcs: binding on the host {funcs_bind:.4f} s")
 
     t0 = time.perf_counter()
     orders = tpch.orders_arrays(ORDERS, seed=ORDERS_SEED)
@@ -534,6 +585,269 @@ def phase_slice(seed: int, hr, rx, tpch, select_rows) -> dict:
         tpch.window_oracle(w_arrays), WINDOW_ROWS, hr, rx, select_rows)
     del w_chunk, w_arrays
     torch.cuda.empty_cache()
+    return out
+
+
+def _check_funcs(result, oracle: dict) -> int:
+    """FUNCS's groups and counts, rev and mq exactly (rev sums whole
+    numbers below 2^53), dd to rtol 1e-9."""
+    rows = result.to_rows()
+    got = {(r["month"], r["bucket"]): r for r in rows}
+    if set(got) != set(oracle):
+        raise AssertionError(f"FUNCS groups: {len(got)} against the "
+                             f"oracle's {len(oracle)}")
+    for key, want in oracle.items():
+        row = got[key]
+        for name in ("c", "rev", "mq"):
+            if row[name] != want[name]:
+                raise AssertionError(f"FUNCS {key} {name} {row[name]!r} != "
+                                     f"{want[name]!r}")
+        if abs(row["dd"] - want["dd"]) > 1e-9 * abs(want["dd"]):
+            raise AssertionError(f"FUNCS {key} dd {row['dd']!r} != "
+                                 f"{want['dd']!r} (rtol 1e-9)")
+    return len(rows)
+
+
+def _bind_seconds(query: str, tables: dict, reps: int = 3) -> float:
+    """Median host seconds of binding `query` to its chunk (`build_query`
+    and `prepare`: vocabulary tables, literal codes), apart from the run."""
+    from ytsaurus_tpu_torch.query.builder import build_query
+    from ytsaurus_tpu_torch.query.engine.lowering import prepare
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        plan = build_query(query, {p: c.schema for p, c in tables.items()})
+        prepare(plan, tables[plan.source])
+        times.append(time.perf_counter() - t)
+    return statistics.median(times)
+
+
+def _check_strings_group(result, oracle: dict) -> int:
+    """STRINGS_GROUP's {s: t} exactly, read back as planes."""
+    planes = result.to_numpy()
+    n = result.row_count
+    codes, valid = planes["planes"]["s"]
+    sums = planes["planes"]["t"][0][:n]
+    vocab = planes["dictionaries"]["s"]
+    if n != len(oracle) or not valid[:n].all():
+        raise AssertionError(f"STRINGS_GROUP gave {n} groups, the oracle "
+                             f"{len(oracle)}")
+    for code, t in zip(codes[:n].tolist(), sums.tolist()):
+        if oracle.get(bytes(vocab[code])) != t:
+            raise AssertionError(f"STRINGS_GROUP {vocab[code]!r}: {t} != "
+                                 f"{oracle.get(bytes(vocab[code]))}")
+    return n
+
+
+def _check_strings_funcs(result, oracle: dict) -> int:
+    rows = result.to_rows()
+    got = {r["u"]: (r["n"], r["t"]) for r in rows}
+    if got != oracle or len(rows) != len(oracle):
+        raise AssertionError(f"STRINGS_FUNCS: {len(rows)} rows against the "
+                             f"oracle's {len(oracle)}")
+    return len(rows)
+
+
+def phase_strings(seed: int, hr, rx, synthetic, select_rows) -> dict:
+    """STRINGS: bench.py --config strings at its accelerator size, its
+    GROUP BY and the LIKE / regex / dictionary-function query, each with
+    the host seconds of its binding apart."""
+    import torch
+    t0 = time.perf_counter()
+    arrays = synthetic.strings_arrays(STRINGS_ROWS, seed=seed)
+    chunk = synthetic.strings_chunk(arrays, device="cuda")
+    torch.cuda.synchronize()
+    tables = {"//t": chunk}
+    _log(f"strings table: {STRINGS_ROWS} rows, "
+         f"{len(chunk.columns['s'].dictionary)} distinct strings, capacity "
+         f"{chunk.capacity}, made in {time.perf_counter() - t0:.1f} s "
+         f"(seed {seed})")
+    out = {}
+    for name, query, check, oracle in (
+            ("strings_group", synthetic.STRINGS_GROUP, _check_strings_group,
+             synthetic.strings_group_oracle(arrays)),
+            ("strings_funcs", synthetic.STRINGS_FUNCS, _check_strings_funcs,
+             synthetic.strings_funcs_oracle(arrays))):
+        bind_s = _bind_seconds(query, tables)
+        out[name] = _run_query(name, query, tables, check, oracle,
+                               STRINGS_ROWS, hr, rx, select_rows)
+        out[name]["bind_host_s"] = bind_s
+        _log(f"{name}: binding on the host {bind_s:.3f} s of the warm "
+             f"median {out[name]['median_ms'] / 1e3:.3f} s; device busy "
+             f"{out[name]['profile']['device_busy_ms']:.3f} ms, idle "
+             f"{out[name]['profile']['idle_share']:.4f}")
+    del chunk, tables, arrays
+    torch.cuda.empty_cache()
+    return out
+
+
+def _vector_bound_ms(rows: int, batch: int, dim: int) -> tuple:
+    """The headline's bound: the larger of the product's operations at the
+    float32 peak outside the tensor cores and the plane, queries and
+    scores moved once. (ms, 'operations' or 'bytes')."""
+    ops_ms = 2.0 * batch * rows * dim / H100_FP32_FLOPS * 1e3
+    bytes_ms = _bound_ms(4.0 * (rows * dim + batch * dim + batch * rows))
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes")
+
+
+def phase_vector(hr, rx, synthetic, vector, select_rows) -> dict:
+    """VECTOR: bench.py --config vector at its accelerator size. For dim 64
+    and 256: batched_nearest over the sweep (k 8/64 × batch 1/16/64, l2),
+    each point checked against the float64 oracle (every query at the
+    headline, dim 256 k 8 batch 64, where cosine and dot run too; the
+    first four elsewhere), timed on the card (the scores and the top-k, by
+    CUDA events) and as the entry point's wall time. At dim 256 also the
+    three QL queries over the (k, g, emb) table, as paths."""
+    import numpy as np
+    import torch
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    precision = torch.get_float32_matmul_precision()
+    _log(f"vector: torch.backends.cuda.matmul.allow_tf32={tf32}, "
+         f"float32 matmul precision {precision!r}")
+    if tf32 or precision != "highest":
+        raise AssertionError("the vector product must run in full float32")
+    out = {"sweep": [], "paths": {}, "tf32": tf32, "precision": precision}
+    rows_all = np.arange(VECTOR_ROWS)
+    for dim, plane, queries in synthetic.vector_sweep(VECTOR_ROWS):
+        t0 = time.perf_counter()
+        chunk = synthetic.vector_table(plane, device="cuda")
+        torch.cuda.synchronize()
+        _log(f"vector table dim {dim}: {VECTOR_ROWS} rows, capacity "
+             f"{chunk.capacity}, {chunk.nbytes / 1e9:.3f} GB on the card, "
+             f"made in {time.perf_counter() - t0:.1f} s (seed "
+             f"{synthetic.VECTOR_SEED})")
+        col = chunk.columns["emb"]
+        valid = col.valid & (torch.arange(col.capacity, device="cuda")
+                             < chunk.row_count)
+        checked = {pt: q if pt == (8, 64) and dim == 256 else q[:4]
+                   for pt, q in queries.items()}
+        t0 = time.perf_counter()
+        stacked = np.concatenate(list(checked.values()))
+        measures = synthetic.vector_measures(plane, stacked, "l2")
+        _log(f"vector oracle dim {dim}: {len(stacked)} queries in float64 "
+             f"in {time.perf_counter() - t0:.1f} s")
+        at = 0
+        for (k, batch), q in queries.items():
+            torch.cuda.reset_peak_memory_stats()
+            q_dev = torch.from_numpy(q).to("cuda")
+            hits = vector.batched_nearest(chunk, "emb", q.tolist(), k, "l2",
+                                          device="cuda")
+            for i in range(len(checked[(k, batch)])):
+                synthetic.check_hits(hits[i], measures[at + i], rows_all,
+                                     "l2", k)
+            at += len(checked[(k, batch)])
+            kernel_ms = _cuda_ms(lambda: vector.top_rows(
+                vector.nearest_scores(col.data, valid, q_dev, "l2"), k),
+                iters=REPS)
+            walls = []
+            for _ in range(REPS):
+                t = time.perf_counter()
+                vector.batched_nearest(chunk, "emb", q.tolist(), k, "l2",
+                                       device="cuda")
+                walls.append((time.perf_counter() - t) * 1e3)
+            point = {"dim": dim, "k": k, "batch": batch,
+                     "kernel_ms": kernel_ms,
+                     "wall_ms": statistics.median(walls),
+                     "queries_per_s": batch / (kernel_ms / 1e3),
+                     "vectors_scanned_per_s":
+                         VECTOR_ROWS * batch / (kernel_ms / 1e3),
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "checked_queries": len(checked[(k, batch)])}
+            out["sweep"].append(point)
+            _log(f"vector dim={dim} k={k} batch={batch}: scores + top-k "
+                 f"{kernel_ms:.3f} ms on the card "
+                 f"({point['queries_per_s']:,.0f}"
+                 f" queries/s, {point['vectors_scanned_per_s']:,.0f} "
+                 f"vectors-scanned/s); batched_nearest wall "
+                 f"{point['wall_ms']:.3f} ms; {point['checked_queries']} "
+                 f"queries match the oracle")
+        del measures
+        if dim == 256:
+            out["headline"] = _vector_headline(
+                chunk, col, valid, plane, queries[(8, 64)], hr, rx,
+                synthetic, vector)
+            out["paths"] = _vector_paths(chunk, plane, queries[(8, 64)][0],
+                                         hr, rx, synthetic, select_rows)
+        del chunk, col, valid, plane, queries
+        torch.cuda.empty_cache()
+    return out
+
+
+def _vector_headline(chunk, col, valid, plane, q, hr, rx, synthetic,
+                     vector) -> dict:
+    """The headline point (dim 256, k 8, batch 64): cosine and dot against
+    the oracle too, the device time split into the product, the epilogue
+    and the top-k, its bound, and one run under the profiler."""
+    import numpy as np
+    import torch
+    rows_all = np.arange(VECTOR_ROWS)
+    k, batch, dim = 8, len(q), plane.shape[1]
+    q_dev = torch.from_numpy(q).to("cuda")
+    for metric in ("cosine", "dot"):
+        measures = synthetic.vector_measures(plane, q, metric)
+        hits = vector.batched_nearest(chunk, "emb", q.tolist(), k, metric,
+                                      device="cuda")
+        for i in range(batch):
+            synthetic.check_hits(hits[i], measures[i], rows_all, metric, k)
+        _log(f"vector headline {metric}: {batch} queries match the oracle")
+    x = col.data
+    torch.cuda.reset_peak_memory_stats()
+    split = {"matmul_ms": _cuda_ms(lambda: q_dev @ x.T, iters=REPS)}
+    split["scores_ms"] = _cuda_ms(
+        lambda: vector.nearest_scores(x, valid, q_dev, "l2"), iters=REPS)
+    split["epilogue_ms"] = split["scores_ms"] - split["matmul_ms"]
+    score = vector.nearest_scores(x, valid, q_dev, "l2")
+    split["topk_ms"] = _cuda_ms(lambda: vector.top_rows(score, k),
+                                iters=REPS)
+    split["library_topk_ms"] = _cuda_ms(lambda: torch.topk(score, k, dim=1),
+                                        iters=REPS)
+    for metric in ("cosine", "dot"):
+        split[f"{metric}_ms"] = _cuda_ms(lambda: vector.top_rows(
+            vector.nearest_scores(x, valid, q_dev, metric), k), iters=REPS)
+    del score
+    split["peak_bytes"] = torch.cuda.max_memory_allocated()
+    split["bound_ms"], split["bound_by"] = _vector_bound_ms(
+        chunk.capacity, batch, dim)
+    split["profile"] = _profile(lambda: vector.batched_nearest(
+        chunk, "emb", q.tolist(), k, "l2", device="cuda"), hr, rx)
+    _log(f"vector headline split (dim {dim}, k {k}, batch {batch}): "
+         f"{json.dumps({n: v for n, v in split.items() if n != 'profile'})}")
+    _log(f"vector headline profile: {json.dumps(split['profile'])}")
+    return split
+
+
+def _vector_paths(chunk, plane, q, hr, rx, synthetic, select_rows) -> dict:
+    """The three QL queries over the (k, g, emb) table, as paths: recall
+    against the float64 oracle, the vector plane through the compaction
+    intact."""
+    import numpy as np
+    metrics = {"nearest_l2": "l2", "nearest_cosine_where": "cosine",
+               "order_by_dot": "dot"}
+    out = {}
+    for name, query in synthetic.VECTOR_QUERIES.items():
+        metric = metrics[name]
+        rows = np.arange(VECTOR_ROWS)
+        if "WHERE g = 2" in query:
+            rows = rows[rows % synthetic.VECTOR_GROUPS == 2]
+        measures = synthetic.vector_measures(plane, q, metric, rows)[0]
+
+        def check(result, rows=rows, measures=measures, metric=metric):
+            got = result.to_rows()
+            ks = np.array([r["k"] for r in got], dtype=np.int64)
+            own = synthetic.vector_measures(plane, q, metric, ks)[0]
+            synthetic.check_hits(list(zip(ks.tolist(), own.tolist())),
+                                 measures, rows, metric, 8)
+            for r in got:
+                if "emb" in r and r["emb"] != plane[r["k"]].tolist():
+                    raise AssertionError(f"row {r['k']}: emb differs from "
+                                         "its plane row")
+            return len(got)
+
+        out[f"vector_{name}"] = _run_path(
+            f"vector_{name}", lambda query=query: select_rows(
+                query, {"//v": chunk}, params=[q.tolist()], device="cuda"),
+            check, VECTOR_ROWS, hr, rx)
     return out
 
 
@@ -959,7 +1273,7 @@ def phase_extsort(hr, rx, port) -> dict:
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    prof = _profile(run, hr, rx, EXT_RANGES)
+    prof = _profile(run, hr, rx, EXT_RANGES, runs=1)
     peak = torch.cuda.max_memory_allocated()
     launches = prof["launched"]
     for kernel in PATH_KERNELS:
@@ -1084,10 +1398,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from ytsaurus_tpu_torch import _build
-    from ytsaurus_tpu_torch.models import tpch
+    from ytsaurus_tpu_torch.models import synthetic, tpch
     from ytsaurus_tpu_torch.ops import hist_rank as hr
     from ytsaurus_tpu_torch.ops import radix as rx
     from ytsaurus_tpu_torch.query import select_rows
+    from ytsaurus_tpu_torch.query import vector
 
     # 1. environment
     smi = _nvidia_smi()
@@ -1116,6 +1431,9 @@ def main() -> int:
 
     # 4. the slice: the queries, then the Sort operation and MVCC reads
     paths = phase_slice(args.seed, hr, rx, tpch, select_rows)
+    paths.update(phase_strings(args.seed, hr, rx, synthetic, select_rows))
+    vec = phase_vector(hr, rx, synthetic, vector, select_rows)
+    paths.update(vec.pop("paths"))
     port = _port_entry_points()
     paths["sort"] = phase_sort(args.seed, hr, rx, port)
     paths["tablet"] = phase_tablet(args.seed, hr, rx, port)
@@ -1147,6 +1465,8 @@ def main() -> int:
               "window_rows": WINDOW_ROWS, "sort_rows": SORT_ROWS,
               "tablet_versions": TABLET_VERSIONS,
               "extsort_rows": paths["extsort"]["rows_in"],
+              "strings_rows": STRINGS_ROWS, "vector_rows": VECTOR_ROWS,
+              "vector": vec,
               "seed": args.seed, "argsort": argsort,
               "paths": paths, "kernels": kernels,
               "ptxas": {name: _build.build_info[name]["log"]

@@ -336,3 +336,106 @@ def test_mvcc_on_the_card_matches_the_cpu(cuda_device):
     _same_chunk(mvcc.retained_chunk(on_card, table, n_keys,
                                     device=cuda_device),
                 mvcc.retained_chunk(on_cpu, table, n_keys, device="cpu"))
+
+
+# --- the expression functions and vector search on the card -------------------
+
+
+def _rows_match(got: list, want: list, rel: float = 1e-9) -> None:
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for name, value in w.items():
+            if isinstance(value, float):
+                assert g[name] == pytest.approx(value, rel=rel), name
+            else:
+                assert g[name] == value, name
+
+
+def test_funcs_on_the_card_matches_the_cpu(cuda_device):
+    """The FUNCS query (calendar floor, farm_hash with an unsigned modulo,
+    the numeric functions, LIKE) over 200,000 lineitem rows: the card's
+    groups are the CPU's and the oracle's, through the radix kernels."""
+    from ytsaurus_tpu_torch.models import tpch
+    arrays = tpch.lineitem_arrays(200_000, seed=6)
+    spec = _spec(tpch.lineitem_chunk(arrays, device="cpu").to_numpy())
+    rx.reset_launches()
+    got = _run_on(cuda_device, tpch.FUNCS,
+                  {"//tpch/lineitem": spec}).to_rows()
+    torch.cuda.synchronize()
+    assert rx.launches["radix_upsweep"] > 0
+    assert rx.launches["radix_onesweep"] > 0
+    want = _run_on("cpu", tpch.FUNCS, {"//tpch/lineitem": spec}).to_rows()
+
+    def key(r):
+        return r["month"], r["bucket"]
+    _rows_match(sorted(got, key=key), sorted(want, key=key))
+    oracle = tpch.funcs_oracle(arrays)
+    assert {(r["month"], r["bucket"]): r["c"] for r in got} == \
+        {key: g["c"] for key, g in oracle.items()}
+
+
+@pytest.mark.parametrize("which", ["STRINGS_GROUP", "STRINGS_FUNCS"])
+def test_strings_on_the_card_matches_the_cpu(cuda_device, which):
+    from ytsaurus_tpu_torch.models import synthetic
+    arrays = synthetic.strings_arrays(300_000, seed=7)
+    spec = _spec(synthetic.strings_chunk(arrays, device="cpu").to_numpy())
+    query = getattr(synthetic, which)
+    got = _run_on(cuda_device, query, {"//t": spec}).to_rows()
+    want = _run_on("cpu", query, {"//t": spec}).to_rows()
+    key = list(want[0])[0]
+    _rows_match(sorted(got, key=lambda r: r[key]),
+                sorted(want, key=lambda r: r[key]))
+
+
+@pytest.mark.parametrize("name", ["nearest_l2", "nearest_cosine_where",
+                                  "order_by_dot"])
+def test_nearest_on_the_card_matches_the_cpu(cuda_device, name):
+    """NEAREST over 100,000 × 64 normal vectors: the card's rows hold the
+    float64 oracle's recall rule, as the CPU's do, with distances to rtol
+    1e-4; the vector plane comes out of the compaction intact."""
+    from ytsaurus_tpu_torch.models import synthetic
+    plane = np.random.default_rng(8).standard_normal((100_000, 64),
+                                                     dtype=np.float32)
+    q = np.random.default_rng(9).standard_normal(64, dtype=np.float32)
+    spec = _spec(synthetic.vector_table(plane, device="cpu").to_numpy())
+    query = synthetic.VECTOR_QUERIES[name]
+    metric = {"nearest_l2": "l2", "nearest_cosine_where": "cosine",
+              "order_by_dot": "dot"}[name]
+    rows = np.arange(100_000)
+    if name == "nearest_cosine_where":
+        rows = rows[rows % 5 == 2]
+    measures = synthetic.vector_measures(plane, q, metric, rows)[0]
+    for device in (cuda_device, "cpu"):
+        from ytsaurus_tpu_torch.chunks.columnar import chunk_from_numpy
+        from ytsaurus_tpu_torch.query import select_rows
+        chunk = chunk_from_numpy(**{**spec, "device": device})
+        out = select_rows(query, {"//v": chunk}, params=[q.tolist()],
+                          device=device).to_rows()
+        hits = [(r["k"], synthetic.vector_measures(
+            plane, q, metric, np.array([r["k"]]))[0, 0]) for r in out]
+        synthetic.check_hits(hits, measures, rows, metric, 8)
+        if "emb" in out[0]:
+            for r in out:
+                assert r["emb"] == plane[r["k"]].tolist()
+
+
+@pytest.mark.parametrize("metric", ["l2", "cosine", "dot"])
+def test_batched_nearest_on_the_card_matches_the_cpu(cuda_device, metric):
+    from ytsaurus_tpu_torch.chunks.columnar import chunk_from_numpy
+    from ytsaurus_tpu_torch.models import synthetic
+    from ytsaurus_tpu_torch.query.vector import batched_nearest
+    plane = np.random.default_rng(10).standard_normal((50_000, 32),
+                                                      dtype=np.float32)
+    queries = np.random.default_rng(11).standard_normal((5, 32),
+                                                        dtype=np.float32)
+    spec = _spec(synthetic.vector_table(plane, device="cpu").to_numpy())
+    rows = np.arange(50_000)
+    for device in (cuda_device, "cpu"):
+        chunk = chunk_from_numpy(**{**spec, "device": device})
+        out = batched_nearest(chunk, "emb", queries.tolist(), 16, metric,
+                              device=device)
+        assert len(out) == 5
+        measures = synthetic.vector_measures(plane, queries, metric)
+        for m, hits in zip(measures, out):
+            synthetic.check_hits(hits, m, rows, metric, 16)

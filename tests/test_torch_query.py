@@ -244,10 +244,10 @@ def test_group_by(query, monkeypatch):
     f"k FROM [{T}] WHERE s LIKE 'a%'",
     f"transform(v, (1, 2), (10, 20)) AS x FROM [{T}]",
 ])
-def test_not_yet_ported_expressions_raise(query):
-    chunk = _to_port(_mixed_table())
-    with pytest.raises(YtError, match="not yet ported"):
-        select_rows(query, {T: chunk}, device="cpu")
+def test_not_yet_ported_expressions_raise(query, monkeypatch):
+    """Expressions that once raised "not yet ported" on the port: each
+    now runs and gives the JAX package's rows."""
+    _run_both(query, _mixed_table(), monkeypatch)
 
 
 def test_row_list_tables(monkeypatch):
@@ -308,7 +308,9 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
     in sys.modules, CPU queries (an aggregation, the Q3 join and the
     window query) run end to end in a fresh interpreter, through the
     join, window and planner modules; so do a `sort_chunk`, an
-    `external_sort` that partitions and an MVCC `visible_chunk`."""
+    `external_sort` that partitions, an MVCC `visible_chunk`, the FUNCS
+    query, the STRINGS query with LIKE and a regex, a NEAREST query and
+    `batched_nearest`."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -363,6 +365,29 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
         seen = mvcc.visible_chunk(versions, table, MAX_TIMESTAMP,
                                   device="cpu").to_rows()
         assert seen == [{"k": 1, "v": 6}], seen
+        funcs = select_rows(tpch.FUNCS, {"//tpch/lineitem": chunk},
+                            device="cpu").to_rows()
+        want = tpch.funcs_oracle(arrays)
+        assert {(r["month"], r["bucket"]): r["c"] for r in funcs} == \
+            {key: g["c"] for key, g in want.items()}, funcs
+        from ytsaurus_tpu_torch.models import synthetic
+        s_arrays = synthetic.strings_arrays(20_000, seed=9)
+        strs = select_rows(synthetic.STRINGS_FUNCS, {
+            "//t": synthetic.strings_chunk(s_arrays, device="cpu")},
+            device="cpu").to_rows()
+        assert {r["u"]: (r["n"], r["t"]) for r in strs} == \
+            synthetic.strings_funcs_oracle(s_arrays), strs
+        plane = np.random.default_rng(9).standard_normal(
+            (3000, 16), dtype=np.float32)
+        q = plane[17] + 0.001
+        near = select_rows(synthetic.VECTOR_QUERIES["nearest_l2"], {
+            "//v": synthetic.vector_table(plane, device="cpu")},
+            params=[q.tolist()], device="cpu").to_rows()
+        assert near[0]["k"] == 17 and len(near) == 8, near
+        from ytsaurus_tpu_torch.query.vector import batched_nearest
+        hits = batched_nearest(synthetic.vector_table(plane, device="cpu"),
+                               "emb", [q.tolist()], 8, device="cpu")
+        assert [r for r, _ in hits[0]] == [r["k"] for r in near], hits
         assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                              if v is not None}
         print("ok", len(rows))

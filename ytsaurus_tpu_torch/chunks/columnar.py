@@ -5,7 +5,7 @@ Port of the JAX package's `chunks/columnar.py` (`next_pow2`, `pad_capacity`,
 `to_tuples`, `with_capacity`, `slice_rows`, `unify_dictionaries`,
 `concat_chunks`, and the column statistics the join
 planner reads: `chunk_column_stats`, `column_ndv_sketch`, `ndv_estimate`,
-`merge_column_stats`):
+`merge_column_stats`, `vector_column_stats`):
 
   * A chunk is a struct-of-arrays: one fixed-width plane per column plus a
     validity plane, padded to a static capacity (a power of two times 128).
@@ -15,10 +15,14 @@ planner reads: `chunk_column_stats`, `column_ndv_sketch`, `ndv_estimate`,
     holds int32 ranks into a host-side sorted vocabulary, so comparisons,
     grouping and sorting on strings are integer work on the device.
   * uint64 planes hold int64 bit patterns (see schema.py).
+  * A vector column (`vector<float, N>`) is one contiguous `(capacity, N)`
+    float32 plane beside the `(capacity,)` validity plane; invalid rows
+    carry zeros. Ragged, wrong-dim and non-finite vectors are refused at
+    write time.
 
 The statistics are host (numpy) code, as in the reference, over the planes
-read back from the device. Left out: the invariants hook, hunks, `any` and
-vector columns (and so their statistics).
+read back from the device. Left out: the invariants hook, hunks and `any`
+columns.
 
 `chunk_from_numpy` / `ColumnarChunk.to_numpy` carry a chunk across as plain
 numpy arrays, so a caller can hand the port the exact bytes another
@@ -35,7 +39,12 @@ import torch
 
 from ytsaurus_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from ytsaurus_tpu_torch.errors import EErrorCode, YtError
-from ytsaurus_tpu_torch.schema import EValueType, TableSchema, device_dtype
+from ytsaurus_tpu_torch.schema import (
+    EValueType,
+    TableSchema,
+    VectorType,
+    device_dtype,
+)
 
 LANE = 128  # capacities are multiples of this
 
@@ -58,7 +67,13 @@ def _np_plane_dtype(ty: EValueType) -> np.dtype:
     """Host dtype of a plane as it crosses to torch (uint64 as int64)."""
     return np.dtype({torch.int64: np.int64, torch.float64: np.float64,
                      torch.bool: np.bool_, torch.int32: np.int32,
-                     torch.int8: np.int8}[device_dtype(ty)])
+                     torch.int8: np.int8,
+                     torch.float32: np.float32}[device_dtype(ty)])
+
+
+def _plane_shape(ty, capacity: int) -> tuple:
+    """(capacity,) for scalar columns, (capacity, dim) for vectors."""
+    return (capacity, ty.dim) if isinstance(ty, VectorType) else (capacity,)
 
 
 def _encode_strings(values: Sequence[Optional[bytes]]
@@ -99,7 +114,7 @@ class Column:
     """One column: data plane + validity plane + optional host vocabulary."""
 
     type: EValueType
-    data: torch.Tensor                   # (capacity,) device_dtype(type)
+    data: torch.Tensor                   # (capacity,) or (capacity, dim)
     valid: torch.Tensor                  # (capacity,) bool
     dictionary: Optional[np.ndarray] = None   # host vocab for string columns
 
@@ -117,6 +132,8 @@ class Column:
         for i in range(row_count):
             if not valid[i]:
                 out.append(None)
+            elif isinstance(self.type, VectorType):
+                out.append([float(x) for x in data[i]])
             elif self.type is EValueType.string:
                 out.append(bytes(self.dictionary[int(data[i])]))
             elif self.type is EValueType.boolean:
@@ -210,7 +227,8 @@ class ColumnarChunk:
                         raise YtError(
                             f"Required column {name!r} is null in row {i}",
                             code=EErrorCode.QueryTypeError)
-            columns[name] = _build_column(col_schema.type, values, cap, dev)
+            columns[name] = _build_column(col_schema.type, values, cap, dev,
+                                          name)
         return ColumnarChunk(schema=schema, row_count=n, columns=columns)
 
     @staticmethod
@@ -229,13 +247,17 @@ class ColumnarChunk:
         for col_schema in schema:
             name = col_schema.name
             ty = col_schema.type
-            if not isinstance(ty, EValueType) or ty is EValueType.any:
+            if ty is EValueType.any:
                 raise YtError(f"from_arrays does not support {ty.value!r} "
                               "columns in this port",
                               code=EErrorCode.QueryUnsupported)
             arr = np.asarray(arrays[name])
             if len(arr) != n:
                 raise YtError(f"Column {name!r} length {len(arr)} != {n}")
+            if isinstance(ty, VectorType):
+                columns[name] = _vector_column_from_array(ty, name, arr, cap,
+                                                          dev)
+                continue
             vocab = None
             if ty is EValueType.string:
                 if name not in dictionaries:
@@ -314,7 +336,8 @@ class ColumnarChunk:
 def _repadded(col: Column, start: int, n: int, capacity: int) -> Column:
     """Rows [start, start + n) of a column at the front of new planes of
     `capacity` rows (zero data, invalid beyond them)."""
-    data = torch.zeros(capacity, dtype=col.data.dtype, device=col.data.device)
+    data = torch.zeros((capacity,) + tuple(col.data.shape[1:]),
+                       dtype=col.data.dtype, device=col.data.device)
     valid = torch.zeros(capacity, dtype=torch.bool, device=col.valid.device)
     data[:n] = col.data[start:start + n]
     valid[:n] = col.valid[start:start + n]
@@ -354,6 +377,10 @@ def chunk_from_numpy(schema_spec: Sequence[tuple], row_count: int,
         if cap < row_count:
             raise YtError(f"Capacity {cap} < row count {row_count}")
         dt = _np_plane_dtype(col_schema.type)
+        if data.shape[1:] != _plane_shape(col_schema.type, cap)[1:]:
+            raise YtError(f"Column {name!r} plane has shape {data.shape}, "
+                          f"its type {col_schema.type.value!r} needs "
+                          f"{_plane_shape(col_schema.type, cap)}")
         if col_schema.type is EValueType.uint64:
             data = data.astype(np.uint64).view(np.int64)
         vocab = dictionaries.get(name)
@@ -369,9 +396,66 @@ def chunk_from_numpy(schema_spec: Sequence[tuple], row_count: int,
                          sorted_by=tuple(sorted_by))
 
 
+def _vector_column_from_array(ty: VectorType, name: str, arr: np.ndarray,
+                              cap: int, device: torch.device) -> Column:
+    """A (rows, dim) array as a vector column, every row valid."""
+    if arr.ndim != 2 or arr.shape[1] != ty.dim:
+        raise YtError(f"Vector column {name!r} needs a (rows, {ty.dim}) "
+                      f"array, got shape {arr.shape}",
+                      code=EErrorCode.QueryTypeError)
+    if not np.isfinite(arr).all():
+        raise YtError(f"Non-finite component in vector column {name!r}",
+                      code=EErrorCode.QueryTypeError)
+    n = len(arr)
+    data = torch.zeros((cap, ty.dim), dtype=torch.float32, device=device)
+    data[:n] = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+    valid = torch.zeros(cap, dtype=torch.bool, device=device)
+    valid[:n] = True
+    return Column(type=ty, data=data, valid=valid)
+
+
+def _build_vector_plane(ty: VectorType, values: Sequence[Any], cap: int,
+                        name: str = "") -> tuple[np.ndarray, np.ndarray]:
+    """Host rows → a (cap, dim) float32 plane and its validity. Ragged
+    rows, wrong-dim rows and non-finite components are refused here: a NaN
+    in a stored plane would poison every distance it enters."""
+    dim = ty.dim
+    data_np = np.zeros((cap, dim), dtype=np.float32)
+    valid_np = np.zeros(cap, dtype=bool)
+    label = f" in column {name!r}" if name else ""
+    for i, v in enumerate(values):
+        if v is None:
+            continue
+        try:
+            arr = np.asarray(v, dtype=np.float32)
+        except (TypeError, ValueError) as e:
+            raise YtError(f"Bad vector value{label} at row {i}: {e}",
+                          code=EErrorCode.QueryTypeError)
+        if arr.ndim != 1:
+            raise YtError(
+                f"Ragged vector value{label} at row {i}: expected a flat "
+                f"{dim}-component vector, got shape {arr.shape}",
+                code=EErrorCode.QueryTypeError)
+        if arr.shape[0] != dim:
+            raise YtError(
+                f"Vector dim mismatch{label} at row {i}: expected {dim} "
+                f"components, got {arr.shape[0]}",
+                code=EErrorCode.QueryTypeError)
+        if not np.isfinite(arr).all():
+            raise YtError(f"Non-finite vector component{label} at row {i}",
+                          code=EErrorCode.QueryTypeError)
+        data_np[i] = arr
+        valid_np[i] = True
+    return data_np, valid_np
+
+
 def _build_column(ty: EValueType, values: Sequence[Any], cap: int,
-                  device: torch.device) -> Column:
-    if not isinstance(ty, EValueType) or ty is EValueType.any:
+                  device: torch.device, name: str = "") -> Column:
+    if isinstance(ty, VectorType):
+        data_np, valid_np = _build_vector_plane(ty, values, cap, name)
+        return Column(type=ty, data=torch.from_numpy(data_np).to(device),
+                      valid=torch.from_numpy(valid_np).to(device))
+    if ty is EValueType.any:
         raise YtError(f"Columns of type {ty.value!r} are not yet ported",
                       code=EErrorCode.QueryUnsupported)
     n = len(values)
@@ -462,8 +546,8 @@ def concat_chunks(chunks: Sequence[ColumnarChunk]) -> ColumnarChunk:
         vocab = None
         if col_schema.type is EValueType.string:
             cols, vocab = unify_dictionaries(cols)
-        data = torch.zeros(cap, dtype=device_dtype(col_schema.type),
-                           device=device)
+        data = torch.zeros(_plane_shape(col_schema.type, cap),
+                           dtype=device_dtype(col_schema.type), device=device)
         valid = torch.zeros(cap, dtype=torch.bool, device=device)
         data[:total] = torch.cat([col.data[:chunk.row_count].to(data.dtype)
                                   for chunk, col in zip(chunks, cols)])
@@ -641,6 +725,9 @@ def merge_column_stats(stats_list: "Sequence[dict]") -> dict:
                 continue
             if not isinstance(entry, dict):
                 continue
+            if "vector_dim" in entry:
+                _merge_vector_stats(out, name, entry)
+                continue
             entry = {**entry, "min": bound(entry.get("min")),
                      "max": bound(entry.get("max"))}
             cur = out.get(name)
@@ -675,6 +762,49 @@ def merge_column_stats(stats_list: "Sequence[dict]") -> dict:
     return out
 
 
+def _merge_vector_stats(out: dict, name: str, entry: dict) -> None:
+    """Vector columns fold exactly: counts and centroid sums add, norm
+    bounds take min/max (None = no valid rows, the other side wins),
+    has_null ORs."""
+    cur = out.get(name)
+    if cur is None:
+        out[name] = {**entry,
+                     "centroid_sum": list(entry.get("centroid_sum") or [])}
+        return
+    cur["has_null"] = bool(cur.get("has_null")) or \
+        bool(entry.get("has_null"))
+    cur["count"] = int(cur.get("count", 0)) + int(entry.get("count", 0))
+    a = cur.get("centroid_sum") or []
+    b = entry.get("centroid_sum") or []
+    cur["centroid_sum"] = [float(x) + float(y) for x, y in zip(a, b)] \
+        if a and b else list(a or b)
+    for key, pick in (("norm_min", min), ("norm_max", max)):
+        x, y = cur.get(key), entry.get(key)
+        cur[key] = y if x is None else (x if y is None else pick(x, y))
+
+
+def vector_column_stats(col: Column, row_count: int) -> dict:
+    """Centroid and L2-norm statistics of a vector column: `centroid_sum`
+    is the sum over valid rows (not the mean), so the merge across chunks
+    is an exact addition; `norm_min` / `norm_max` bracket the valid rows'
+    norms."""
+    n = row_count
+    valid = col.valid[:n].cpu().numpy() if n else np.zeros(0, dtype=bool)
+    dim = int(col.type.dim)
+    entry: dict = {"has_null": bool((~valid).any()) if n else True,
+                   "vector_dim": dim, "count": 0,
+                   "centroid_sum": [0.0] * dim,
+                   "norm_min": None, "norm_max": None, "ndv_sketch": None}
+    if n and valid.any():
+        data = col.data[:n].cpu().numpy()[valid].astype(np.float64)
+        norms = np.sqrt((data * data).sum(axis=1))
+        entry["count"] = int(valid.sum())
+        entry["centroid_sum"] = [float(x) for x in data.sum(axis=0)]
+        entry["norm_min"] = float(norms.min())
+        entry["norm_max"] = float(norms.max())
+    return entry
+
+
 def _string_stat_upper(value: bytes) -> "bytes | None":
     """An upper bound for `value` no longer than the cap: the value itself
     when short, else the successor of its cap-length prefix; None when no
@@ -694,6 +824,9 @@ def chunk_column_stats(chunk: ColumnarChunk) -> dict:
     n = chunk.row_count
     for name, col in chunk.columns.items():
         if col.type in (EValueType.any, EValueType.null):
+            continue
+        if isinstance(col.type, VectorType):
+            out[name] = vector_column_stats(col, n)
             continue
         data, valid = _host_planes(col, n)
         entry: dict = {"has_null": bool((~valid).any()) if n else True,

@@ -10,7 +10,9 @@ match the reference's bit for bit.
 `Q18_AGG` is TPC-H Q18's inner aggregation (orders whose lines sum to a
 quantity above 300) with its LIMIT 100. `WINDOW` is the window query of
 the repo's window benchmark (a running sum and a rank over 1000
-partitions), over `window_arrays`.
+partitions), over `window_arrays`. `FUNCS` runs the scalar functions over
+lineitem: a calendar floor, a hash with an unsigned modulo, the numeric
+functions and a LIKE on every row, grouped by month and hash bucket.
 """
 
 from __future__ import annotations
@@ -100,6 +102,20 @@ def q18_agg_query(threshold: int = Q18_THRESHOLD) -> str:
 
 
 Q18_AGG = q18_agg_query()
+
+FUNCS = (
+    "timestamp_floor_month(l_shipdate * 86400) AS month, "
+    "farm_hash(l_orderkey) % uint64(16) AS bucket, "
+    "sum(floor(l_extendedprice * (1 - l_discount))) AS rev, "
+    "max(max_of(l_quantity, l_tax * 100)) AS mq, "
+    "sum(if_null(abs(l_discount - 0.05), 0.0)) AS dd, count(*) AS c "
+    "FROM [//tpch/lineitem] "
+    "WHERE is_finite(l_extendedprice) AND NOT (l_returnflag LIKE 'R') "
+    "AND l_linestatus IN ('F', 'O') "
+    "GROUP BY timestamp_floor_month(l_shipdate * 86400), "
+    "farm_hash(l_orderkey) % uint64(16)"
+)
+FUNCS_BUCKETS = 16
 
 
 def lineitem_arrays(n_rows: int, seed: int = 0,
@@ -257,6 +273,53 @@ def q3_oracle(lineitem: dict[str, np.ndarray],
     order = np.lexsort((hit, -sums[hit]))[:limit]
     return [{"l_orderkey": int(hit[i]), "revenue": float(sums[hit[i]])}
             for i in order]
+
+
+def farm_hash_int64_np(values: np.ndarray) -> np.ndarray:
+    """farm_hash of one int64 argument in numpy uint64 arithmetic: the
+    seed combined with the value's 64-bit finalizer."""
+    seed = np.uint64(0x9E3779B97F4A7C15)
+    with np.errstate(over="ignore"):
+        x = values.astype(np.int64).view(np.uint64)
+        x = x ^ (x >> np.uint64(33))
+        x = x * np.uint64(0xFF51AFD7ED558CCD)
+        x = x ^ (x >> np.uint64(33))
+        return (seed ^ x) * seed + (seed << np.uint64(6))
+
+
+def funcs_oracle(arrays: dict[str, np.ndarray]) -> dict:
+    """FUNCS's groups from the generator's arrays, computed with numpy's
+    calendar and uint64 arithmetic: {(month, bucket): {column: value}}.
+    `rev` sums whole numbers below 2^53, so it is exact in any order."""
+    flag_r = int(np.flatnonzero(RETURNFLAGS == b"R")[0])
+    keep = arrays["l_returnflag"] != flag_r
+    days = arrays["l_shipdate"][keep].astype("datetime64[D]")
+    month_index = days.astype("datetime64[M]").astype(np.int64)
+    bucket = (farm_hash_int64_np(arrays["l_orderkey"][keep])
+              % np.uint64(FUNCS_BUCKETS)).astype(np.int64)
+    lo = int(month_index.min()) if len(month_index) else 0
+    key = ((month_index - lo) * FUNCS_BUCKETS + bucket).astype(np.int64)
+    size = int(key.max()) + 1 if len(key) else 0
+    price = arrays["l_extendedprice"][keep]
+    disc = arrays["l_discount"][keep]
+    rev = np.floor(price * (1 - disc))
+    mq = np.maximum(arrays["l_quantity"][keep], arrays["l_tax"][keep] * 100)
+    dd = np.abs(disc - 0.05)
+    counts = np.bincount(key, minlength=size)
+    rev_sum = np.bincount(key, weights=rev, minlength=size)
+    dd_sum = np.bincount(key, weights=dd, minlength=size)
+    order = np.argsort(key, kind="stable")
+    present = np.flatnonzero(counts)
+    starts = np.concatenate([[0], np.cumsum(counts[present])[:-1]])
+    mq_max = np.maximum.reduceat(mq[order], starts) if len(order) else []
+    out = {}
+    for g, top in zip(present, mq_max):
+        month = np.datetime64(int(g // FUNCS_BUCKETS + lo), "M")
+        seconds = int(month.astype("datetime64[D]").astype(np.int64)) * 86400
+        out[(seconds, int(g % FUNCS_BUCKETS))] = {
+            "rev": float(rev_sum[g]), "mq": float(top),
+            "dd": float(dd_sum[g]), "c": int(counts[g])}
+    return out
 
 
 def window_oracle(arrays: dict[str, np.ndarray]

@@ -20,8 +20,11 @@ values rather than bucketed bindings. Joins run before `prepare`, in the
 evaluator (joins.py).
 
 Ties in the top-k candidate pass are broken toward the lowest row index
-explicitly (`_topk_lowest_index`), the order `lax.top_k` gives and
+explicitly (`topk_lowest_index`), the order `lax.top_k` gives and
 `torch.topk` does not promise.
+
+A vector column's plane is `(capacity, dim)`: the WHERE mask, the top-k and
+order gathers and the compaction index its rows like any other plane's.
 """
 
 from __future__ import annotations
@@ -109,19 +112,24 @@ def _column_bindings(schema: TableSchema, chunk) -> dict[str, ColumnBinding]:
     return out
 
 
-def _topk_lowest_index(ranked: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest entries of `ranked`, ties broken toward the
-    lowest index (the set `lax.top_k` selects), in ascending index order.
+def topk_lowest_index(ranked: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest entries along the last dim of `ranked`
+    (one row of k per leading index), ties broken toward the lowest index
+    (the set `lax.top_k` selects), in ascending index order.
 
-    torch.topk finds the k-th largest value; every entry above it is taken,
-    and the entries equal to it are taken in index order until k are."""
-    kth = torch.topk(ranked, k, sorted=False).values.min()
-    above = ranked > kth
+    torch.topk's set is that set whenever it holds every entry equal to
+    its k-th largest value; where it left some out, torch.topk chose among
+    the ties, and the tied entries are taken in index order (their ranks
+    are a cumulative sum over the row) until k are."""
+    vals, idx = torch.topk(ranked, k, dim=-1, sorted=False)
+    kth = vals.amin(dim=-1, keepdim=True)
     tied = ranked == kth
-    room = k - above.sum()
-    tie_rank = torch.cumsum(tied.to(torch.int64), 0) - 1
-    take = above | (tied & (tie_rank < room))
-    return torch.nonzero(take).squeeze(1)
+    if bool(((vals == kth).sum(dim=-1) < tied.sum(dim=-1)).any()):
+        above = ranked > kth
+        room = k - above.sum(dim=-1, keepdim=True)
+        take = above | (tied & (torch.cumsum(tied, dim=-1) <= room))
+        return torch.nonzero(take)[:, -1].reshape(ranked.shape[:-1] + (k,))
+    return torch.sort(idx, dim=-1).values
 
 
 def _ordered_int64(value: torch.Tensor, unsigned: bool) -> torch.Tensor:
@@ -314,10 +322,10 @@ def prepare(plan: "ir.Query | ir.FrontQuery", chunk) -> PreparedQuery:
                 bottom = torch.iinfo(torch.int64).min
                 include = mask & valid
                 ranked = torch.where(include, inv, bottom)
-                idx1 = _topk_lowest_index(ranked, k_limit)
-                idx2 = _topk_lowest_index((mask & ~valid).to(torch.int64),
-                                          k_limit)
-                idx3 = _topk_lowest_index(
+                idx1 = topk_lowest_index(ranked, k_limit)
+                idx2 = topk_lowest_index((mask & ~valid).to(torch.int64),
+                                         k_limit)
+                idx3 = topk_lowest_index(
                     (include & (inv == bottom)).to(torch.int64), k_limit)
                 cand, _ = torch.sort(torch.cat([idx1, idx2, idx3]))
                 dup = torch.cat([torch.zeros(1, dtype=torch.bool,
@@ -354,11 +362,17 @@ def prepare(plan: "ir.Query | ir.FrontQuery", chunk) -> PreparedQuery:
         iota = torch.arange(stage_cap, device=device)
         src = comp_idx[(iota + off).clamp(0, stage_cap - 1)]
         in_window = iota < count
-        out_planes = [(d.expand(stage_cap)[src], v.expand(stage_cap)[src]
+        out_planes = [(_rows(d, stage_cap)[src], v.expand(stage_cap)[src]
                        & in_window) for d, v in planes]
         return out_planes, count
 
     return PreparedQuery(run=run, output=output)
+
+
+def _rows(plane: torch.Tensor, capacity: int) -> torch.Tensor:
+    """A plane spanning `capacity` rows: a scalar plane of fewer rows (a
+    literal) is expanded; a (rows, dim) vector plane is taken as it is."""
+    return plane.expand(capacity) if plane.ndim == 1 else plane
 
 
 def _dense_group(ctx, mask, fast_group, group_key_b, agg_arg_b, emit_ctx):

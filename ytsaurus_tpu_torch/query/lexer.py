@@ -1,5 +1,8 @@
 """Port of the JAX package's `query/lexer.py`: a copy, with imports pointed at
-this package (it imports nothing of the JAX package).
+this package (it imports nothing of the JAX package), and one repair: the
+number scan consumes the `u` suffix that the docstring below documents, so
+`16u` lexes as the uint64 16 (the JAX copy's loop stops before the suffix
+and leaves an identifier `u`).
 
 QL lexer.
 
@@ -87,6 +90,9 @@ def tokenize(source: str) -> list[Token]:
                     break
                 if ch == "." or ((ch in "eE") and not source.startswith("0x", i)):
                     is_double = True
+                j += 1
+            # The uint64 suffix (`16u`): the loop above stops at it.
+            if j < n and source[j] in "uU" and not is_double:
                 j += 1
             text = source[i:j].rstrip("uU")
             suffix_u = source[i:j][len(text):] != ""

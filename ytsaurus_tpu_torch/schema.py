@@ -156,8 +156,9 @@ _DEVICE_DTYPES = {
 def device_dtype(ty: "EValueType | VectorType") -> torch.dtype:
     """Torch dtype of the plane backing a column of logical type `ty`."""
     if isinstance(ty, VectorType):
-        raise YtError("Vector columns are not yet ported",
-                      code=EErrorCode.QueryUnsupported)
+        # A contiguous (capacity, dim) float32 matrix: the layout the
+        # NEAREST distance matmul scans.
+        return torch.float32
     if ty not in _DEVICE_DTYPES:
         raise YtError(f"Type {ty.value!r} has no device representation",
                       code=EErrorCode.QueryUnsupported)
