@@ -71,6 +71,27 @@ Phases (any failure exits non-zero and prints no result line):
      order exactly; the retained row count, and visible_chunk of the
      retained versions equal to that of the originals at both
      timestamps. REPS warm runs, with each operation's time;
+     MESH (parallel/, over torch.distributed), part (a): a mesh of one
+     rank over NCCL in this process, at full size, over the tables and
+     oracles of the phases above (kept on the host until here):
+     MESH_Q1 (Q1 through DistributedEvaluator's gather merge), MESH_Q18
+     (Q18_AGG through the key-hash GROUP BY exchange, shuffle=True),
+     MESH_Q3 (Q3 through the broadcast join, the 16,000,000 orders as
+     the foreign chunk), MESH_Q3P (the same Q3 through the partitioned
+     join, shuffle=True) and MESH_SORT (sort_table of SORT's 64,000,000
+     rows on k), each checked as its single-chunk twin is, with the same
+     launches, REPS warm runs, profile and peak memory as every path, and
+     its host reads per query (host_sync_count). Part (b): first a probe
+     (two processes) of whether gloo takes CUDA tensors in
+     all_to_all_single with uneven splits, all_gather and all_reduce; if
+     it does, 4 gloo processes on the one card run MESH_Q1, MESH_Q18,
+     MESH_Q3P and MESH_SORT over 4 shards of 4,000,000 rows each (and
+     1,000,000 orders a shard for MESH_Q3P), each rank checked against
+     the numpy oracle over all shards. These sizes are cut from part
+     (a)'s 64M because gloo stages every exchange through the host; their
+     times are a correctness run's and are logged, not headlined. If
+     gloo does not take CUDA tensors, part (b) is left out and the log
+     says why;
      EXTSORT: bench.py::_bench_sort_spill as written (BASELINE config 5):
      1,000,000,000 rows in 16,000,000-row blocks, each made lazily in
      its supplier by np.random.default_rng(1000 + i), through
@@ -101,6 +122,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -533,7 +555,9 @@ def _run_path(name: str, run, check, rows_in: int, hr, rx,
     return out
 
 
-def phase_slice(seed: int, hr, rx, tpch, select_rows) -> dict:
+def phase_slice(seed: int, hr, rx, tpch, select_rows, keep: dict) -> dict:
+    """Q1, Q18_AGG, FUNCS, Q3 and WINDOW. The lineitem and orders arrays
+    and the Q1, Q18_AGG and Q3 oracles go into `keep` for the mesh phase."""
     import torch
     t0 = time.perf_counter()
     arrays = tpch.lineitem_arrays(ROWS, seed=seed)
@@ -543,12 +567,13 @@ def phase_slice(seed: int, hr, rx, tpch, select_rows) -> dict:
          f"{chunk.nbytes / 1e9:.3f} GB on the card, made in "
          f"{time.perf_counter() - t0:.1f} s (seed {seed})")
     tables = {"//tpch/lineitem": chunk}
+    keep.update(lineitem=arrays, q1=tpch.q1_oracle(arrays),
+                q18_agg=tpch.q18_agg_oracle(arrays))
     out = {
-        "q1": _run_query("q1", tpch.Q1, tables, _check_q1,
-                         tpch.q1_oracle(arrays), ROWS, hr, rx, select_rows),
+        "q1": _run_query("q1", tpch.Q1, tables, _check_q1, keep["q1"], ROWS,
+                         hr, rx, select_rows),
         "q18_agg": _run_query("q18_agg", tpch.Q18_AGG, tables, _check_q18,
-                              tpch.q18_agg_oracle(arrays), ROWS, hr, rx,
-                              select_rows),
+                              keep["q18_agg"], ROWS, hr, rx, select_rows),
     }
     t0 = time.perf_counter()
     funcs_oracle = tpch.funcs_oracle(arrays)
@@ -568,6 +593,7 @@ def phase_slice(seed: int, hr, rx, tpch, select_rows) -> dict:
          f"{tables['//tpch/orders'].capacity}, made in "
          f"{time.perf_counter() - t0:.1f} s (seed {ORDERS_SEED})")
     oracle = tpch.q3_oracle(arrays, orders, limit=2 * tpch.Q3_LIMIT)
+    keep.update(orders=orders, q3=oracle)
     out["q3"] = _run_query("q3", tpch.Q3, tables, _check_q3, oracle, ROWS,
                            hr, rx, select_rows, ranges=JOIN_RANGES)
     del chunk, tables, arrays, orders
@@ -921,9 +947,10 @@ def _port_entry_points():
         MAX_TIMESTAMP=MAX_TIMESTAMP)
 
 
-def phase_sort(seed: int, hr, rx, port) -> dict:
+def phase_sort(seed: int, hr, rx, port, keep: dict) -> dict:
     """SORT: bench.py --config sort at its accelerator size, through
-    sort_chunk; k and p exactly as numpy's stable argsort orders them."""
+    sort_chunk; k and p exactly as numpy's stable argsort orders them. The
+    table's arrays and the check go into `keep` for the mesh phase."""
     import numpy as np
     import torch
     t0 = time.perf_counter()
@@ -944,24 +971,31 @@ def phase_sort(seed: int, hr, rx, port) -> dict:
          f"{time.perf_counter() - t0:.1f} s")
 
     def check(out) -> int:
-        planes = out.to_numpy()["planes"]
-        n = SORT_ROWS
-        if out.row_count != n:
-            raise AssertionError(f"SORT gave {out.row_count} rows, not {n}")
-        for name, want in (("k", want_k), ("p", want_p)):
-            data, valid = planes[name]
-            if not valid[:n].all() or not np.array_equal(
-                    data[:n].view(np.int64), want.view(np.int64)):
-                raise AssertionError(f"SORT {name} differs from numpy's "
-                                     "stable argsort order")
-        return n
+        return _check_sorted("SORT", out, want_k, want_p)
 
+    keep.update(sort_k=k, sort_p=p, sort_check=check)
     out = _run_path("sort", lambda: port.sort_chunk(chunk, ["k"],
                                                     device="cuda"),
                     check, SORT_ROWS, hr, rx)
     del chunk
     torch.cuda.empty_cache()
     return out
+
+
+def _check_sorted(name: str, out, want_k, want_p) -> int:
+    """k and p of a sorted chunk exactly as the oracle orders them."""
+    import numpy as np
+    planes = out.to_numpy()["planes"]
+    n = len(want_k)
+    if out.row_count != n:
+        raise AssertionError(f"{name} gave {out.row_count} rows, not {n}")
+    for col, want in (("k", want_k), ("p", want_p)):
+        data, valid = planes[col]
+        if not valid[:n].all() or not np.array_equal(
+                data[:n].view(np.int64), want.view(np.int64)):
+            raise AssertionError(f"{name} {col} differs from numpy's "
+                                 "stable argsort order")
+    return n
 
 
 def _tablet_data(seed: int) -> dict:
@@ -1168,6 +1202,335 @@ def phase_tablet(seed: int, hr, rx, port) -> dict:
     del chunk
     torch.cuda.empty_cache()
     return out
+
+
+def _mesh_entry_points():
+    """The port's mesh entry points that the MESH phase drives."""
+    from types import SimpleNamespace
+
+    from ytsaurus_tpu_torch.parallel.distributed import (
+        DistributedEvaluator,
+        ShardedTable,
+        host_sync_count,
+    )
+    from ytsaurus_tpu_torch.parallel.mesh import destroy_mesh, make_mesh
+    from ytsaurus_tpu_torch.parallel.shuffle import sort_table
+    from ytsaurus_tpu_torch.query.builder import build_query
+    return SimpleNamespace(
+        DistributedEvaluator=DistributedEvaluator, ShardedTable=ShardedTable,
+        host_sync_count=host_sync_count, make_mesh=make_mesh,
+        destroy_mesh=destroy_mesh, sort_table=sort_table,
+        build_query=build_query)
+
+
+def _mesh_queries(tpch) -> dict:
+    """name -> (query, run() keyword arguments, profiler ranges)."""
+    return {
+        "mesh_q1": (tpch.Q1, {}, ("mesh.gather",)),
+        "mesh_q18": (tpch.Q18_AGG, {"shuffle": True},
+                     ("mesh.count", "mesh.route", "mesh.gather")),
+        "mesh_q3": (tpch.Q3, {}, ("mesh.probe", "mesh.gather")),
+        "mesh_q3p": (tpch.Q3, {"shuffle": True},
+                     ("mesh.count", "mesh.route", "mesh.join",
+                      "mesh.gather")),
+    }
+
+
+def phase_mesh(hr, rx, tpch, keep: dict) -> dict:
+    """MESH, part (a): the mesh paths at world size 1 over NCCL in this
+    process, at full size, over the tables and oracles the earlier phases
+    made and checked: Q1 through the gather merge, Q18_AGG through the
+    shuffled GROUP BY, Q3 through the broadcast join and through the
+    partitioned join (shuffle=True), and sort_table of SORT's table. Each
+    path as every other: launches, REPS warm runs, two profiled runs, peak
+    memory, and its host reads per query (host_sync_count)."""
+    import torch
+    mesh_api = _mesh_entry_points()
+    mesh = mesh_api.make_mesh("cuda")
+    if mesh.backend != "nccl" or mesh.size != 1:
+        raise AssertionError(f"the mesh is {mesh.backend} x {mesh.size}, "
+                             "not NCCL x 1")
+    t0 = time.perf_counter()
+    lineitem = tpch.lineitem_chunk(keep["lineitem"], device="cuda")
+    orders = tpch.orders_chunk(keep["orders"], device="cuda")
+    table = mesh_api.ShardedTable.from_chunks(mesh, [lineitem])
+    del lineitem
+    torch.cuda.synchronize()
+    _log(f"mesh: NCCL, world size 1, {mesh.device}; lineitem ({ROWS} rows) "
+         f"and orders ({ORDERS} rows) on the card again in "
+         f"{time.perf_counter() - t0:.1f} s")
+    ev = mesh_api.DistributedEvaluator(mesh)
+    foreign = {"//tpch/orders": orders}
+    schemas = {"//tpch/lineitem": table.schema,
+               "//tpch/orders": orders.schema}
+    checks = {"mesh_q1": (_check_q1, keep["q1"]),
+              "mesh_q18": (_check_q18, keep["q18_agg"]),
+              "mesh_q3": (_check_q3, keep["q3"]),
+              "mesh_q3p": (_check_q3, keep["q3"])}
+    out = {}
+    for name, (query, kwargs, ranges) in _mesh_queries(tpch).items():
+        plan = mesh_api.build_query(query, schemas)
+        syncs: list = []
+
+        def run(plan=plan, kwargs=kwargs, syncs=syncs):
+            before = mesh_api.host_sync_count()
+            result = ev.run(plan, table, foreign, **kwargs)
+            syncs.append(mesh_api.host_sync_count() - before)
+            return result
+
+        check, oracle = checks[name]
+        out[name] = _run_path(name, run,
+                              lambda result, c=check, o=oracle: c(result, o),
+                              ROWS, hr, rx, ranges)
+        out[name]["host_syncs"] = syncs
+        _log(f"{name}: host reads per query {syncs}")
+    del table, orders, ev, foreign
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    from ytsaurus_tpu_torch.chunks.columnar import ColumnarChunk
+    from ytsaurus_tpu_torch.schema import TableSchema
+    chunk = ColumnarChunk.from_arrays(
+        TableSchema.make([("k", "int64"), ("p", "double")]),
+        {"k": keep["sort_k"], "p": keep["sort_p"]}, device="cuda")
+    table = mesh_api.ShardedTable.from_chunks(mesh, [chunk])
+    del chunk
+    torch.cuda.synchronize()
+    _log(f"mesh: SORT's table ({SORT_ROWS} rows) on the card again in "
+         f"{time.perf_counter() - t0:.1f} s")
+    out["mesh_sort"] = _run_path(
+        "mesh_sort", lambda: mesh_api.sort_table(table, ["k"]),
+        lambda result: keep["sort_check"](result.local_chunk()),
+        SORT_ROWS, hr, rx, ("sort.local",))
+    del table
+    torch.cuda.empty_cache()
+    mesh_api.destroy_mesh()
+    return out
+
+
+# --- MESH, part (b): several gloo ranks on the one card ----------------------
+
+MESH_WORLD = 4               # gloo ranks on the one card in part (b)
+MESH_SHARD_ROWS = 4_000_000  # lineitem and sort-table rows per rank
+MESH_SHARD_ORDERS = 1_000_000  # orders per rank (the foreign chunk's share)
+MESH_B_REPS = 3              # warm runs per path and rank in part (b)
+
+
+def _spawn_self(args: list, n: int, timeout: float) -> list:
+    """Run this script `n` times at once with `args` + [rank]; each run's
+    (exit code, standard output, standard error)."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__)]
+                              + args + [str(rank)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for rank in range(n)]
+    outs = []
+    try:
+        for proc in procs:
+            so, se = proc.communicate(timeout=timeout)
+            outs.append((proc.returncode, so, se))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
+
+
+def _gloo_cuda_probe_rank(store: str, rank: str) -> int:
+    """One rank of the probe: gloo on a world of 2, CUDA tensors on
+    cuda:0, each collective the mesh uses, checked. Prints one JSON line."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    rank = int(rank)
+    report = {"rank": rank, "torch": torch.__version__}
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=2,
+                                timeout=datetime.timedelta(seconds=60))
+        dev = torch.device("cuda", 0)
+        x = torch.arange(5, dtype=torch.int64, device=dev) + 10 * rank
+        send = [2, 3] if rank == 0 else [4, 1]
+        recv = [[2, 4], [3, 1]][rank]
+        out = torch.empty(sum(recv), dtype=torch.int64, device=dev)
+        dist.all_to_all_single(out, x, output_split_sizes=recv,
+                               input_split_sizes=send)
+        want = {0: [0, 1, 10, 11, 12, 13], 1: [2, 3, 4, 14]}[rank]
+        if out.cpu().tolist() != want:
+            raise AssertionError(f"all_to_all_single gave {out.tolist()}")
+        gathered = torch.empty(4, dtype=torch.int64, device=dev)
+        gather = getattr(dist, "all_gather_single", None) or \
+            dist.all_gather_into_tensor
+        gather(gathered, x[:2])
+        if gathered.cpu().tolist() != [0, 1, 10, 11]:
+            raise AssertionError(f"all_gather gave {gathered.tolist()}")
+        total = torch.full((3,), rank + 1, dtype=torch.int64, device=dev)
+        dist.all_reduce(total)
+        if total.cpu().tolist() != [3, 3, 3]:
+            raise AssertionError(f"all_reduce gave {total.tolist()}")
+        report["ok"] = True
+    except Exception as err:  # noqa: BLE001 — the probe reports it
+        report.update(ok=False, error=f"{type(err).__name__}: {err}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+def _mesh_b_data(seed: int, tpch):
+    """Part (b)'s data, the same on every rank: MESH_WORLD lineitem shards
+    (seed + s), the orders (ORDERS_SEED) and the sort table's shards."""
+    import numpy as np
+    n_orders = MESH_WORLD * MESH_SHARD_ORDERS
+    shards = [tpch.lineitem_arrays(MESH_SHARD_ROWS, seed=seed + s,
+                                   n_orders=n_orders)
+              for s in range(MESH_WORLD)]
+    orders = tpch.orders_arrays(n_orders, seed=ORDERS_SEED)
+    sort_shards = []
+    for s in range(MESH_WORLD):
+        rng = np.random.default_rng(seed + 100 + s)
+        sort_shards.append((rng.integers(0, 1 << 60, size=MESH_SHARD_ROWS,
+                                         dtype=np.int64),
+                            rng.random(MESH_SHARD_ROWS)))
+    return shards, orders, sort_shards
+
+
+def _mesh_rank(seed: str, store: str, rank: str) -> int:
+    """One rank of part (b): gloo on cuda:0, MESH_WORLD ranks. Runs
+    MESH_Q1, MESH_Q18, MESH_Q3P and MESH_SORT over its shard, checks each
+    against its numpy oracle over all shards, prints one JSON line and
+    raises on any failure."""
+    import datetime
+
+    import numpy as np
+    import torch
+    sys.path.insert(0, HERE)
+    from ytsaurus_tpu_torch.chunks.columnar import ColumnarChunk
+    from ytsaurus_tpu_torch.models import tpch
+    from ytsaurus_tpu_torch.ops import radix as rx
+    from ytsaurus_tpu_torch.schema import TableSchema
+    seed, rank = int(seed), int(rank)
+    mesh_api = _mesh_entry_points()
+    mesh = mesh_api.make_mesh("cuda", backend="gloo",
+                              init_method=f"file://{store}", rank=rank,
+                              world_size=MESH_WORLD,
+                              timeout=datetime.timedelta(seconds=300))
+    shards, orders_arrays, sort_shards = _mesh_b_data(seed, tpch)
+    merged = {name: np.concatenate([a[name] for a in shards])
+              for name in shards[0]}
+    table = mesh_api.ShardedTable.from_chunks(
+        mesh, [tpch.lineitem_chunk(a, device="cpu") for a in shards])
+    orders = tpch.orders_chunk(orders_arrays, device=mesh.device)
+    foreign = {"//tpch/orders": orders}
+    schemas = {"//tpch/lineitem": table.schema,
+               "//tpch/orders": orders.schema}
+    ev = mesh_api.DistributedEvaluator(mesh)
+    oracles = {"mesh_q1": (_check_q1, tpch.q1_oracle(merged)),
+               "mesh_q18": (_check_q18, tpch.q18_agg_oracle(merged)),
+               "mesh_q3p": (_check_q3, tpch.q3_oracle(
+                   merged, orders_arrays, limit=2 * tpch.Q3_LIMIT))}
+    report = {"rank": rank, "paths": {}}
+
+    def timed(name, run, check):
+        rx.reset_launches()
+        before = mesh_api.host_sync_count()
+        result = run()
+        torch.cuda.synchronize()
+        syncs = mesh_api.host_sync_count() - before
+        launches = dict(rx.launches)
+        rows_out = check(result)
+        times = []
+        for _ in range(MESH_B_REPS):
+            torch.distributed.barrier()
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        report["paths"][name] = {"rows_out": rows_out, "launches": launches,
+                                 "host_syncs": syncs, "ms_runs": times,
+                                 "median_ms": statistics.median(times)}
+
+    queries = _mesh_queries(tpch)
+    for name in ("mesh_q1", "mesh_q18", "mesh_q3p"):
+        query, kwargs, _ = queries[name]
+        plan = mesh_api.build_query(query, schemas)
+        check, oracle = oracles[name]
+        timed(name, lambda plan=plan, kwargs=kwargs: ev.run(
+            plan, table, foreign, **kwargs),
+            lambda result, c=check, o=oracle: c(result, o))
+    del table, orders, foreign
+    schema = TableSchema.make([("k", "int64"), ("p", "double")])
+    s_table = mesh_api.ShardedTable.from_chunks(mesh, [
+        ColumnarChunk.from_arrays(schema, {"k": k, "p": p}, device="cpu")
+        for k, p in sort_shards])
+    all_k = np.concatenate([k for k, _ in sort_shards])
+    all_p = np.concatenate([p for _, p in sort_shards])
+    order = np.argsort(all_k, kind="stable")
+
+    def check_sort(out) -> int:
+        lo = sum(out.row_counts[:rank])
+        hi = lo + out.row_counts[rank]
+        if sum(out.row_counts) != len(all_k):
+            raise AssertionError(f"MESH_SORT kept {sum(out.row_counts)} "
+                                 f"rows of {len(all_k)}")
+        return _check_sorted("MESH_SORT", out.local_chunk(),
+                             all_k[order[lo:hi]], all_p[order[lo:hi]])
+
+    timed("mesh_sort", lambda: mesh_api.sort_table(s_table, ["k"]),
+          check_sort)
+    for name, r in report["paths"].items():
+        if name != "mesh_q1" and min(r["launches"].values()) <= 0:
+            raise AssertionError(f"{name} (rank {rank}) launched "
+                                 f"{r['launches']}")
+    mesh_api.destroy_mesh()
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+def phase_mesh_ranks(seed: int, tmp: str) -> dict:
+    """MESH, part (b): first the probe; then, if gloo takes CUDA tensors,
+    MESH_WORLD gloo processes on the one card, each checked."""
+    import torch
+    t0 = time.perf_counter()
+    outs = _spawn_self(["--gloo-cuda-probe", os.path.join(tmp, "probe")],
+                       2, timeout=240)
+    reports = []
+    for code, so, se in outs:
+        try:
+            reports.append(json.loads(so.strip().splitlines()[-1]))
+        except (ValueError, IndexError):
+            raise AssertionError(f"the gloo probe gave no report (exit "
+                                 f"{code}): {se[-2000:]}")
+    ok = all(r["ok"] for r in reports)
+    result = {"gloo_cuda": ok, "probe": reports, "torch": torch.__version__,
+              "probe_s": time.perf_counter() - t0}
+    _log(f"gloo on CUDA tensors (torch {torch.__version__}): "
+         f"{'takes them' if ok else 'does not take them'}; {reports}")
+    if not ok:
+        _log("mesh (b) left out: gloo cannot take CUDA tensors here; "
+             "multi-rank parity stays with the CPU tests")
+        return result
+    t0 = time.perf_counter()
+    outs = _spawn_self(["--mesh-rank", str(seed),
+                        os.path.join(tmp, "mesh")], MESH_WORLD, timeout=600)
+    ranks = []
+    for rank, (code, so, se) in enumerate(outs):
+        if code != 0:
+            raise AssertionError(f"mesh rank {rank} failed (exit {code}): "
+                                 f"{se[-3000:]}")
+        ranks.append(json.loads(so.strip().splitlines()[-1]))
+    result.update(ranks=ranks, wall_s=time.perf_counter() - t0)
+    for name in ranks[0]["paths"]:
+        per_rank = [r["paths"][name]["median_ms"] for r in ranks]
+        _log(f"{name} on {MESH_WORLD} gloo ranks (cut to "
+             f"{MESH_SHARD_ROWS} rows a rank, {MESH_SHARD_ORDERS} orders a "
+             f"rank for Q3P, because gloo stages every exchange through the "
+             f"host; a correctness run, not the mesh's speed): every rank "
+             f"matches the oracle; median ms by rank {per_rank}; host reads "
+             f"{ranks[0]['paths'][name]['host_syncs']}")
+    return result
 
 
 def _host_memory() -> tuple:
@@ -1386,6 +1749,11 @@ def phase_kernel_times(hr, rx, seed: int) -> dict:
 
 
 def main() -> int:
+    # The ranks of the mesh phase's part (b) run this script too.
+    if sys.argv[1:2] == ["--gloo-cuda-probe"]:
+        return _gloo_cuda_probe_rank(*sys.argv[2:])
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return _mesh_rank(*sys.argv[2:])
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--record", help="write a JSON record of the run "
@@ -1429,14 +1797,20 @@ def main() -> int:
               **phase_radix_kernels(rx, gen)}
     argsort = phase_argsort(rx, gen)
 
-    # 4. the slice: the queries, then the Sort operation and MVCC reads
-    paths = phase_slice(args.seed, hr, rx, tpch, select_rows)
+    # 4. the slice: the queries, then the Sort operation and MVCC reads,
+    # the mesh paths, and the spill sort
+    keep: dict = {}
+    paths = phase_slice(args.seed, hr, rx, tpch, select_rows, keep)
     paths.update(phase_strings(args.seed, hr, rx, synthetic, select_rows))
     vec = phase_vector(hr, rx, synthetic, vector, select_rows)
     paths.update(vec.pop("paths"))
     port = _port_entry_points()
-    paths["sort"] = phase_sort(args.seed, hr, rx, port)
+    paths["sort"] = phase_sort(args.seed, hr, rx, port, keep)
     paths["tablet"] = phase_tablet(args.seed, hr, rx, port)
+    paths.update(phase_mesh(hr, rx, tpch, keep))
+    keep.clear()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_ranks = phase_mesh_ranks(args.seed, tmp)
     paths["extsort"] = phase_extsort(hr, rx, port)
 
     # 5. the kernels line
@@ -1466,7 +1840,7 @@ def main() -> int:
               "tablet_versions": TABLET_VERSIONS,
               "extsort_rows": paths["extsort"]["rows_in"],
               "strings_rows": STRINGS_ROWS, "vector_rows": VECTOR_ROWS,
-              "vector": vec,
+              "vector": vec, "mesh_ranks": mesh_ranks,
               "seed": args.seed, "argsort": argsort,
               "paths": paths, "kernels": kernels,
               "ptxas": {name: _build.build_info[name]["log"]

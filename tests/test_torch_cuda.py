@@ -439,3 +439,92 @@ def test_batched_nearest_on_the_card_matches_the_cpu(cuda_device, metric):
         measures = synthetic.vector_measures(plane, queries, metric)
         for m, hits in zip(measures, out):
             synthetic.check_hits(hits, m, rows, metric, 16)
+
+
+# --- casts and the mesh paths on the card -------------------------------------
+
+
+def test_casts_of_doubles_saturate_on_the_card(cuda_device):
+    """int64(d) and uint64(d) clamp before they convert, so the card gives
+    the CPU's saturated values: NaN 0, out of range the bound, uint64 of a
+    negative 0."""
+    from ytsaurus_tpu_torch.query.engine.expr import cast_plane
+    from ytsaurus_tpu_torch.schema import EValueType
+    edges = torch.tensor([float("nan"), float("inf"), float("-inf"), 1e308,
+                          -1e308, -2.5, -0.5, 2.0 ** 63, 2.0 ** 64,
+                          2.0 ** 63 - 1024.0, 2.0 ** 64 - 2048.0,
+                          -(2.0 ** 63), 1.8e19, 12.7, -12.7, 0.0],
+                         dtype=torch.float64)
+    for dst in (EValueType.int64, EValueType.uint64):
+        got = cast_plane(edges.to(cuda_device), EValueType.double, dst)
+        want = cast_plane(edges, EValueType.double, dst)
+        assert torch.equal(got.cpu(), want), dst
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A mesh of one rank over NCCL on the card, for this module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL has no CPU mode")
+    from ytsaurus_tpu_torch.parallel.mesh import destroy_mesh, make_mesh
+    mesh = make_mesh("cuda")
+    yield mesh
+    destroy_mesh()
+
+
+@pytest.mark.parametrize("path", ["q1", "q18_shuffle", "q3", "q3_partitioned"])
+def test_mesh_paths_over_nccl_match_the_cpu(nccl_mesh, path):
+    """The gather merge, the shuffled GROUP BY and the broadcast and
+    partitioned joins at world size 1 over NCCL, against the same query
+    through the CPU port's evaluator; the sorting paths through the radix
+    kernels."""
+    from ytsaurus_tpu_torch.chunks.columnar import chunk_from_numpy
+    from ytsaurus_tpu_torch.models import tpch
+    from ytsaurus_tpu_torch.parallel.distributed import (
+        DistributedEvaluator,
+        ShardedTable,
+    )
+    from ytsaurus_tpu_torch.query.builder import build_query
+    query, kwargs = {"q1": (tpch.Q1, {}),
+                     "q18_shuffle": (tpch.Q18_AGG, {"shuffle": True}),
+                     "q3": (tpch.Q3, {}),
+                     "q3_partitioned": (tpch.Q3, {"shuffle": True})}[path]
+    tables = {p: _spec(c) for p, c in _q3_tables().items()}
+    lineitem = chunk_from_numpy(**tables["//tpch/lineitem"], device="cpu")
+    orders = chunk_from_numpy(**tables["//tpch/orders"],
+                              device=nccl_mesh.device)
+    table = ShardedTable.from_chunks(nccl_mesh, [lineitem])
+    plan = build_query(query, {"//tpch/lineitem": lineitem.schema,
+                               "//tpch/orders": orders.schema})
+    rx.reset_launches()
+    got = DistributedEvaluator(nccl_mesh).run(
+        plan, table, {"//tpch/orders": orders}, **kwargs).to_rows()
+    torch.cuda.synchronize()
+    if path != "q1":
+        assert rx.launches["radix_upsweep"] > 0
+    want = _run_on("cpu", query, tables).to_rows()
+    if path == "q1":
+        def key(r):
+            return r["l_returnflag"], r["l_linestatus"]
+        got, want = sorted(got, key=key), sorted(want, key=key)
+    _rows_match(got, want)
+
+
+def test_sort_table_over_nccl_matches_the_cpu(nccl_mesh):
+    from ytsaurus_tpu_torch.chunks.columnar import ColumnarChunk
+    from ytsaurus_tpu_torch.operations.sort_op import sort_chunk
+    from ytsaurus_tpu_torch.parallel.distributed import ShardedTable
+    from ytsaurus_tpu_torch.parallel.shuffle import sort_table
+    from ytsaurus_tpu_torch.schema import TableSchema
+    rng = np.random.default_rng(5)
+    schema = TableSchema.make([("k", "int64"), ("p", "double")])
+    arrays = {"k": rng.integers(0, 1 << 40, 300_000),
+              "p": rng.random(300_000)}
+    chunk = ColumnarChunk.from_arrays(schema, arrays, device="cpu")
+    rx.reset_launches()
+    out = sort_table(ShardedTable.from_chunks(nccl_mesh, [chunk]), ["k"])
+    torch.cuda.synchronize()
+    assert rx.launches["radix_onesweep"] > 0
+    want = sort_chunk(chunk, ["k"], device="cpu")
+    assert out.row_counts == [300_000]
+    assert out.local_chunk().to_rows() == want.to_rows()

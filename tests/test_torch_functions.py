@@ -309,3 +309,58 @@ def test_concat_bound_is_above_the_reference():
                        f"FROM [{T}] GROUP BY length(concat(s, 'x'))",
                        {T: chunk}, device="cpu").to_rows()
     assert rows == [{"n": 10, "c": 700_000}]
+
+
+# Doubles at every edge of the casts to int64 and uint64: NaN, the
+# infinities, values far out of range, a negative fraction, 2^63, 2^64
+# and the largest doubles inside each range.
+CAST_EDGES = [float("nan"), float("inf"), float("-inf"), 1e308, -1e308,
+              -2.5, -0.5, 2.0 ** 63, 2.0 ** 64, 2.0 ** 63 - 1024.0,
+              2.0 ** 64 - 2048.0, -(2.0 ** 63), 1.8e19, 12.7, -12.7, 0.0]
+
+
+def test_casts_of_doubles_saturate_as_the_reference(monkeypatch):
+    """int64(d) and uint64(d) saturate as the JAX package's `astype`: NaN
+    gives 0, out-of-range values give the type's bound, and uint64 of a
+    negative double gives 0 (uint64(-2.5) used to give 2^64 - 2)."""
+    schema = RefSchema.make([("k", "int64"), ("d", "double")])
+    chunk = RefChunk.from_rows(schema, list(enumerate(CAST_EDGES)))
+    rows = _run_both(f"k, int64(d) AS i, uint64(d) AS u FROM [{T}]",
+                     {T: chunk}, monkeypatch)
+    got = {r["k"]: (r["i"], r["u"]) for r in rows}
+    assert got[0] == (0, 0)                              # NaN
+    assert got[1] == ((1 << 63) - 1, U64_MAX)            # +inf
+    assert got[2] == (-(1 << 63), 0)                     # -inf
+    assert got[5] == (-2, 0)                             # -2.5
+    assert got[8] == ((1 << 63) - 1, U64_MAX)            # 2^64
+
+
+def test_cast_plane_saturates_without_the_engine():
+    """The same edges straight through `cast_plane`, against numbers
+    written out by hand."""
+    d = torch.tensor(CAST_EDGES, dtype=torch.float64)
+    ints = expr.cast_plane(d, expr.EValueType.double, expr.EValueType.int64)
+    uints = expr.cast_plane(d, expr.EValueType.double,
+                            expr.EValueType.uint64).numpy().view(np.uint64)
+    top, low = (1 << 63) - 1, -(1 << 63)
+    assert ints.tolist() == [0, top, low, top, low, -2, 0, top, top,
+                             (1 << 63) - 1024, top, low, top, 12, -12, 0]
+    assert uints.tolist() == [0, U64_MAX, 0, U64_MAX, 0, 0, 0, 1 << 63,
+                              U64_MAX, (1 << 63) - 1024, U64_MAX - 2047, 0,
+                              18_000_000_000_000_000_000, 12, 0, 0]
+
+
+def test_subnormal_doubles_keep_their_sign():
+    """A sanctioned divergence: the port keeps subnormal doubles, as IEEE
+    and the C++ reference do; the JAX package's XLA on the CPU flushes
+    them to zero. Smallest input: d = -1e-308, where `d < 0.0` holds on
+    the port and not in the JAX package."""
+    schema = RefSchema.make([("k", "int64"), ("d", "double")])
+    chunk = RefChunk.from_rows(schema, [(0, -1e-308), (1, 1e-308),
+                                        (2, -0.0)])
+    query = f"k FROM [{T}] WHERE d < 0.0"
+    want = [{"k": 0}]                          # IEEE: -1e-308 < 0
+    assert np.float64(-1e-308) < 0.0
+    assert select_rows(query, {T: _to_port(chunk)},
+                       device="cpu").to_rows() == want
+    assert ref_select(query, {T: chunk}).to_rows() == []

@@ -310,7 +310,9 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
     join, window and planner modules; so do a `sort_chunk`, an
     `external_sort` that partitions, an MVCC `visible_chunk`, the FUNCS
     query, the STRINGS query with LIKE and a regex, a NEAREST query and
-    `batched_nearest`."""
+    `batched_nearest`; the mesh modules and the coordinator import, and
+    `split_plan` splits Q1 (tests/test_torch_distributed.py runs the mesh
+    on ranks with both blocked)."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -388,6 +390,12 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
         hits = batched_nearest(synthetic.vector_table(plane, device="cpu"),
                                "emb", [q.tolist()], 8, device="cpu")
         assert [r for r, _ in hits[0]] == [r["k"] for r in near], hits
+        from ytsaurus_tpu_torch.parallel import distributed, mesh  # noqa: F401
+        from ytsaurus_tpu_torch.parallel import shuffle  # noqa: F401
+        from ytsaurus_tpu_torch.query import build_query, coordinator
+        bottom, front = coordinator.split_plan(build_query(
+            tpch.Q1, {"//tpch/lineitem": chunk.schema}))
+        assert front.group is not None and bottom.order is None
         assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                              if v is not None}
         print("ok", len(rows))

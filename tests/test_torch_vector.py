@@ -5,7 +5,11 @@ rejections, statistics, `concat_chunks`), the distance functions,
 
 Integer-component vectors make float32 distance arithmetic exact, so there
 the two packages must agree exactly: the same rows in the same order and the
-same distances. On random normal vectors the port's float32 sums run in
+same distances, with one exception, a sanctioned divergence pinned by
+`test_dot_ties_between_signed_zeros_go_to_the_lowest_row`: where the dot
+metric ties +0.0 against -0.0 (XLA's product gives -1 * 0.0 = -0.0 and
+`lax.top_k` ranks +0.0 above it; torch's product gives +0.0 for both),
+the port takes the lowest tied row. On random normal vectors the port's float32 sums run in
 another order than XLA's, so distances agree to rtol 1e-5, and the rows are
 held by tests/test_vector.py's recall rule (exactly min(k, matching)
 distinct rows, each at or better than the float64 oracle's k-th measure,
@@ -347,3 +351,28 @@ def test_topk_lowest_index_is_lax_top_k_set(shape, k, high):
                    axis=-1)
     got = topk_lowest_index(torch.from_numpy(ranked), k).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def test_dot_ties_between_signed_zeros_go_to_the_lowest_row():
+    """A sanctioned divergence. Smallest input: a vector<float,1> column
+    with rows [0.0] and [-0.0], query [-1.0], k 1, dot. Both dot products
+    are zero; the port ranks them equal and takes row 0, the lowest tied
+    row, in `batched_nearest` and in ORDER BY dot_product DESC LIMIT 1.
+    The JAX package's product gives -0.0 for row 0, and its top-k ranks
+    row 1's +0.0 above it."""
+    spec = [("k", "int64"), ("emb", "vector<float,1>")]
+    rows = [(0, [0.0]), (1, [-0.0])]
+    ref_chunk = RefChunk.from_rows(RefSchema.make(spec), rows)
+    chunk = _to_port(ref_chunk)
+    assert batched_nearest(chunk, "emb", [[-1.0]], 1, "dot",
+                           device="cpu") == [[(0, 0.0)]]
+    assert ref_vector.batched_nearest(ref_chunk, "emb", [[-1.0]], 1,
+                                      "dot") == [[(1, 0.0)]]
+    query = f"k FROM [{T}] ORDER BY dot_product(emb, ?) DESC LIMIT 1"
+    schema = port_schema.TableSchema.make(spec)
+    got = Evaluator("cpu").run_plan(
+        build_query(query, {T: schema}, params=[[-1.0]]), chunk).to_rows()
+    want = RefEvaluator().run_plan(
+        ref_build_query(query, {T: RefSchema.make(spec)}, params=[[-1.0]]),
+        ref_chunk).to_rows()
+    assert got == [{"k": 0}] and want == [{"k": 1}]

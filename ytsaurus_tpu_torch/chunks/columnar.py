@@ -488,39 +488,47 @@ def _build_column(ty: EValueType, values: Sequence[Any], cap: int,
 # --- dictionary unification and concatenation ------------------------------
 
 
-def unify_dictionaries(columns: Sequence[Column]
-                       ) -> tuple[list[Column], np.ndarray]:
-    """Re-encode string columns onto a shared sorted vocabulary: the
-    remapped columns and the unified vocab. Columns that already share one
-    vocabulary object come back untouched."""
+def unified_vocabulary(columns: Sequence[Column]) -> np.ndarray:
+    """The shared sorted vocabulary `unify_dictionaries` moves string
+    columns onto: their one vocabulary object if they share one, else the
+    sorted union. Reads only the host vocabularies."""
     string_cols = [c for c in columns if c.type is EValueType.string]
     if string_cols and all(c.dictionary is not None for c in string_cols):
         first = string_cols[0].dictionary
         if all(c.dictionary is first for c in string_cols[1:]):
-            return list(columns), np.asarray(first, dtype=object)
+            return np.asarray(first, dtype=object)
     vocabs = [c.dictionary for c in columns if c.dictionary is not None]
     if vocabs:
         merged = np.unique(np.concatenate(
             [np.asarray(v, dtype=object) for v in vocabs]))
     else:
         merged = np.array([], dtype=object)
-    merged = np.asarray(merged, dtype=object)
-    out = []
-    for col in columns:
-        if col.type is not EValueType.string:
-            out.append(col)
-            continue
-        old_vocab = col.dictionary if col.dictionary is not None \
-            else np.array([], dtype=object)
-        remap_np = np.searchsorted(
-            merged, np.asarray(old_vocab, dtype=object)).astype(np.int32) \
-            if len(old_vocab) else np.zeros(1, dtype=np.int32)
-        remap = torch.from_numpy(remap_np).to(col.data.device)
-        new_codes = remap[col.data.to(torch.int64).clamp(
-            0, len(remap_np) - 1)]
-        out.append(replace(col, data=new_codes.to(torch.int32),
-                           dictionary=merged))
-    return out, merged
+    return np.asarray(merged, dtype=object)
+
+
+def remap_dictionary(col: Column, merged: np.ndarray) -> Column:
+    """A string column re-encoded onto `merged`, a sorted superset of its
+    vocabulary; other columns, and a column already on `merged` (the same
+    object), come back untouched."""
+    if col.type is not EValueType.string or col.dictionary is merged:
+        return col
+    old_vocab = col.dictionary if col.dictionary is not None \
+        else np.array([], dtype=object)
+    remap_np = np.searchsorted(
+        merged, np.asarray(old_vocab, dtype=object)).astype(np.int32) \
+        if len(old_vocab) else np.zeros(1, dtype=np.int32)
+    remap = torch.from_numpy(remap_np).to(col.data.device)
+    new_codes = remap[col.data.to(torch.int64).clamp(0, len(remap_np) - 1)]
+    return replace(col, data=new_codes.to(torch.int32), dictionary=merged)
+
+
+def unify_dictionaries(columns: Sequence[Column]
+                       ) -> tuple[list[Column], np.ndarray]:
+    """Re-encode string columns onto a shared sorted vocabulary: the
+    remapped columns and the unified vocab. Columns that already share one
+    vocabulary object come back untouched."""
+    merged = unified_vocabulary(columns)
+    return [remap_dictionary(col, merged) for col in columns], merged
 
 
 def concat_chunks(chunks: Sequence[ColumnarChunk]) -> ColumnarChunk:

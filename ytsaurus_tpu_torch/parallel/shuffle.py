@@ -1,24 +1,53 @@
-"""Range partitioning against key pivots: the single-device half of the
-distributed sort.
+"""Distributed sort: range partition → all-to-all → per-rank sort, and the
+row exchange of every mesh path.
 
-Port of the JAX package's `parallel/shuffle.py` as far as one device uses
-it: `_encode_key_plane`, `_lex_less_const`, `_partition_ids` and
-`quantile_pivots`, which the external sort (`ops/bigsort.py`) routes rows
-with. `sort_table`, `route_rows` and `transfer_counts` exchange rows
-between devices (all_to_all); they wait for the port's mesh slice.
+Port of the JAX package's `parallel/shuffle.py`, a redesign of the
+reference MapReduce Sort pipeline (sort_controller.cpp: TPartitionTask +
+TSortTask; partition_job.cpp routing rows by partitioner and
+partition_sort_job.cpp merging):
+
+  reference                               this port
+  ---------                               ---------
+  samples_fetcher → partition key bounds  per-shard key samples, gathered
+                                          to every rank → host pivots
+  partition jobs route rows to chunks     `_partition_ids` on the device
+  shuffle = readers pull blocks over TCP  one all_to_all_single per plane
+  partition_sort heap merge per partition `sort_chunk` per rank (the radix
+                                          kernels on the card)
+
+The exchange (`transfer_counts`, `route_rows`) is the mesh paths' one way
+of moving rows: every rank's (n,) send counts are all_gathered into the
+(n_src, n_dst) transfer matrix, which is read to the host once, and each
+plane then crosses in one `all_to_all_single` with exact split sizes. The
+reference's fixed quota blocks and multi-round drain exist for XLA's
+static shapes and have no counterpart; the receive capacity is the
+reference's, the `pad_capacity` of the largest column sum. Rows arrive
+source-major, each source's in its local order, so a stable local sort
+gives the reference's order among equal keys.
+
+`_encode_key_plane`, `_lex_less_const`, `_partition_ids` and
+`quantile_pivots` also serve the external sort (`ops/bigsort.py`).
 
 uint64 key planes are int64 bit patterns in the port. `_encode_key_plane`
 takes an `unsigned` flag and flips their sign bit, so that the signed
 compares of `_lex_less_const` order them as the reference's uint64
-compares do; `pivot_value_plane` encodes the pivots' values alike. Doubles
-compare by value on both sides (NaN equal to nothing, -0.0 == +0.0), as
-in the reference.
+compares do; `pivot_value_plane` encodes the pivots' values alike, from
+numpy uint64 arrays, never through float64. Doubles compare by value on
+both sides (NaN equal to nothing, -0.0 == +0.0), as in the reference.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import numpy as np
 import torch
+from torch.profiler import record_function
+
+from ytsaurus_tpu_torch.chunks.columnar import Column, ColumnarChunk, pad_capacity
+from ytsaurus_tpu_torch.errors import EErrorCode, YtError
+from ytsaurus_tpu_torch.parallel.distributed import ShardedTable, _host
+from ytsaurus_tpu_torch.schema import EValueType
 
 _SIGN64 = -(1 << 63)          # the int64 with only the sign bit set
 
@@ -92,3 +121,196 @@ def quantile_pivots(sample_rows: "list[tuple]", n: int,
                       if sample_rows
                       else tuple((False, 0) for _ in range(key_arity)))
     return pivots
+
+
+def transfer_counts(mesh, *pids: torch.Tensor) -> list[np.ndarray]:
+    """The (n_src, n_dst) transfer matrix of each routing `pid` (in
+    [0, n) for rows that move, n for discards), as every rank sees it:
+    one all_gather of the stacked local counts and one host read for all
+    of them."""
+    n = mesh.size
+    local = torch.stack([(pid == dest).sum() for pid in pids
+                         for dest in range(n)]).to(torch.int64)
+    matrix = _host(mesh.all_gather(local)).reshape(n, len(pids), n)
+    return [matrix[:, i, :] for i in range(len(pids))]
+
+
+def _dest_order(pid: torch.Tensor, send: Sequence[int]) -> torch.Tensor:
+    """The rows that move, grouped by destination, each group in row
+    order: a stable counting sort by `pid` over the send counts (known on
+    the host), with no device sort and no host read."""
+    n = len(send)
+    pos = torch.zeros_like(pid, dtype=torch.int64)
+    start = 0
+    for dest in range(n):
+        hit = pid == dest
+        pos = torch.where(hit, torch.cumsum(hit, 0) - 1 + start, pos)
+        start += int(send[dest])
+    moving = pid < n
+    order = torch.empty(start + 1, dtype=torch.int64, device=pid.device)
+    order.scatter_(0, torch.where(moving, pos, start),
+                   torch.arange(pid.shape[0], device=pid.device))
+    return order[:start]
+
+
+def route_rows(mesh, planes: dict, pid: torch.Tensor, counts: np.ndarray
+               ) -> tuple[dict, torch.Tensor]:
+    """Send this rank's rows to their `pid` ranks (discards at n) and
+    receive every rank's rows for this one, source-major, at the front of
+    planes of the receive capacity (the same on every rank). `counts` is
+    `transfer_counts`'s matrix for `pid`. Returns (received planes, the
+    received-row mask)."""
+    me = mesh.rank
+    send = [int(c) for c in counts[me]]
+    recv = [int(c) for c in counts[:, me]]
+    cap = pad_capacity(max(int(counts.sum(axis=0).max()), 1))
+    with record_function("mesh.route"):
+        order = _dest_order(pid, send)
+        out: dict = {}
+        for name, (data, valid) in planes.items():
+            r_data = torch.zeros((cap,) + tuple(data.shape[1:]),
+                                 dtype=data.dtype, device=data.device)
+            r_valid = torch.zeros(cap, dtype=torch.bool, device=data.device)
+            mesh.all_to_all(data[order], send, recv, out=r_data)
+            mesh.all_to_all(valid[order], send, recv, out=r_valid)
+            out[name] = (r_data, r_valid)
+    mask = torch.arange(cap, device=pid.device) < sum(recv)
+    return out, mask
+
+
+def _sample_pivots(table: ShardedTable, key_names: list[str],
+                   samples_per_shard: int = 256) -> list[tuple]:
+    """Evenly sample keys from every shard, gather the samples to every
+    rank (one all_gather, one host read), take quantile pivots. Ref:
+    ytlib/table_client/samples_fetcher.h + partitioning_parameters_
+    evaluator.cpp."""
+    mesh = table.mesh
+    n = table.n_shards
+    takes = [min(samples_per_shard, c) for c in table.row_counts]
+    if not any(takes):
+        return [tuple((False, 0) for _ in key_names) for _ in range(n - 1)]
+    mine = takes[mesh.rank]
+    idx = torch.from_numpy(np.linspace(
+        0, table.row_count - 1, mine, dtype=np.int64)).to(mesh.device)
+    # Every key's data and valid planes as int64 words (doubles by their
+    # bits), padded to samples_per_shard rows: one gather for all.
+    words = []
+    for name in key_names:
+        col = table.columns[name]
+        data = col.data[idx]
+        data = data.view(torch.int64) if data.dtype == torch.float64 \
+            else data.to(torch.int64)
+        words += [data, col.valid[idx].to(torch.int64)]
+    local = torch.zeros((len(words), samples_per_shard), dtype=torch.int64,
+                        device=mesh.device)
+    local[:, :mine] = torch.stack(words)
+    host = _host(mesh.all_gather(local.reshape(-1))).reshape(
+        n, len(words), samples_per_shard)
+    sample_rows: list[tuple] = []
+    for shard, take in enumerate(takes):
+        values = []
+        for ki, name in enumerate(key_names):
+            data = host[shard, 2 * ki, :take]
+            ty = table.columns[name].type
+            if ty is EValueType.double:
+                data = data.view(np.float64)
+            elif ty is EValueType.uint64:
+                data = data.view(np.uint64)
+            elif ty is EValueType.boolean:
+                data = data.astype(np.bool_)
+            values.append((data.tolist(),
+                           host[shard, 2 * ki + 1, :take].astype(bool)))
+        for i in range(take):
+            sample_rows.append(tuple((bool(valid[i]), data[i])
+                                     for data, valid in values))
+    return quantile_pivots(sample_rows, n, len(key_names))
+
+
+def sort_table(table: ShardedTable, key_columns: Sequence[str],
+               descending: bool = False) -> ShardedTable:
+    """Globally sort a ShardedTable by `key_columns` across the mesh.
+
+    Result: shard i holds the i-th key range, sorted within the shard —
+    i.e. globally sorted in shard-major order. Every rank calls it."""
+    key_names = list(key_columns)
+    for name in key_names:
+        if name not in table.columns:
+            raise YtError(f"No such key column {name!r}",
+                          code=EErrorCode.QueryExecutionError)
+    if table.n_shards == 1:
+        return _sort_single(table, key_names, descending)
+    return _sort_table_sharded(table, key_names, descending)
+
+
+def _host_plane_dtype(col: Column):
+    if col.type is EValueType.uint64:
+        return np.uint64
+    if col.type is EValueType.double:
+        return np.float64
+    if col.type is EValueType.boolean:
+        return np.bool_
+    return np.int64
+
+
+def _sort_table_sharded(table: ShardedTable, key_names: "list[str]",
+                        descending: bool) -> ShardedTable:
+    mesh = table.mesh
+    n = table.n_shards
+    with record_function("sort.partition"):
+        pivots = _sample_pivots(table, key_names)
+        pivot_planes = []
+        for ki, name in enumerate(key_names):
+            col = table.columns[name]
+            vals = np.array([p[ki][1] for p in pivots],
+                            dtype=_host_plane_dtype(col))
+            ranks = np.array([1 if p[ki][0] else 0 for p in pivots],
+                             dtype=np.int8)
+            pivot_planes.append((torch.from_numpy(ranks).to(mesh.device),
+                                 pivot_value_plane(vals, mesh.device)))
+        row_planes = [_encode_key_plane(
+            table.columns[name].data, table.columns[name].valid,
+            table.columns[name].type is EValueType.uint64)
+            for name in key_names]
+        pid = _partition_ids(row_planes, pivot_planes, n - 1)
+        del row_planes
+        if descending:
+            pid = (n - 1) - pid                 # shard 0 takes the top range
+        pid = torch.where(table.row_valid, pid, n)
+        counts, = transfer_counts(mesh, pid)
+    recv, mask = route_rows(mesh, {name: (col.data, col.valid)
+                                   for name, col in table.columns.items()},
+                            pid, counts)
+    del pid
+    received = ColumnarChunk(
+        schema=table.schema, row_count=int(counts[:, mesh.rank].sum()),
+        columns={name: Column(type=col.type, data=recv[name][0],
+                              valid=recv[name][1],
+                              dictionary=col.dictionary)
+                 for name, col in table.columns.items()})
+    del recv
+    out = _sort_local(received, key_names, descending, mesh.device)
+    return ShardedTable(schema=out.schema, mesh=mesh, capacity=out.capacity,
+                        columns=dict(out.columns),
+                        row_counts=[int(c) for c in counts.sum(axis=0)],
+                        row_valid=mask)
+
+
+def _sort_single(table: ShardedTable, key_names: list[str],
+                 descending: bool = False) -> ShardedTable:
+    """One-rank mesh: the local sort alone, same result contract."""
+    out = _sort_local(table.local_chunk(), key_names, descending,
+                      table.mesh.device)
+    return ShardedTable(schema=out.schema, mesh=table.mesh,
+                        capacity=table.capacity, columns=dict(out.columns),
+                        row_counts=list(table.row_counts),
+                        row_valid=table.row_valid)
+
+
+def _sort_local(chunk: ColumnarChunk, key_names: list[str],
+                descending: bool, device) -> ColumnarChunk:
+    """The per-rank sort: `sort_chunk` (masked rows last, then the keys,
+    stable), whose schema is the reference's `_sorted_schema`: the keys
+    first, in sort order."""
+    from ytsaurus_tpu_torch.operations.sort_op import sort_chunk
+    with record_function("sort.local"):
+        return sort_chunk(chunk, key_names, descending, device=device)

@@ -205,12 +205,37 @@ def cast_plane(data: torch.Tensor, src: EValueType,
         if src is EValueType.uint64:
             return _u64_to_f64(data)
         return data.to(torch.float64)
-    if dst is EValueType.uint64 and data.is_floating_point():
-        # Values at or above 2^63 keep their unsigned bits.
-        big = data >= 9223372036854775808.0
-        return torch.where(big, (data - 18446744073709551616.0).to(
-            torch.int64), data.to(torch.int64))
+    if dst in (EValueType.int64, EValueType.uint64) and \
+            data.is_floating_point():
+        return _saturating_int64(data, dst is EValueType.uint64)
     return data.to(device_dtype(dst))
+
+
+_TWO63 = 9223372036854775808.0
+_TWO64 = 18446744073709551616.0
+# The largest doubles below 2^63 and 2^64: clamped values convert exactly.
+_BELOW_TWO63 = 9223372036854774784.0
+_BELOW_TWO64 = 18446744073709549568.0
+
+
+def _saturating_int64(data: torch.Tensor, unsigned: bool) -> torch.Tensor:
+    """Doubles truncated to int64 (or to uint64 bit patterns), saturating
+    as the reference's `astype` does: NaN gives 0, values beyond the
+    type's range give its bound (uint64: anything below 0 gives 0). Every
+    value is clamped into range before it is converted, so the result
+    does not depend on how the device converts out-of-range doubles."""
+    data = data.to(torch.float64)
+    nan = torch.isnan(data)
+    if unsigned:
+        big = data >= _TWO63
+        low = torch.where(big | nan, 0.0, data).clamp(0.0, _BELOW_TWO63)
+        high = torch.where(big, data, _TWO63).clamp(_TWO63, _BELOW_TWO64)
+        out = torch.where(big, (high - _TWO64).to(torch.int64),
+                          low.to(torch.int64))
+        return torch.where(data >= _TWO64, torch.full_like(out, -1), out)
+    safe = torch.where(nan, 0.0, data).clamp(-_TWO63, _BELOW_TWO63)
+    out = safe.to(torch.int64)
+    return torch.where(data >= _TWO63, torch.full_like(out, _MAX64), out)
 
 
 def _compare(op: str, lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,9 @@
 
 Port of the JAX package's `query/engine/joins.py` (`_bind_keys`,
 `_emit_encoded_keys`, `_lex_less`, `_lex_searchsorted`, `sort_foreign_keys`,
-`null_key_mask`, `probe_replicated`, `execute_join`). The foreign side is
+`null_key_mask`, `probe_replicated`, `execute_join`; and
+`parallel/distributed.py::_vocab_remap_slots` as `vocab_remap_slots`, which
+this module's join and the mesh's joins share). The foreign side is
 sorted by its join key once (`lexsort_indices`, which runs the radix
 kernels on the card), each self row finds its match range by a vectorized
 lexicographic binary search, and the (self, foreign) row pairs are
@@ -168,6 +170,28 @@ def probe_replicated(sl, n_keys: int, f_cap: int, self_keys, mask,
     return pulled, (mask if is_left else matched)
 
 
+def vocab_remap_slots(self_bound, f_bound, bindings: list):
+    """String join keys: both sides' dictionary codes are remapped onto a
+    merged vocabulary (host), so that equality compares one code space.
+    Returns per-key binding slots of each side (None for a key without a
+    vocabulary); the remap tables are appended to `bindings`."""
+    self_slots: list = []
+    foreign_slots: list = []
+    for sb, fb in zip(self_bound, f_bound):
+        if sb.vocab is None and fb.vocab is None:
+            self_slots.append(None)
+            foreign_slots.append(None)
+            continue
+        merged = _merge_vocabs(sb.vocab, fb.vocab)
+        for vocab in (sb.vocab, fb.vocab):
+            vocab = vocab if vocab is not None else _EMPTY_VOCAB
+            table = _remap_table(vocab, merged)
+            bindings.append(_pad_np(table, _vocab_bucket(len(table)), 0))
+        self_slots.append(len(bindings) - 2)
+        foreign_slots.append(len(bindings) - 1)
+    return self_slots, foreign_slots
+
+
 def _comparable_keys(self_keys, f_sorted, self_bound, f_bound):
     """The (null_rank, value) planes of both sides in one ordered
     representation per key, for the binary search."""
@@ -196,24 +220,8 @@ def execute_join(chunk: ColumnarChunk, combined_schema: TableSchema,
                             all_bindings)
     f_bound = _bind_keys(foreign_chunk, join.foreign_schema,
                          join.foreign_equations, all_bindings)
-    # String keys: remap both sides onto merged vocabularies (host).
-    self_slots: list = []
-    foreign_slots: list = []
-    for sb, fb in zip(self_bound, f_bound):
-        if sb.vocab is not None or fb.vocab is not None:
-            merged = _merge_vocabs(sb.vocab, fb.vocab)
-            slots = []
-            for vocab in (sb.vocab, fb.vocab):
-                vocab = vocab if vocab is not None else _EMPTY_VOCAB
-                table = _remap_table(vocab, merged)
-                all_bindings.append(
-                    _pad_np(table, _vocab_bucket(len(table)), 0))
-                slots.append(len(all_bindings) - 1)
-            self_slots.append(slots[0])
-            foreign_slots.append(slots[1])
-        else:
-            self_slots.append(None)
-            foreign_slots.append(None)
+    self_slots, foreign_slots = vocab_remap_slots(self_bound, f_bound,
+                                                  all_bindings)
     bindings = bindings_to_device(all_bindings, device)
 
     self_cap = chunk.capacity

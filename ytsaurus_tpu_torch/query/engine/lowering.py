@@ -245,8 +245,13 @@ def prepare(plan: "ir.Query | ir.FrontQuery", chunk) -> PreparedQuery:
                 sizes_offsets.append((2, 0))
             elif bound.type in (EValueType.int64, EValueType.uint64) and \
                     isinstance(item.expr, ir.TReference):
-                lo, hi = _column_min_max(chunk.columns[item.expr.name],
-                                         bound.type)
+                col = chunk.columns.get(item.expr.name)
+                if getattr(col, "data", None) is None:
+                    # A rep chunk (the mesh's bind-only view) carries no
+                    # planes to read a min/max from: the general path.
+                    sizes_offsets = None
+                    break
+                lo, hi = _column_min_max(col, bound.type)
                 if hi - lo + 1 > 65536:
                     sizes_offsets = None
                     break
