@@ -71,6 +71,21 @@ Phases (any failure exits non-zero and prints no result line):
      order exactly; the retained row count, and visible_chunk of the
      retained versions equal to that of the originals at both
      timestamps. REPS warm runs, with each operation's time;
+     SELECT (query/coordinator.py::coordinate_and_execute, the host rung
+     behind select_rows, one evaluator on the card): SELECT_8 (bench.py's
+     select over 8 chunks of 8,000,000 rows: k the row number, g uniform
+     in [0, 10,000), v uniform in [0, 1000), from --seed + 7; "g, sum(v),
+     count(*) WHERE v < 900 GROUP BY g"), SELECT_LAZY (the same, each shard
+     a callable that stages its numpy planes onto the card through the
+     prefetcher; one more run, on the host clock, times the staging
+     threads against the evaluating thread, then the staging alone on two
+     threads and on one), SELECT_LIMIT ("k, v WHERE v > 900 LIMIT 1000": 7 shards
+     skipped), SELECT_ORDERED ("k, v ORDER BY k DESC LIMIT 100" over shards
+     range-ordered by k: the last shard first, 7 skipped) and SELECT_Q1_64
+     (Q1 over the 64M-row lineitem as 64 chunks of 1,000,000 rows,
+     coalesced at merge_shards_below=4,000,000 into 16 programs), each
+     against a numpy oracle, with its count reads per query and its
+     statistics;
      MESH (parallel/, over torch.distributed), part (a): a mesh of one
      rank over NCCL in this process, at full size, over the tables and
      oracles of the phases above (kept on the host until here):
@@ -81,13 +96,27 @@ Phases (any failure exits non-zero and prints no result line):
      join, shuffle=True) and MESH_SORT (sort_table of SORT's 64,000,000
      rows on k), each checked as its single-chunk twin is, with the same
      launches, REPS warm runs, profile and peak memory as every path, and
-     its host reads per query (host_sync_count). Part (b): first a probe
+     its host reads per query (host_sync_count). Then WHOLE: the same
+     tables through coordinate_distributed, the degradation ladder:
+     WP_TOPK (the 10 largest l_extendedprice: the gather shape), WP_Q1
+     and WP_Q18 (exchange-states), WP_Q3 (the planner's join
+     strategy, recorded) and WP_WINDOW (exchange-rows, beside its
+     stitched twin MESH_WINDOW over the window table), each held to its
+     oracle and required to be served by the whole-plan rung on every run
+     (statistics and the rung tag of its span) at one host read once
+     warm, with its quota, demand, overflow re-runs and exchange bytes;
+     then WP_Q18 under parallel.all_to_all=error:times=1, which the
+     stitched shuffle rung must serve with the oracle's rows. Part (b): first a probe
      (two processes) of whether gloo takes CUDA tensors in
      all_to_all_single with uneven splits, all_gather and all_reduce; if
      it does, 4 gloo processes on the one card run MESH_Q1, MESH_Q18,
      MESH_Q3P and MESH_SORT over 4 shards of 4,000,000 rows each (and
-     1,000,000 orders a shard for MESH_Q3P), each rank checked against
-     the numpy oracle over all shards. These sizes are cut from part
+     1,000,000 orders a shard for MESH_Q3P), then WP_Q1, WP_Q18 and WP_Q3
+     through coordinate_distributed (whole-plan rung, one host read once
+     warm) and WP_SKEW (a GROUP BY with cardinality over keys 90% on one
+     value: the first run overflows its quota and re-runs, the second
+     does not), each rank checked against the numpy oracle over all
+     shards. These sizes are cut from part
      (a)'s 64M because gloo stages every exchange through the host; their
      times are a correctness run's and are logged, not headlined. If
      gloo does not take CUDA tensors, part (b) is left out and the log
@@ -1204,23 +1233,376 @@ def phase_tablet(seed: int, hr, rx, port) -> dict:
     return out
 
 
+# --- SELECT: multi-chunk selects through the host coordinator ---------------
+
+SELECT_ROWS = 64_000_000     # bench.py's select table at the q1 bench size
+SELECT_CHUNKS = 8            # bench.py:292's shard count
+SELECT_GROUPS = 10_000       # g uniform in [0, SELECT_GROUPS)
+SELECT_Q1_CHUNKS = 64        # the lineitem as 1M-row chunks
+SELECT_MERGE_BELOW = 4_000_000   # client.py's merge_shards_below
+SELECT_QUERY = ("g, sum(v) AS s, count(*) AS c FROM [//t] WHERE v < 900 "
+                "GROUP BY g")
+SELECT_LIMIT = "k, v FROM [//t] WHERE v > 900 LIMIT 1000"
+SELECT_ORDERED = "k, v FROM [//t] ORDER BY k DESC LIMIT 100"
+
+
+def _select_arrays(seed: int) -> list:
+    """SELECT_8's table as SELECT_CHUNKS numpy chunks: k the row number, g
+    uniform in [0, SELECT_GROUPS), v uniform in [0, 1000)."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 7)
+    per = SELECT_ROWS // SELECT_CHUNKS
+    return [{"k": np.arange(i * per, (i + 1) * per, dtype=np.int64),
+             "g": rng.integers(0, SELECT_GROUPS, per),
+             "v": rng.integers(0, 1000, per)}
+            for i in range(SELECT_CHUNKS)]
+
+
+def _coordinator_entry_points():
+    from types import SimpleNamespace
+
+    from ytsaurus_tpu_torch.query import builder
+    from ytsaurus_tpu_torch.query.coordinator import coordinate_and_execute
+    from ytsaurus_tpu_torch.query.engine import evaluator
+    from ytsaurus_tpu_torch.query.statistics import QueryStatistics
+    return SimpleNamespace(
+        build_query=builder.build_query, Evaluator=evaluator.Evaluator,
+        count_reads=evaluator.count_reads,
+        coordinate_and_execute=coordinate_and_execute,
+        QueryStatistics=QueryStatistics)
+
+
+def phase_select(seed: int, hr, rx, tpch, port, keep: dict) -> dict:
+    """SELECT: `coordinate_and_execute` (the host rung behind select_rows)
+    over many chunks on the card, each path against a numpy oracle:
+    SELECT_8 (bench.py:292's query over 8 chunks of 8M rows), SELECT_Q1_64
+    (Q1 over the 64M-row lineitem as 64 chunks of 1M rows, coalesced at
+    merge_shards_below=4,000,000 into 16 programs), SELECT_LAZY (SELECT_8
+    with each shard a callable that stages its numpy planes onto the card
+    through the prefetcher), SELECT_LIMIT (a bare LIMIT that the first
+    shard satisfies: 7 shards skipped) and SELECT_ORDERED (ORDER BY k DESC
+    LIMIT 100 over shards range-ordered by k: the last shard first, 7
+    skipped). Each path as every other (launches, REPS warm runs, profile,
+    peak), with the count reads per query and the statistics."""
+    import numpy as np
+    import torch
+    co = _coordinator_entry_points()
+    ev = co.Evaluator("cuda")
+    t0 = time.perf_counter()
+    arrays = _select_arrays(seed)
+    schema = port.TableSchema.make([("k", "int64", "ascending"),
+                                    ("g", "int64"), ("v", "int64")])
+    chunks = [port.ColumnarChunk.from_arrays(schema, a, device="cuda")
+              for a in arrays]
+    torch.cuda.synchronize()
+    g = np.concatenate([a["g"] for a in arrays])
+    v = np.concatenate([a["v"] for a in arrays])
+    sel = v < 900
+    want_s = np.bincount(g[sel], weights=v[sel], minlength=SELECT_GROUPS)
+    want_c = np.bincount(g[sel], minlength=SELECT_GROUPS)
+    del g, sel
+    per = SELECT_ROWS // SELECT_CHUNKS
+    _log(f"select table: {SELECT_ROWS} rows as {SELECT_CHUNKS} chunks of "
+         f"{per}, made in {time.perf_counter() - t0:.1f} s (seed {seed + 7})")
+
+    def check_select(result) -> int:
+        planes = result.to_numpy()["planes"]
+        n = result.row_count
+        got_g = planes["g"][0][:n]
+        if n != int((want_c > 0).sum()) or \
+                not np.array_equal(planes["s"][0][:n].astype(np.float64),
+                                   want_s[got_g]) or \
+                not np.array_equal(planes["c"][0][:n], want_c[got_g]) or \
+                len(np.unique(got_g)) != n:
+            raise AssertionError("SELECT_8 groups differ from the oracle")
+        return n
+
+    want_limit_k = np.flatnonzero(v > 900)[:1000]
+
+    def check_limit(result) -> int:
+        rows = result.to_rows()
+        ks = sorted(r["k"] for r in rows)
+        if ks != want_limit_k.tolist() or \
+                any(r["v"] != int(v[r["k"]]) for r in rows):
+            raise AssertionError("SELECT_LIMIT rows differ from the "
+                                 "first 1000 matching rows in scan order")
+        return len(rows)
+
+    want_top = list(range(SELECT_ROWS - 1, SELECT_ROWS - 101, -1))
+
+    def check_ordered(result) -> int:
+        rows = result.to_rows()
+        if [r["k"] for r in rows] != want_top or \
+                any(r["v"] != int(v[r["k"]]) for r in rows):
+            raise AssertionError("SELECT_ORDERED rows differ from the "
+                                 "oracle")
+        return len(rows)
+
+    def lazy_shards():
+        return [(lambda a=a: port.ColumnarChunk.from_arrays(
+            schema, a, device="cuda")) for a in arrays]
+
+    cases = {
+        "select_8": (SELECT_QUERY, lambda: chunks, {}, check_select,
+                     SELECT_ROWS),
+        "select_lazy": (SELECT_QUERY, lazy_shards, {}, check_select,
+                        SELECT_ROWS),
+        "select_limit": (SELECT_LIMIT, lambda: chunks, {}, check_limit, per),
+        "select_ordered": (SELECT_ORDERED, lambda: chunks,
+                           {"range_ordered_by": ["k"]}, check_ordered, per),
+    }
+    out = {}
+    for name, (query, shards, kwargs, check, rows_in) in cases.items():
+        plan = co.build_query(query, {"//t": schema})
+        out[name] = _select_path(name, co, ev, plan, shards, kwargs, check,
+                                 rows_in, hr, rx)
+    out["select_lazy"]["staging"] = _staging_overlap(
+        co, ev, co.build_query(SELECT_QUERY, {"//t": schema}), lazy_shards)
+    for name in ("select_limit", "select_ordered"):
+        skipped = out[name]["stats"]["shards_skipped"]
+        if skipped != SELECT_CHUNKS - 1:
+            raise AssertionError(f"{name} skipped {skipped} shards, not "
+                                 f"{SELECT_CHUNKS - 1}")
+    del chunks, arrays, v
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    li = keep["lineitem"]
+    step = ROWS // SELECT_Q1_CHUNKS
+    q1_chunks = [tpch.lineitem_chunk({name: a[i * step:(i + 1) * step]
+                                      for name, a in li.items()},
+                                     device="cuda")
+                 for i in range(SELECT_Q1_CHUNKS)]
+    torch.cuda.synchronize()
+    _log(f"lineitem as {SELECT_Q1_CHUNKS} chunks of {step} rows on the "
+         f"card in {time.perf_counter() - t0:.1f} s")
+    plan = co.build_query(tpch.Q1, {"//tpch/lineitem":
+                                    q1_chunks[0].schema})
+    out["select_q1_64"] = _select_path(
+        "select_q1_64", co, ev, plan, lambda: q1_chunks,
+        {"merge_shards_below": SELECT_MERGE_BELOW},
+        lambda result: _check_q1(result, keep["q1"]), ROWS, hr, rx)
+    programs = out["select_q1_64"]["stats"]["shards_total"]
+    if programs != ROWS // SELECT_MERGE_BELOW:
+        raise AssertionError(f"SELECT_Q1_64 ran {programs} programs, not "
+                             f"{ROWS // SELECT_MERGE_BELOW}")
+    del q1_chunks
+    torch.cuda.empty_cache()
+    return out
+
+
+def _union(intervals) -> list:
+    """The union of (start, end) intervals, as sorted disjoint ones."""
+    out: list = []
+    for lo, hi in sorted(intervals):
+        if out and lo <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], hi)
+        else:
+            out.append([lo, hi])
+    return out
+
+
+def _span(intervals) -> float:
+    return sum(hi - lo for lo, hi in intervals)
+
+
+def _intersect(xs, ys) -> list:
+    """The intersection of two sorted disjoint interval lists."""
+    out, i, j = [], 0, 0
+    while i < len(xs) and j < len(ys):
+        lo, hi = max(xs[i][0], ys[j][0]), min(xs[i][1], ys[j][1])
+        if lo < hi:
+            out.append([lo, hi])
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return out
+
+
+def _staging_overlap(co, ev, plan, make_shards) -> dict:
+    """Whether SELECT_LAZY's staging overlapped its evaluation, on the
+    host clock. One run records each lazy shard's staging interval (on
+    the prefetch threads) and each wait of the evaluating thread in the
+    prefetcher's `get`; the evaluating thread is busy whenever it does not
+    wait. Then the staging alone: the 8 shards on two threads, as the
+    prefetcher stages them, and on one."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from ytsaurus_tpu_torch.query import coordinator
+    staged: list = []
+    waits: list = []
+
+    def timed(shard):
+        def stage():
+            t = time.perf_counter()
+            chunk = shard()
+            staged.append((t, time.perf_counter()))
+            return chunk
+        return stage
+
+    get = coordinator._PrefetchScanner.get
+
+    def timed_get(scanner, i):
+        t = time.perf_counter()
+        try:
+            return get(scanner, i)
+        finally:
+            waits.append((t, time.perf_counter()))
+
+    coordinator._PrefetchScanner.get = timed_get
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = co.coordinate_and_execute(
+            plan, [timed(s) for s in make_shards()], evaluator=ev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        coordinator._PrefetchScanner.get = get
+    del result
+    stage_union = _union(staged)
+    wait_union = _union(waits)
+    busy, cursor = [], t0
+    for lo, hi in wait_union:
+        if lo > cursor:
+            busy.append([cursor, lo])
+        cursor = max(cursor, hi)
+    if cursor < t1:
+        busy.append([cursor, t1])
+    alone = {}
+    for threads in (2, 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=threads) as pool:
+            chunks = list(pool.map(lambda shard: shard(), make_shards()))
+        torch.cuda.synchronize()
+        alone[threads] = (time.perf_counter() - t) * 1e3
+        del chunks
+    out = {"wall_ms": (t1 - t0) * 1e3,
+           "staging_sum_ms": sum(hi - lo for lo, hi in staged) * 1e3,
+           "staging_union_ms": _span(stage_union) * 1e3,
+           "evaluator_wait_ms": _span(wait_union) * 1e3,
+           "evaluator_busy_ms": _span(busy) * 1e3,
+           "overlap_ms": _span(_intersect(stage_union, busy)) * 1e3,
+           "staging_alone_2_threads_ms": alone[2],
+           "staging_alone_1_thread_ms": alone[1]}
+    _log("select_lazy staging vs evaluation (host clock, ms): "
+         + json.dumps({k: round(x, 3) for k, x in out.items()}))
+    return out
+
+
+def _select_path(name, co, ev, plan, shards, kwargs, check, rows_in, hr,
+                 rx) -> dict:
+    """One SELECT path through `_run_path`, with each run's count reads
+    (the stacked `finish_all` transfers and the front's count) and the
+    first run's statistics."""
+    reads: list = []
+    stats_runs: list = []
+
+    def run():
+        stats = co.QueryStatistics()
+        before = co.count_reads()
+        result = co.coordinate_and_execute(plan, shards(), evaluator=ev,
+                                           stats=stats, **kwargs)
+        reads.append(co.count_reads() - before)
+        stats_runs.append(stats)
+        return result
+
+    out = _run_path(name, run, check, rows_in, hr, rx)
+    stats = stats_runs[0]
+    out["count_reads"] = reads
+    out["stats"] = {k: getattr(stats, k) for k in (
+        "shards_total", "shards_skipped", "shards_staged", "rows_read",
+        "bytes_read", "rows_written", "retries")}
+    _log(f"{name}: count reads per query {reads}; statistics "
+         f"{json.dumps(out['stats'])}")
+    return out
+
+
 def _mesh_entry_points():
-    """The port's mesh entry points that the MESH phase drives."""
+    """The port's mesh entry points that the MESH and WHOLE phases drive."""
     from types import SimpleNamespace
 
     from ytsaurus_tpu_torch.parallel.distributed import (
         DistributedEvaluator,
         ShardedTable,
+        coordinate_distributed,
         host_sync_count,
     )
     from ytsaurus_tpu_torch.parallel.mesh import destroy_mesh, make_mesh
     from ytsaurus_tpu_torch.parallel.shuffle import sort_table
     from ytsaurus_tpu_torch.query.builder import build_query
+    from ytsaurus_tpu_torch.query.statistics import QueryStatistics
+    from ytsaurus_tpu_torch.utils import failpoints, tracing
     return SimpleNamespace(
         DistributedEvaluator=DistributedEvaluator, ShardedTable=ShardedTable,
         host_sync_count=host_sync_count, make_mesh=make_mesh,
         destroy_mesh=destroy_mesh, sort_table=sort_table,
-        build_query=build_query)
+        build_query=build_query, coordinate_distributed=coordinate_distributed,
+        QueryStatistics=QueryStatistics, failpoints=failpoints,
+        tracing=tracing)
+
+
+TOPK_LIMIT = 10
+TOPK_QUERY = ("l_extendedprice FROM [//tpch/lineitem] ORDER BY "
+              f"l_extendedprice DESC LIMIT {TOPK_LIMIT}")
+
+
+def _check_topk(result, oracle) -> int:
+    """WP_TOPK: the TOPK_LIMIT largest prices, in order, exactly."""
+    got = [r["l_extendedprice"] for r in result.to_rows()]
+    if got != oracle.tolist():
+        raise AssertionError(f"WP_TOPK {got} != {oracle.tolist()}")
+    return len(got)
+
+
+def _ladder_run(mesh_api, plan, mesh, chunks, foreign, de, record: list):
+    """One query through coordinate_distributed under a root span: its
+    result, with (host reads, statistics, the rungs that served it) added
+    to `record`."""
+    stats = mesh_api.QueryStatistics()
+    before = mesh_api.host_sync_count()
+    with mesh_api.tracing.start_span("chip_smoke.query") as root:
+        result = mesh_api.coordinate_distributed(plan, mesh, chunks, foreign,
+                                                 evaluator=de, stats=stats)
+    served = [span.tags.get("rung") for span in
+              mesh_api.tracing.get_collector().find(root.trace_id)
+              if span.name.startswith("distributed.")
+              and "error" not in span.tags]
+    record.append((mesh_api.host_sync_count() - before, stats, served))
+    return result
+
+
+def _whole_summary(name: str, record: list) -> dict:
+    """Checks that every run of a WHOLE path was served by the whole-plan
+    rung (statistics and span), at one host read once warm; its reads,
+    quotas, demands, overflow re-runs and exchange bytes."""
+    summary = {"host_syncs": [], "retries": [], "quota": [], "demand": [],
+               "exchange_bytes": [], "join_plan": None}
+    for i, (syncs, stats, served) in enumerate(record):
+        if stats.whole_plan != 1 or served != [0]:
+            raise AssertionError(f"{name} run {i} was served by rungs "
+                                 f"{served} (whole_plan {stats.whole_plan})")
+        if i > 0 and (syncs != 1 or stats.whole_plan_retries != 0):
+            raise AssertionError(f"{name} warm run {i}: {syncs} host reads, "
+                                 f"{stats.whole_plan_retries} re-runs")
+        block = stats.mesh_blocks[-1]
+        summary["host_syncs"].append(syncs)
+        summary["retries"].append(stats.whole_plan_retries)
+        summary["quota"].append([e["quota"] for e in block["exchanges"]])
+        summary["demand"].append([e["demand"] for e in block["exchanges"]])
+        summary["exchange_bytes"].append(block["exchange_bytes"])
+        summary["join_plan"] = stats.join_plan or None
+    _log(f"{name}: served by the whole-plan rung every run; host reads "
+         f"{summary['host_syncs']}; overflow re-runs {summary['retries']}; "
+         f"quota {summary['quota'][0]} / demand {summary['demand'][0]} "
+         f"first, {summary['quota'][-1]} / {summary['demand'][-1]} warm; "
+         f"exchange bytes {summary['exchange_bytes'][-1]}; join plan "
+         f"{summary['join_plan']}")
+    return summary
 
 
 def _mesh_queries(tpch) -> dict:
@@ -1244,6 +1626,7 @@ def phase_mesh(hr, rx, tpch, keep: dict) -> dict:
     partitioned join (shuffle=True), and sort_table of SORT's table. Each
     path as every other: launches, REPS warm runs, two profiled runs, peak
     memory, and its host reads per query (host_sync_count)."""
+    import numpy as np
     import torch
     mesh_api = _mesh_entry_points()
     mesh = mesh_api.make_mesh("cuda")
@@ -1284,7 +1667,85 @@ def phase_mesh(hr, rx, tpch, keep: dict) -> dict:
                               ROWS, hr, rx, ranges)
         out[name]["host_syncs"] = syncs
         _log(f"{name}: host reads per query {syncs}")
-    del table, orders, ev, foreign
+    del ev
+
+    # WHOLE, part (a): the same queries through coordinate_distributed,
+    # served by the whole-plan rung; then a fault on the exchange.
+    de = mesh_api.DistributedEvaluator(mesh)
+    chunks = [table.local_chunk()]
+    prices = keep["lineitem"]["l_extendedprice"]
+    checks["wp_topk"] = (_check_topk, -np.sort(-prices[
+        np.argpartition(-prices, TOPK_LIMIT)[:TOPK_LIMIT]]))
+    whole = {"wp_topk": (TOPK_QUERY, "wp_topk", ("mesh.gather",
+                                                  "mesh.read")),
+             "wp_q1": (tpch.Q1, "mesh_q1", ("mesh.gather", "mesh.read")),
+             "wp_q18": (tpch.Q18_AGG, "mesh_q18",
+                        ("mesh.count", "mesh.route", "mesh.gather",
+                         "mesh.read")),
+             "wp_q3": (tpch.Q3, "mesh_q3",
+                       ("mesh.count", "mesh.route", "mesh.join",
+                        "mesh.gather", "mesh.read"))}
+    for name, (query, twin, ranges) in whole.items():
+        plan = mesh_api.build_query(query, schemas)
+        record: list = []
+        check, oracle = checks[twin]
+        out[name] = _run_path(
+            name, lambda plan=plan, record=record: _ladder_run(
+                mesh_api, plan, mesh, chunks, foreign, de, record),
+            lambda result, c=check, o=oracle: c(result, o), ROWS, hr, rx,
+            ranges)
+        out[name].update(_whole_summary(name, record))
+    plan = mesh_api.build_query(tpch.Q18_AGG, schemas)
+    record = []
+    with mesh_api.failpoints.active("parallel.all_to_all=error:times=1"):
+        result = _ladder_run(mesh_api, plan, mesh, chunks, foreign, de,
+                             record)
+    rows = _check_q18(result, keep["q18_agg"])
+    syncs, stats, served = record[0]
+    if stats.whole_plan != 0 or served != [1]:
+        raise AssertionError(f"the faulted WP_Q18 was served by rungs "
+                             f"{served} (whole_plan {stats.whole_plan})")
+    out["wp_q18"]["failpoint"] = {"served_rungs": served, "rows": rows,
+                                  "host_syncs": syncs}
+    _log(f"wp_q18 under parallel.all_to_all=error:times=1: served by the "
+         f"stitched shuffle rung (rung {served}), {rows} rows match the "
+         f"oracle, {syncs} host reads")
+    del table, orders, foreign, chunks, result
+    torch.cuda.empty_cache()
+
+    # WP_WINDOW and its stitched twin MESH_WINDOW over the window table.
+    t0 = time.perf_counter()
+    w_arrays = tpch.window_arrays(WINDOW_ROWS, seed=keep["seed"])
+    w_oracle = tpch.window_oracle(w_arrays)
+    w_table = mesh_api.ShardedTable.from_chunks(
+        mesh, [tpch.window_chunk(w_arrays, device="cuda")])
+    del w_arrays
+    torch.cuda.synchronize()
+    _log(f"mesh: the window table ({WINDOW_ROWS} rows) on the card again in "
+         f"{time.perf_counter() - t0:.1f} s")
+    w_plan = mesh_api.build_query(tpch.WINDOW, {"//t": w_table.schema})
+    w_ranges = ("mesh.count", "mesh.route", "mesh.gather")
+    w_syncs: list = []
+
+    def w_stitched():
+        before = mesh_api.host_sync_count()
+        result = de.run(w_plan, w_table)
+        w_syncs.append(mesh_api.host_sync_count() - before)
+        return result
+
+    out["mesh_window"] = _run_path(
+        "mesh_window", w_stitched, lambda r: _check_window(r, w_oracle),
+        WINDOW_ROWS, hr, rx, w_ranges)
+    out["mesh_window"]["host_syncs"] = w_syncs
+    record = []
+    w_chunks = [w_table.local_chunk()]
+    out["wp_window"] = _run_path(
+        "wp_window", lambda: _ladder_run(mesh_api, w_plan, mesh, w_chunks,
+                                         None, de, record),
+        lambda r: _check_window(r, w_oracle), WINDOW_ROWS, hr, rx,
+        w_ranges + ("mesh.read",))
+    out["wp_window"].update(_whole_summary("wp_window", record))
+    del w_table, w_chunks, de
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1460,7 +1921,22 @@ def _mesh_rank(seed: str, store: str, rank: str) -> int:
         timed(name, lambda plan=plan, kwargs=kwargs: ev.run(
             plan, table, foreign, **kwargs),
             lambda result, c=check, o=oracle: c(result, o))
-    del table, orders, foreign
+    # WHOLE, part (b): the ladder over the same shards, on every rank.
+    de = mesh_api.DistributedEvaluator(mesh)
+    chunks = [tpch.lineitem_chunk(a, device="cpu") for a in shards]
+    for name, twin in (("wp_q1", "mesh_q1"), ("wp_q18", "mesh_q18"),
+                       ("wp_q3", "mesh_q3p")):
+        query = queries[twin][0]
+        plan = mesh_api.build_query(query, schemas)
+        check, oracle = oracles[twin]
+        record: list = []
+        timed(name, lambda plan=plan, record=record: _ladder_run(
+            mesh_api, plan, mesh, chunks, foreign, de, record),
+            lambda result, c=check, o=oracle: c(result, o))
+        report["paths"][name].update(_whole_summary(name, record))
+    report["paths"]["wp_skew"] = _skewed_group(mesh_api, mesh, seed, rank,
+                                               de)
+    del table, orders, foreign, chunks
     schema = TableSchema.make([("k", "int64"), ("p", "double")])
     s_table = mesh_api.ShardedTable.from_chunks(mesh, [
         ColumnarChunk.from_arrays(schema, {"k": k, "p": p}, device="cpu")
@@ -1481,12 +1957,76 @@ def _mesh_rank(seed: str, store: str, rank: str) -> int:
     timed("mesh_sort", lambda: mesh_api.sort_table(s_table, ["k"]),
           check_sort)
     for name, r in report["paths"].items():
-        if name != "mesh_q1" and min(r["launches"].values()) <= 0:
+        if name not in ("mesh_q1", "wp_q1", "wp_skew") and \
+                min(r["launches"].values()) <= 0:
             raise AssertionError(f"{name} (rank {rank}) launched "
                                  f"{r['launches']}")
     mesh_api.destroy_mesh()
     print(json.dumps(report), flush=True)
     return 0
+
+
+SKEW_HOT_SHARE = 0.9         # share of the skewed table's rows on key 7
+SKEW_QUERY = ("g, cardinality(v) AS d, count(*) AS c FROM [//t] "
+              "GROUP BY g")
+
+
+def _skewed_group(mesh_api, mesh, seed: int, rank: int, de) -> dict:
+    """A GROUP BY whose keys are skewed (SKEW_HOT_SHARE of each shard's
+    rows on one key) through coordinate_distributed: cardinality routes
+    the rows (exchange-rows), so the hot key's cell overflows the first
+    quota; the query re-runs at the demand, and the second run, with the
+    settled quota, does not. Both against a numpy oracle."""
+    import numpy as np
+    from ytsaurus_tpu_torch.chunks.columnar import ColumnarChunk
+    from ytsaurus_tpu_torch.schema import TableSchema
+    schema = TableSchema.make([("k", "int64", "ascending"), ("g", "int64"),
+                               ("v", "int64")])
+    arrays = []
+    for s in range(MESH_WORLD):
+        rng = np.random.default_rng(seed + 200 + s)
+        g = np.where(rng.uniform(size=MESH_SHARD_ROWS) < SKEW_HOT_SHARE, 7,
+                     rng.integers(0, 1024, MESH_SHARD_ROWS))
+        arrays.append({"k": np.arange(MESH_SHARD_ROWS) + s * MESH_SHARD_ROWS,
+                       "g": g, "v": rng.integers(0, 1000, MESH_SHARD_ROWS)})
+    g = np.concatenate([a["g"] for a in arrays])
+    v = np.concatenate([a["v"] for a in arrays])
+    want_c = np.bincount(g, minlength=1024)
+    want_d = np.bincount(np.unique(g * 1000 + v) // 1000, minlength=1024)
+    chunks = [ColumnarChunk.from_arrays(schema, a, device="cpu")
+              for a in arrays]
+    plan = mesh_api.build_query(SKEW_QUERY, {"//t": schema})
+    record: list = []
+    rows = []
+    times = []
+    for _ in range(2):
+        t = time.perf_counter()
+        result = _ladder_run(mesh_api, plan, mesh, chunks, None, de, record)
+        times.append((time.perf_counter() - t) * 1e3)
+        got = {r["g"]: (r["d"], r["c"]) for r in result.to_rows()}
+        if got != {int(key): (int(want_d[key]), int(want_c[key]))
+                   for key in np.flatnonzero(want_c)}:
+            raise AssertionError(f"WP_SKEW (rank {rank}) differs from the "
+                                 "oracle")
+        rows.append(len(got))
+    (syncs0, stats0, served0), (syncs1, stats1, served1) = record
+    if stats0.whole_plan_retries < 1 or stats1.whole_plan_retries != 0 or \
+            served0 != [0] or served1 != [0] or syncs1 != 1:
+        raise AssertionError(
+            f"WP_SKEW (rank {rank}): re-runs {stats0.whole_plan_retries} "
+            f"then {stats1.whole_plan_retries}, rungs {served0} "
+            f"{served1}, host reads {syncs0} then {syncs1}")
+    entry0 = stats0.mesh_blocks[-1]["exchanges"][0]
+    entry1 = stats1.mesh_blocks[-1]["exchanges"][0]
+    return {"rows_out": rows[0], "launches": {}, "ms_runs": times,
+            "median_ms": statistics.median(times),
+            "host_syncs": [syncs0, syncs1],
+            "retries": [stats0.whole_plan_retries,
+                        stats1.whole_plan_retries],
+            "quota": [entry0["quota"], entry1["quota"]],
+            "demand": [entry0["demand"], entry1["demand"]],
+            "skew": [stats0.mesh_blocks[-1]["skew"],
+                     stats1.mesh_blocks[-1]["skew"]]}
 
 
 def phase_mesh_ranks(seed: int, tmp: str) -> dict:
@@ -1799,7 +2339,7 @@ def main() -> int:
 
     # 4. the slice: the queries, then the Sort operation and MVCC reads,
     # the mesh paths, and the spill sort
-    keep: dict = {}
+    keep: dict = {"seed": args.seed}
     paths = phase_slice(args.seed, hr, rx, tpch, select_rows, keep)
     paths.update(phase_strings(args.seed, hr, rx, synthetic, select_rows))
     vec = phase_vector(hr, rx, synthetic, vector, select_rows)
@@ -1807,6 +2347,7 @@ def main() -> int:
     port = _port_entry_points()
     paths["sort"] = phase_sort(args.seed, hr, rx, port, keep)
     paths["tablet"] = phase_tablet(args.seed, hr, rx, port)
+    paths.update(phase_select(args.seed, hr, rx, tpch, port, keep))
     paths.update(phase_mesh(hr, rx, tpch, keep))
     keep.clear()
     with tempfile.TemporaryDirectory() as tmp:

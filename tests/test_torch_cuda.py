@@ -528,3 +528,108 @@ def test_sort_table_over_nccl_matches_the_cpu(nccl_mesh):
     want = sort_chunk(chunk, ["k"], device="cpu")
     assert out.row_counts == [300_000]
     assert out.local_chunk().to_rows() == want.to_rows()
+
+
+SELECT_QUERY = ("g, sum(v) AS s, count(*) AS c FROM [//t] WHERE v < 900 "
+                "GROUP BY g")
+
+
+def _select_arrays(n_chunks: int = 8, rows: int = 20_000) -> list:
+    """SELECT_8's columns at a small size: k arange, g in [0, 10000), v in
+    [0, 1000), per chunk."""
+    rng = np.random.default_rng(8)
+    return [{"k": np.arange(rows) + i * rows,
+             "g": rng.integers(0, 10_000, rows),
+             "v": rng.integers(0, 1000, rows)} for i in range(n_chunks)]
+
+
+def _select_chunks(device) -> list:
+    from ytsaurus_tpu_torch.chunks.columnar import ColumnarChunk
+    from ytsaurus_tpu_torch.schema import TableSchema
+    schema = TableSchema.make([("k", "int64", "ascending"), ("g", "int64"),
+                               ("v", "int64")])
+    return [ColumnarChunk.from_arrays(schema, a, device=device)
+            for a in _select_arrays()]
+
+
+def test_multi_chunk_select_on_the_card_matches_the_cpu(cuda_device):
+    """SELECT_8's query over 8 chunks through coordinate_and_execute: the
+    card's groups are the CPU's, the counts read once for all shards."""
+    from ytsaurus_tpu_torch.query.builder import build_query
+    from ytsaurus_tpu_torch.query.coordinator import coordinate_and_execute
+    from ytsaurus_tpu_torch.query.engine import evaluator as ev
+    cpu_chunks = _select_chunks("cpu")
+    plan = build_query(SELECT_QUERY, {"//t": cpu_chunks[0].schema})
+    rx.reset_launches()
+    before = ev.count_reads()
+    got = coordinate_and_execute(plan, _select_chunks(cuda_device),
+                                 evaluator=ev.Evaluator(cuda_device))
+    torch.cuda.synchronize()
+    assert ev.count_reads() - before == 2
+    assert rx.launches["radix_upsweep"] > 0
+    want = coordinate_and_execute(plan, cpu_chunks,
+                                  evaluator=ev.Evaluator("cpu"))
+
+    def key(r):
+        return r["g"]
+    _rows_match(sorted(got.to_rows(), key=key),
+                sorted(want.to_rows(), key=key))
+
+
+def test_prefetch_stages_onto_the_evaluators_device(cuda_device):
+    """A lazy shard that stages onto "cuda" lands on the evaluator's card
+    (the last one, when there are several), not on cuda:0: the prefetch
+    thread names the device."""
+    from ytsaurus_tpu_torch.chunks.columnar import ColumnarChunk
+    from ytsaurus_tpu_torch.query.builder import build_query
+    from ytsaurus_tpu_torch.query.coordinator import coordinate_and_execute
+    from ytsaurus_tpu_torch.query.engine.evaluator import Evaluator
+    from ytsaurus_tpu_torch.schema import TableSchema
+    device = torch.device("cuda", torch.cuda.device_count() - 1)
+    schema = TableSchema.make([("k", "int64", "ascending"), ("g", "int64"),
+                               ("v", "int64")])
+    seen = []
+
+    def stage(arrays):
+        seen.append(torch.cuda.current_device())
+        return ColumnarChunk.from_arrays(schema, arrays, device="cuda")
+
+    plan = build_query(SELECT_QUERY, {"//t": schema})
+    got = coordinate_and_execute(
+        plan, [(lambda a=a: stage(a)) for a in _select_arrays(4, 5000)],
+        evaluator=Evaluator(device))
+    assert seen == [device.index] * 4
+    assert sum(r["c"] for r in got.to_rows()) > 0
+
+
+def test_whole_plan_q18_over_nccl_matches_the_cpu(nccl_mesh):
+    """WP_Q18 at a small size: Q18_AGG through coordinate_distributed at
+    world size 1 over NCCL, served by the whole-plan rung (exchange-states)
+    at one host read, equal to the CPU port's local evaluator."""
+    from ytsaurus_tpu_torch.chunks.columnar import chunk_from_numpy
+    from ytsaurus_tpu_torch.models import tpch
+    from ytsaurus_tpu_torch.parallel.distributed import (
+        DistributedEvaluator,
+        coordinate_distributed,
+        host_sync_count,
+    )
+    from ytsaurus_tpu_torch.query.builder import build_query
+    from ytsaurus_tpu_torch.query.statistics import QueryStatistics
+    tables = {p: _spec(c) for p, c in _q3_tables().items()}
+    lineitem = chunk_from_numpy(**tables["//tpch/lineitem"], device="cpu")
+    plan = build_query(tpch.Q18_AGG, {"//tpch/lineitem": lineitem.schema})
+    de = DistributedEvaluator(nccl_mesh)
+    want = _run_on("cpu", tpch.Q18_AGG, {
+        "//tpch/lineitem": tables["//tpch/lineitem"]}).to_rows()
+    for _ in range(2):
+        stats = QueryStatistics()
+        before = host_sync_count()
+        rx.reset_launches()
+        got = coordinate_distributed(plan, nccl_mesh, [lineitem],
+                                     evaluator=de, stats=stats).to_rows()
+        torch.cuda.synchronize()
+        assert stats.whole_plan == 1
+        assert host_sync_count() - before == 1 + stats.whole_plan_retries
+        assert rx.launches["radix_onesweep"] > 0
+        _rows_match(got, want)
+    assert stats.whole_plan_retries == 0

@@ -54,24 +54,30 @@ torch.set_num_threads(1)
 # --- the ranks ----------------------------------------------------------------
 
 _WORKER = (
-    "import sys\n"
+    "import os, sys\n"
+    "os.nice(5)\n"
     "sys.modules['jax'] = None\n"
     "sys.modules['ytsaurus_tpu'] = None\n"
     f"sys.path.insert(0, {ROOT!r})\n"
-    "from tests.test_torch_distributed import _worker\n"
+    "from {module} import _worker\n"
     "_worker(*sys.argv[1:])\n")
 
 
-def _spawn_ranks(jobs: list, tmp_dir, world: int = WORLD) -> list:
-    """Run `jobs` on `world` fresh gloo ranks; each rank's results by job
-    name, in rank order."""
+def _spawn_ranks(jobs: list, tmp_dir, world: int = WORLD,
+                 module: str = "tests.test_torch_distributed") -> list:
+    """Run `jobs` on `world` fresh gloo ranks, each through `_worker` of
+    `module`; each rank's results by job name, in rank order. The ranks
+    run at a lower CPU priority (nice 5), so that their eight processes
+    yield to the test processes beside them, the CPU-timed ones among
+    them."""
     inpath = os.path.join(tmp_dir, "jobs.pkl")
     with open(inpath, "wb") as f:
         pickle.dump(jobs, f)
     store = os.path.join(tmp_dir, "store")
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
-        [sys.executable, "-c", _WORKER, str(rank), str(world), store, inpath,
+        [sys.executable, "-c", _WORKER.format(module=module), str(rank),
+         str(world), store, inpath,
          os.path.join(tmp_dir, f"out{rank}.pkl")],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for rank in range(world)]
@@ -93,8 +99,10 @@ def _spawn_ranks(jobs: list, tmp_dir, world: int = WORLD) -> list:
     return results
 
 
-def _worker(rank, world, store, inpath, outpath) -> None:
+def _worker(rank, world, store, inpath, outpath, run_job=None) -> None:
+    """One rank: runs every job through `run_job` (default `_run_job`)."""
     from ytsaurus_tpu_torch.parallel.mesh import destroy_mesh, make_mesh
+    run_job = run_job or _run_job
     mesh = make_mesh("cpu", init_method=f"file://{store}", rank=int(rank),
                      world_size=int(world),
                      timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
@@ -103,7 +111,7 @@ def _worker(rank, world, store, inpath, outpath) -> None:
     results = {}
     for job in jobs:
         try:
-            results[job["name"]] = _run_job(mesh, job)
+            results[job["name"]] = run_job(mesh, job)
         except Exception as err:  # noqa: BLE001 — reported by the test
             results[job["name"]] = {"error": f"{type(err).__name__}: {err}"}
     with open(outpath, "wb") as f:
@@ -123,11 +131,13 @@ def _run_job(mesh, job: dict) -> dict:
     from ytsaurus_tpu_torch.parallel.distributed import (
         DistributedEvaluator,
         ShardedTable,
+        coordinate_distributed,
         host_sync_count,
     )
     from ytsaurus_tpu_torch.parallel.mesh import Mesh
     from ytsaurus_tpu_torch.parallel.shuffle import sort_table
     from ytsaurus_tpu_torch.query.builder import build_query
+    from ytsaurus_tpu_torch.query.statistics import QueryStatistics
     from ytsaurus_tpu_torch.schema import TableSchema
 
     if len(job["shards"]) == 1 and mesh.size > 1:
@@ -135,8 +145,8 @@ def _run_job(mesh, job: dict) -> dict:
         groups = [dist.new_group([r]) for r in range(mesh.size)]
         mesh = Mesh(group=groups[mesh.rank], rank=0, size=1,
                     device=mesh.device, backend=mesh.backend)
-    table = ShardedTable.from_chunks(
-        mesh, [_port_chunk(d) for d in job["shards"]])
+    shards = [_port_chunk(d) for d in job["shards"]]
+    table = ShardedTable.from_chunks(mesh, shards)
     if job["kind"] == "sort":
         out = sort_table(table, job["keys"], job.get("descending", False))
         return {"rows": out.local_chunk().to_rows(),
@@ -150,9 +160,15 @@ def _run_job(mesh, job: dict) -> dict:
         foreign = {p: _port_chunk(d) for p, d in run["foreign"].items()}
         plan = build_query(run["query"], schemas)
         before = host_sync_count()
-        rows = ev.run(plan, table, foreign or None,
-                      **run["kwargs"]).to_rows()
-        runs.append({"rows": rows, "syncs": host_sync_count() - before})
+        stats = QueryStatistics()
+        if run.get("ladder"):
+            rows = coordinate_distributed(plan, mesh, shards, foreign or None,
+                                          evaluator=ev, stats=stats).to_rows()
+        else:
+            rows = ev.run(plan, table, foreign or None,
+                          **run["kwargs"]).to_rows()
+        runs.append({"rows": rows, "syncs": host_sync_count() - before,
+                     "whole_plan": stats.whole_plan})
     return {"runs": runs}
 
 
@@ -675,7 +691,9 @@ def test_join_host_reads(ranks):
 def test_mesh_of_two_runs_with_jax_blocked(tmp_path):
     """Two fresh ranks (jax and the JAX package blocked) import the mesh
     modules and the coordinator and run a Q18 aggregation over the port's
-    own TPC-H generator, each rank with the same rows as the port's local
+    own TPC-H generator, once through the stitched shuffle and once
+    through `coordinate_distributed` (served by the whole-plan rung with
+    one host read), each rank with the same rows as the port's local
     evaluator over the concatenation."""
     from ytsaurus_tpu_torch.chunks.columnar import concat_chunks
     from ytsaurus_tpu_torch.models import tpch
@@ -687,13 +705,19 @@ def test_mesh_of_two_runs_with_jax_blocked(tmp_path):
            "shards": [_port_numpy(c) for c in chunks],
            "runs": [{"query": tpch.Q18_AGG, "kwargs": {"shuffle": True},
                      "schemas": {LINEITEM: _spec(chunks[0].schema)},
+                     "foreign": {}},
+                    {"query": tpch.Q18_AGG, "kwargs": {}, "ladder": True,
+                     "schemas": {LINEITEM: _spec(chunks[0].schema)},
                      "foreign": {}}]}
     results = _spawn_ranks([job], str(tmp_path), world=2)
     want = select_rows(tpch.Q18_AGG, {LINEITEM: concat_chunks(chunks)},
                        device="cpu").to_rows()
     for result in results:
         assert "error" not in result["q18"], result["q18"]
-        assert result["q18"]["runs"][0]["rows"] == want
+        stitched, ladder = result["q18"]["runs"]
+        assert stitched["rows"] == want
+        assert ladder["rows"] == want
+        assert ladder["whole_plan"] == 1 and ladder["syncs"] == 1
 
 
 def _port_numpy(chunk) -> dict:

@@ -310,9 +310,11 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
     join, window and planner modules; so do a `sort_chunk`, an
     `external_sort` that partitions, an MVCC `visible_chunk`, the FUNCS
     query, the STRINGS query with LIKE and a regex, a NEAREST query and
-    `batched_nearest`; the mesh modules and the coordinator import, and
-    `split_plan` splits Q1 (tests/test_torch_distributed.py runs the mesh
-    on ranks with both blocked)."""
+    `batched_nearest`; the mesh modules, the whole-plan rung, the mesh
+    observatory, the config and the utilities import, `split_plan` splits
+    Q1 and `coordinate_and_execute` runs it over two lazy shards
+    (tests/test_torch_distributed.py runs the mesh and the ladder on ranks
+    with both blocked)."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -396,6 +398,25 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
         bottom, front = coordinator.split_plan(build_query(
             tpch.Q1, {"//tpch/lineitem": chunk.schema}))
         assert front.group is not None and bottom.order is None
+        from ytsaurus_tpu_torch import config  # noqa: F401
+        from ytsaurus_tpu_torch.parallel import mesh_observatory  # noqa: F401
+        from ytsaurus_tpu_torch.parallel import whole_plan  # noqa: F401
+        from ytsaurus_tpu_torch.query import parameterize, serving  # noqa: F401
+        from ytsaurus_tpu_torch.query import statistics  # noqa: F401
+        from ytsaurus_tpu_torch.utils import (  # noqa: F401
+            failpoints, logging, profiling, sanitizers, tracing)
+        from ytsaurus_tpu_torch.query.engine.evaluator import Evaluator
+        halves = [tpch.lineitem_chunk(
+            tpch.lineitem_arrays(1024, seed=s, n_orders=128), device="cpu")
+            for s in (9, 10)]
+        multi = coordinator.coordinate_and_execute(
+            build_query(tpch.Q1, {"//tpch/lineitem": chunk.schema}),
+            [(lambda c=c: c) for c in halves], evaluator=Evaluator("cpu"))
+        from ytsaurus_tpu_torch.chunks.columnar import concat_chunks
+        single = select_rows(tpch.Q1, {"//tpch/lineitem": concat_chunks(
+            halves)}, device="cpu")
+        assert sorted(r["count_order"] for r in multi.to_rows()) == \
+            sorted(r["count_order"] for r in single.to_rows())
         assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                              if v is not None}
         print("ok", len(rows))

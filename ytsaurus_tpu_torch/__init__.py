@@ -21,7 +21,14 @@ It runs QL queries over columnar chunks on one device:
   - query/engine — expression binding, plan lowering, joins, window
     functions, the evaluator (with WITH TOTALS);
   - models/tpch.py — lineitem and orders, Q1, Q3, the Q18 aggregation
-    and the window workload.
+    and the window workload;
+  - query/coordinator.py — selects over many chunks
+    (`coordinate_and_execute`);
+  - parallel/ — the mesh over torch.distributed, the stitched paths, the
+    whole-plan rung, the degradation ladder (`coordinate_distributed`)
+    and the mesh observatory;
+  - config.py, utils/ — the knobs, failpoints, trace spans and sensors
+    those read.
 
 Every entry point takes `device=`, which defaults to "cuda" and raises
 when no card is present (see device.py).

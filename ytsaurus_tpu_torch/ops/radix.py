@@ -58,7 +58,10 @@ def reset_launches() -> None:
 
 
 def _fail(msg: str) -> YtError:
-    return YtError(msg, code=EErrorCode.QueryExecutionError)
+    """A fault of the radix kernels or their wrappers; the `kernel`
+    attribute keeps the degradation ladder from hiding it."""
+    return YtError(msg, code=EErrorCode.QueryExecutionError,
+                   attributes={"kernel": "radix"})
 
 
 def _int32_bits(x: torch.Tensor) -> torch.Tensor:

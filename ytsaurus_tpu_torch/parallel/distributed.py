@@ -55,16 +55,25 @@ it). The engine's own reads inside a shard's query (the radix sort's
 histograms, the top-k's tie check) are not mesh reads and are not counted,
 as the reference's XLA programs have none.
 
+The paths above are the stitched rungs of `coordinate_distributed`, the
+degradation ladder: the whole-plan rung (parallel/whole_plan.py: one
+mesh-layer host read per query), then the stitched shuffle, then the
+gather merge, then the host coordinator (query/coordinator.py) over the
+shards on each rank. The stitched rungs publish the whole-plan rung's
+mesh telemetry block from host values they already read
+(`_stitched_mesh_block`, path "stitched"). Two fault sites guard the
+collectives: `parallel.all_to_all` (every exchange) and `parallel.gather`
+(every all_gather merge), hit on every rank before the step's first
+collective.
+
 Not applicable, since nothing here is compiled: the SPMD compile ladder
 (`_dispatch_spmd`, `_compile_spmd`, `_observe_compiled`), the AOT disk tier,
-buffer donation, program caches keyed on plan fingerprints. Not ported
-yet: the failpoint sites, the query statistics (`run`'s `stats=`), and the
-stitched mesh telemetry block (`mesh_observatory.py`, with
-`coordinate_distributed`, waits for the whole-plan slice).
+buffer donation, program caches keyed on plan fingerprints.
 """
 
 from __future__ import annotations
 
+import logging
 import weakref
 from dataclasses import dataclass
 from dataclasses import replace as dc_replace
@@ -81,11 +90,22 @@ from ytsaurus_tpu_torch.chunks.columnar import (
     remap_dictionary,
     unified_vocabulary,
 )
+from ytsaurus_tpu_torch.config import compile_config
 from ytsaurus_tpu_torch.device import same_device
 from ytsaurus_tpu_torch.errors import EErrorCode, YtError
 from ytsaurus_tpu_torch.parallel.mesh import Mesh
+from ytsaurus_tpu_torch.parallel.mesh_observatory import (
+    exchange_entry,
+    mesh_armed,
+    mesh_block,
+    publish_mesh,
+    row_bytes,
+)
 from ytsaurus_tpu_torch.query import ir, planner
-from ytsaurus_tpu_torch.query.coordinator import split_plan
+from ytsaurus_tpu_torch.query.coordinator import (
+    coordinate_and_execute,
+    split_plan,
+)
 from ytsaurus_tpu_torch.query.engine.expr import (
     _HASH_SEED,
     BindContext,
@@ -97,6 +117,7 @@ from ytsaurus_tpu_torch.query.engine.expr import (
     _mix_u64,
     bindings_to_device,
 )
+from ytsaurus_tpu_torch.query.engine.evaluator import Evaluator
 from ytsaurus_tpu_torch.query.engine.joins import (
     _bind_keys,
     _comparable_keys,
@@ -108,7 +129,28 @@ from ytsaurus_tpu_torch.query.engine.joins import (
     vocab_remap_slots,
 )
 from ytsaurus_tpu_torch.query.engine.lowering import prepare
+from ytsaurus_tpu_torch.query.parameterize import plan_fingerprint
 from ytsaurus_tpu_torch.schema import EValueType, TableSchema
+from ytsaurus_tpu_torch.utils import failpoints
+from ytsaurus_tpu_torch.utils.logging import get_logger, log_event
+from ytsaurus_tpu_torch.utils.tracing import child_span
+
+_ladder_log = get_logger("Distributed")
+
+
+def _exchange_error(site: str) -> YtError:
+    return YtError(f"injected collective failure at {site}",
+                   code=EErrorCode.QueryExecutionError,
+                   attributes={"failpoint": site})
+
+
+# Collective fault sites: all_to_all guards every exchange, gather every
+# all_gather merge. The degradation ladder steps down a rung when one
+# fails.
+_FP_ALL_TO_ALL = failpoints.register_site("parallel.all_to_all",
+                                          error=_exchange_error)
+_FP_GATHER = failpoints.register_site("parallel.gather",
+                                      error=_exchange_error)
 
 _host_syncs_n = 0
 
@@ -225,8 +267,9 @@ class ShardedTable:
 
 
 def _assemble_chunk(prepared_output, out_planes, out_count) -> ColumnarChunk:
-    """Materialize prepared-query output planes into a ColumnarChunk (one
-    counted host read: the row count)."""
+    """Materialize prepared-query output planes into a ColumnarChunk.
+    `out_count` is the row count already on the host (an int), or a device
+    count read here (one counted host read)."""
     out_columns: dict[str, Column] = {}
     out_schema_cols = []
     for out_col, (data, valid) in zip(prepared_output, out_planes):
@@ -235,7 +278,8 @@ def _assemble_chunk(prepared_output, out_planes, out_count) -> ColumnarChunk:
             type=out_col.type, data=data, valid=valid,
             dictionary=out_col.vocab)
     return ColumnarChunk(schema=TableSchema.make(out_schema_cols),
-                         row_count=int(_host(out_count)),
+                         row_count=out_count if isinstance(out_count, int)
+                         else int(_host(out_count)),
                          columns=out_columns)
 
 
@@ -330,12 +374,28 @@ def _foreign_host_order(cache: dict, join: ir.JoinClause, foreign,
     return _chunk_memo(cache, host_key, foreign, build)
 
 
+def _stitched_mesh_block(stats, plan: ir.Query, n: int, in_rows, out_rows,
+                         exchanges, stages=None) -> None:
+    """The stitched rungs' mesh telemetry: the whole-plan rung's block
+    shape, assembled from host values these rungs already read (no extra
+    device read), published to the same surfaces with path "stitched".
+    The stitched exchange moves exact splits, so each cell is granted
+    exactly its rows: its entries report the demand as the quota."""
+    if not mesh_armed():
+        return
+    publish_mesh(stats, plan_fingerprint(plan),
+                 mesh_block(n, in_rows, out_rows, exchanges, stages=stages,
+                            path="stitched"))
+
+
 class DistributedEvaluator:
     """Runs plans over a ShardedTable on every rank of its mesh."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
         self._cache: dict = {}
+        # Settled exchange quotas per whole-plan shape (whole_plan.py).
+        self._quota_memo: dict = {}
 
     def _check_device(self, chunk: ColumnarChunk) -> None:
         if chunk.columns and not same_device(chunk.device, self.mesh.device):
@@ -345,7 +405,7 @@ class DistributedEvaluator:
 
     def run(self, plan: ir.Query, table: ShardedTable,
             foreign_chunks: Optional[dict] = None,
-            shuffle: Optional[bool] = None) -> ColumnarChunk:
+            shuffle: Optional[bool] = None, stats=None) -> ColumnarChunk:
         """Execute a plan on every rank; every rank gets the same result.
         `shuffle=True` takes the exchange path for GROUP BY (ref
         CoordinateAndExecuteWithShuffle, engine_api/coordinator.h:92):
@@ -361,7 +421,9 @@ class DistributedEvaluator:
           keys co-locate, then each rank joins locally with match
           expansion.
         String keys work on both paths via merged vocabularies. Each rank
-        passes every foreign chunk whole, on the mesh's device."""
+        passes every foreign chunk whole, on the mesh's device. `stats`
+        (query/statistics.QueryStatistics) receives the mesh telemetry
+        block."""
         foreign_chunks = foreign_chunks or {}
         for chunk in foreign_chunks.values():
             self._check_device(chunk)
@@ -375,7 +437,7 @@ class DistributedEvaluator:
                 plan, table, foreign_chunks)
             if join_setup is None:
                 return self._run_partitioned(plan, table, foreign_chunks,
-                                             bool(shuffle))
+                                             bool(shuffle), stats=stats)
         columns = {name: (col.data, col.valid)
                    for name, col in table.columns.items()}
         if plan.window is not None and plan.window.partition_items and \
@@ -385,15 +447,18 @@ class DistributedEvaluator:
             # windows locally. shuffle=False forces the gather merge (the
             # front recomputes the window over the gathered rows).
             return self._finish_shuffled(plan, columns, table.row_valid,
-                                         _rep(table.columns), table.capacity)
+                                         _rep(table.columns), table.capacity,
+                                         stats, list(table.row_counts))
         if shuffle and plan.group is not None and not plan.group.totals:
             return self._finish_shuffled(plan, columns, table.row_valid,
-                                         _rep(table.columns), table.capacity)
+                                         _rep(table.columns), table.capacity,
+                                         stats, list(table.row_counts))
         rep_columns = _rep(table.columns) if join_setup is None \
             else join_setup.rep_columns
         return self._finish_gather(plan, columns, table.row_valid,
                                    rep_columns, table.capacity,
-                                   join_setup=join_setup)
+                                   join_setup=join_setup, stats=stats,
+                                   in_rows=list(table.row_counts))
 
     def _gather(self, output, planes, count):
         """Every rank's compacted rows: the planes all_gathered into
@@ -410,12 +475,15 @@ class DistributedEvaluator:
 
     def _finish_gather(self, plan: ir.Query, columns: dict, row_valid,
                        rep_columns: dict, cap: int,
-                       join_setup: Optional[_JoinSetup] = None
-                       ) -> ColumnarChunk:
+                       join_setup: Optional[_JoinSetup] = None,
+                       stats=None, in_rows=None) -> ColumnarChunk:
         """Bottom per shard + all_gather front merge over bare planes —
         run()'s tail for both the no-join and broadcast-join shapes, and
         after a partitioned join has replaced the table planes. With
-        join_setup, the broadcast probe runs ahead of the bottom query."""
+        join_setup, the broadcast probe runs ahead of the bottom query.
+        Its telemetry block has the shards' input rows as both spreads
+        (the rung's only per-shard cardinality the host holds)."""
+        _FP_GATHER.hit()
         device = self.mesh.device
         bottom, front = split_plan(plan)
         prepared_b = prepare(bottom, _RepChunk(capacity=cap,
@@ -433,10 +501,14 @@ class DistributedEvaluator:
                                      for c in prepared_b.output},
             device=device))
         out_planes, out_count = prepared_f.run(gathered, g_mask)
-        return _assemble_chunk(prepared_f.output, out_planes, out_count)
+        out = _assemble_chunk(prepared_f.output, out_planes, out_count)
+        if in_rows is not None:
+            _stitched_mesh_block(stats, plan, self.mesh.size, in_rows,
+                                 in_rows, [])
+        return out
 
     def _run_partitioned(self, plan: ir.Query, table: ShardedTable,
-                         foreign_chunks: dict, shuffle: bool
+                         foreign_chunks: dict, shuffle: bool, stats=None
                          ) -> ColumnarChunk:
         """Partitioned hash join: route BOTH sides of each join by
         join-key hash over one exchange so equal keys co-locate, then
@@ -452,9 +524,13 @@ class DistributedEvaluator:
             route_rows,
             transfer_counts,
         )
+        _FP_ALL_TO_ALL.hit()
         mesh = self.mesh
         n, me, device = mesh.size, mesh.rank, mesh.device
         cur_cap = table.capacity
+        mesh_exchanges: list = []
+        mesh_stages: list = []
+        mesh_out_rows = list(table.row_counts)
         columns = {name: (col.data, col.valid)
                    for name, col in table.columns.items()}
         # Only planes the plan reads ride the exchange.
@@ -467,7 +543,7 @@ class DistributedEvaluator:
                      for name, col in table.columns.items()}
         rep_columns = _rep(table.columns)
 
-        for join in plan.joins:
+        for join_index, join in enumerate(plan.joins):
             foreign = foreign_chunks.get(join.foreign_table)
             if foreign is None:
                 raise YtError(
@@ -530,6 +606,15 @@ class DistributedEvaluator:
                 pid_f = dest(keys(f_bound, foreign_slots, f_cols, f_slice),
                              f_valid, False)
                 counts_s, counts_f = transfer_counts(mesh, pid_s, pid_f)
+            for side, counts, reps in (
+                    ("self", counts_s, {name: rep_columns[name]
+                                        for name in columns}),
+                    ("foreign", counts_f, _rep({
+                        name: foreign.columns[name] for name in f_cols}))):
+                demand = int(counts.max())
+                mesh_exchanges.append(exchange_entry(
+                    f"join[{join_index}]/{side}", None, demand, demand,
+                    row_bytes(reps)))
             recv_s, mask_s = route_rows(mesh, columns, pid_s, counts_s)
             recv_f, mask_f = route_rows(mesh, f_cols, pid_f, counts_f)
             del pid_s, pid_f, f_cols
@@ -553,6 +638,11 @@ class DistributedEvaluator:
                 offsets = torch.cumsum(per_row, 0)
                 totals = _host(mesh.all_gather(offsets[-1:]))
                 out_cap = pad_capacity(max(int(totals.max()), 1))
+                mesh_out_rows = [int(t) for t in totals.reshape(-1)]
+                mesh_stages.append({
+                    "stage": join_index, "table": join.foreign_table,
+                    "strategy": "partition", "est_rows": 0,
+                    "actual_rows": int(totals.sum()), "drift": 0.0})
                 columns, row_valid = _expand(
                     recv_s, recv_f, flat_names, per_row, offsets,
                     int(totals[me]), out_cap, lo, counts, f_order)
@@ -564,6 +654,9 @@ class DistributedEvaluator:
                 rep_columns[flat] = _RepColumn(type=fcol.type,
                                                dictionary=fcol.dictionary)
 
+        _stitched_mesh_block(stats, plan, n, list(table.row_counts),
+                             mesh_out_rows, mesh_exchanges,
+                             stages=mesh_stages)
         plan_nojoin = dc_replace(plan, joins=())
         if needed is not None:
             # The finish stages bind every schema column; drop the ones
@@ -573,15 +666,19 @@ class DistributedEvaluator:
         if plan_nojoin.window is not None and \
                 plan_nojoin.window.partition_items and shuffle:
             return self._finish_shuffled(plan_nojoin, columns, row_valid,
-                                         rep_columns, cur_cap)
+                                         rep_columns, cur_cap, stats,
+                                         mesh_out_rows)
         if shuffle and plan.group is not None and not plan.group.totals:
             return self._finish_shuffled(plan_nojoin, columns, row_valid,
-                                         rep_columns, cur_cap)
+                                         rep_columns, cur_cap, stats,
+                                         mesh_out_rows)
         return self._finish_gather(plan_nojoin, columns, row_valid,
-                                   rep_columns, cur_cap)
+                                   rep_columns, cur_cap, stats=stats,
+                                   in_rows=mesh_out_rows)
 
     def _finish_shuffled(self, plan: ir.Query, columns: dict, row_valid,
-                         rep_columns: dict, cap: int) -> ColumnarChunk:
+                         rep_columns: dict, cap: int, stats=None,
+                         in_rows=None) -> ColumnarChunk:
         """Key-hash exchange finish, shared by two stage shapes:
 
         - GROUP BY (route by group key): every rank owns complete groups,
@@ -590,11 +687,13 @@ class DistributedEvaluator:
           complete partitions, so the window stage is exact per rank.
 
         Only order/project/offset/limit merge at the front. Operates on
-        bare planes so it also finishes partitioned-join outputs."""
+        bare planes so it also finishes partitioned-join outputs. Its
+        telemetry block carries the transfer matrix the exchange read."""
         from ytsaurus_tpu_torch.parallel.shuffle import (
             route_rows,
             transfer_counts,
         )
+        _FP_ALL_TO_ALL.hit()
         mesh = self.mesh
         n, device = mesh.size, mesh.device
         key_items = plan.window.partition_items if plan.window is not None \
@@ -640,7 +739,17 @@ class DistributedEvaluator:
                                      for c in prepared_local.output},
             device=device))
         out_planes, out_count = prepared_front.run(gathered, g_mask)
-        return _assemble_chunk(prepared_front.output, out_planes, out_count)
+        out = _assemble_chunk(prepared_front.output, out_planes, out_count)
+        demand = int(counts.max())
+        entry = exchange_entry(
+            "shuffle/stitched", counts.reshape(-1), demand, demand,
+            row_bytes({name: rep_columns[name] for name in columns}))
+        _stitched_mesh_block(
+            stats, plan, n,
+            in_rows if in_rows is not None
+            else [int(r) for r in counts.sum(axis=1)],
+            [int(r) for r in counts.sum(axis=0)], [entry])
+        return out
 
     def _prepare_joins(self, plan: ir.Query, table: ShardedTable,
                        foreign_chunks: dict) -> Optional[_JoinSetup]:
@@ -749,3 +858,123 @@ def _expand(recv_s: dict, recv_f: dict, flat_names, per_row, offsets,
         d, v = recv_f[fname]
         out[flat] = (d[f_row], v[f_row] & live & matched)
     return out, live
+
+
+def _is_port_fault(err: BaseException) -> bool:
+    """A fault no rung may hide: a kernel that did not build (`_build`
+    raises InvalidConfig, as does a device that is absent) or did not
+    launch (the `kernel` attribute of the wrappers' errors), or a CUDA
+    error."""
+    if isinstance(err, YtError):
+        return err.code == EErrorCode.InvalidConfig or \
+            "kernel" in err.attributes
+    return isinstance(err, RuntimeError) and "CUDA" in str(err)
+
+
+def _on_device(chunk: ColumnarChunk, device: torch.device) -> ColumnarChunk:
+    if not chunk.columns or same_device(chunk.device, device):
+        return chunk
+    return ColumnarChunk(
+        schema=chunk.schema, row_count=chunk.row_count,
+        columns={name: dc_replace(col, data=col.data.to(device),
+                                  valid=col.valid.to(device))
+                 for name, col in chunk.columns.items()},
+        sorted_by=chunk.sorted_by)
+
+
+def coordinate_distributed(plan: ir.Query, mesh: Mesh,
+                           chunks: Sequence,
+                           foreign_chunks: Optional[dict] = None,
+                           evaluator: Optional[DistributedEvaluator] = None,
+                           stats=None) -> ColumnarChunk:
+    """Distributed execution with a degradation ladder:
+
+        whole-plan  →  stitched shuffle  →  gather merge  →  host
+                                                              coordinator
+
+    Every rank calls it with the same arguments (all the shards, each
+    chunk on any device, and the foreign chunks on the mesh's device) and
+    gets the same result. Each rung trades speed for fewer moving parts:
+    the whole-plan rung (parallel/whole_plan.py, gated by `can_fuse` and
+    `CompileConfig.whole_plan`) reads the host once; the stitched shuffle
+    needs every exchange; the gather merge only the all_gather; the host
+    coordinator no collective at all (each rank runs every shard on its
+    own device, with the per-shard retry of query/coordinator.py). A fault
+    on one rung degrades to the next, one span per rung (tagged with its
+    `rung`); when every rung fails, the error aggregates theirs. A fault
+    of the port itself (`_is_port_fault`: a kernel that did not build or
+    launch, a CUDA error) is raised, never degraded. Ref: the coordinator
+    falling back from CoordinateAndExecuteWithShuffle to
+    CoordinateAndExecute (engine_api/coordinator.h:92)."""
+    from ytsaurus_tpu_torch.parallel.whole_plan import can_fuse, run_whole_plan
+
+    errors: "list[YtError]" = []
+    de = evaluator if evaluator is not None else DistributedEvaluator(mesh)
+    table = None
+    if len(chunks) == mesh.size and all(not callable(c) for c in chunks):
+        try:
+            table = ShardedTable.from_chunks(mesh, list(chunks))
+        except YtError:
+            table = None        # ragged shards: the host rung takes them
+    if table is not None:
+        if compile_config().whole_plan and can_fuse(plan) is None:
+            try:
+                with child_span("distributed.whole_plan", rung=0,
+                                shards=len(chunks)):
+                    return run_whole_plan(de, plan, table, stats=stats,
+                                          foreign_chunks=foreign_chunks)
+            except Exception as err:   # noqa: BLE001 — the rung degrades
+                # on any fault of its own (the reference's contract), but
+                # not on one of the port's kernels or of the card.
+                if _is_port_fault(err):
+                    raise
+                if not isinstance(err, YtError):
+                    err = YtError(f"whole-plan execution failed: {err!r}",
+                                  code=EErrorCode.QueryExecutionError)
+                errors.append(err)
+                log_event(_ladder_log, logging.WARNING,
+                          "degrade_to_stitched", error=str(err))
+        shuffled_shape = (plan.group is not None and not plan.group.totals) \
+            or (plan.window is not None and bool(plan.window.partition_items))
+        if shuffled_shape and not plan.joins:
+            try:
+                with child_span("distributed.shuffle", rung=1,
+                                shards=len(chunks)):
+                    return de.run(plan, table, foreign_chunks,
+                                  shuffle=True, stats=stats)
+            except YtError as err:
+                if _is_port_fault(err):
+                    raise
+                errors.append(err)
+                log_event(_ladder_log, logging.WARNING,
+                          "degrade_to_gather", error=str(err))
+        try:
+            with child_span("distributed.gather_merge", rung=2,
+                            shards=len(chunks)):
+                return de.run(plan, table, foreign_chunks, shuffle=False,
+                              stats=stats)
+        except YtError as err:
+            if _is_port_fault(err):
+                raise
+            errors.append(err)
+            log_event(_ladder_log, logging.WARNING,
+                      "degrade_to_host", error=str(err))
+    host_evaluator = Evaluator(mesh.device)
+    shards = [c if callable(c) else
+              (c if not c.columns or same_device(c.device,
+                                                 host_evaluator.device)
+               else (lambda c=c: _on_device(c, host_evaluator.device)))
+              for c in chunks]
+    try:
+        with child_span("distributed.host_coordinate", rung=3,
+                        shards=len(chunks)):
+            return coordinate_and_execute(plan, shards, foreign_chunks,
+                                          evaluator=host_evaluator,
+                                          stats=stats)
+    except YtError as err:
+        if not errors or _is_port_fault(err):
+            raise
+        raise YtError(
+            "distributed query failed on every rung of the degradation "
+            "ladder", code=EErrorCode.QueryExecutionError,
+            inner_errors=[*errors, err]) from err

@@ -15,15 +15,19 @@ partition_sort_job.cpp merging):
   partition_sort heap merge per partition `sort_chunk` per rank (the radix
                                           kernels on the card)
 
-The exchange (`transfer_counts`, `route_rows`) is the mesh paths' one way
-of moving rows: every rank's (n,) send counts are all_gathered into the
-(n_src, n_dst) transfer matrix, which is read to the host once, and each
-plane then crosses in one `all_to_all_single` with exact split sizes. The
-reference's fixed quota blocks and multi-round drain exist for XLA's
-static shapes and have no counterpart; the receive capacity is the
-reference's, the `pad_capacity` of the largest column sum. Rows arrive
-source-major, each source's in its local order, so a stable local sort
-gives the reference's order among equal keys.
+The stitched exchange (`transfer_counts`, `route_rows`) moves rows of the
+stitched mesh paths: every rank's (n,) send counts are all_gathered into
+the (n_src, n_dst) transfer matrix, which is read to the host once, and
+each plane then crosses in one `all_to_all_single` with exact split
+sizes; the receive capacity is the `pad_capacity` of the largest column
+sum. The whole-plan rung's exchange (`cell_counts`, `route_rows_quota`)
+is the reference's static-quota form and reads nothing: each
+destination's rows go into a fixed block of `quota` slots, rows past the
+quota are dropped (the caller sees the overflow in the counts, on the
+device), and each plane crosses in one `all_to_all_single` of n equal
+blocks, padding included. In both, rows arrive source-major, each
+source's in its local order, so a stable local sort gives the reference's
+order among equal keys.
 
 `_encode_key_plane`, `_lex_less_const`, `_partition_ids` and
 `quantile_pivots` also serve the external sort (`ops/bigsort.py`).
@@ -123,14 +127,40 @@ def quantile_pivots(sample_rows: "list[tuple]", n: int,
     return pivots
 
 
+def cell_counts(pid: torch.Tensor, row_valid, n: int) -> torch.Tensor:
+    """This rank's (n,) int64 row counts per destination (`pid` in
+    [0, n) for rows that move; rows outside `row_valid`, when given, move
+    nowhere), on the device (ref shuffle.py `transfer_counts`, the
+    in-program form)."""
+    if row_valid is not None:
+        pid = torch.where(row_valid, pid, n)
+    return torch.stack([(pid == dest).sum() for dest in range(n)]
+                       ).to(torch.int64)
+
+
+def _dest_slots(pid: torch.Tensor, starts: Sequence[int], dump: int,
+                quota=None) -> torch.Tensor:
+    """Each row's slot in a send buffer grouped by destination:
+    `starts[dest]` plus the row's rank among the rows to that destination
+    (a stable count, no sort); `dump` for discards (pid == n) and, given a
+    `quota`, for rows past it."""
+    slot = torch.full_like(pid, dump, dtype=torch.int64)
+    for dest, start in enumerate(starts):
+        hit = pid == dest
+        rank = torch.cumsum(hit, 0) - 1
+        if quota is not None:
+            hit = hit & (rank < quota)
+        slot = torch.where(hit, start + rank, slot)
+    return slot
+
+
 def transfer_counts(mesh, *pids: torch.Tensor) -> list[np.ndarray]:
     """The (n_src, n_dst) transfer matrix of each routing `pid` (in
     [0, n) for rows that move, n for discards), as every rank sees it:
     one all_gather of the stacked local counts and one host read for all
     of them."""
     n = mesh.size
-    local = torch.stack([(pid == dest).sum() for pid in pids
-                         for dest in range(n)]).to(torch.int64)
+    local = torch.cat([cell_counts(pid, None, n) for pid in pids])
     matrix = _host(mesh.all_gather(local)).reshape(n, len(pids), n)
     return [matrix[:, i, :] for i in range(len(pids))]
 
@@ -139,18 +169,12 @@ def _dest_order(pid: torch.Tensor, send: Sequence[int]) -> torch.Tensor:
     """The rows that move, grouped by destination, each group in row
     order: a stable counting sort by `pid` over the send counts (known on
     the host), with no device sort and no host read."""
-    n = len(send)
-    pos = torch.zeros_like(pid, dtype=torch.int64)
-    start = 0
-    for dest in range(n):
-        hit = pid == dest
-        pos = torch.where(hit, torch.cumsum(hit, 0) - 1 + start, pos)
-        start += int(send[dest])
-    moving = pid < n
-    order = torch.empty(start + 1, dtype=torch.int64, device=pid.device)
-    order.scatter_(0, torch.where(moving, pos, start),
+    starts = np.concatenate([[0], np.cumsum(send)[:-1]]).tolist()
+    total = int(sum(send))
+    order = torch.empty(total + 1, dtype=torch.int64, device=pid.device)
+    order.scatter_(0, _dest_slots(pid, starts, total),
                    torch.arange(pid.shape[0], device=pid.device))
-    return order[:start]
+    return order[:total]
 
 
 def route_rows(mesh, planes: dict, pid: torch.Tensor, counts: np.ndarray
@@ -176,6 +200,44 @@ def route_rows(mesh, planes: dict, pid: torch.Tensor, counts: np.ndarray
             out[name] = (r_data, r_valid)
     mask = torch.arange(cap, device=pid.device) < sum(recv)
     return out, mask
+
+
+def route_rows_quota(mesh, planes: dict, pid: torch.Tensor, quota: int
+                     ) -> tuple[dict, torch.Tensor]:
+    """Send this rank's rows to their `pid` ranks (discards at n) in
+    fixed blocks of `quota` rows, one `all_to_all_single` of n equal
+    blocks per plane (ref shuffle.py `route_rows`). Rows past a
+    destination's quota are dropped, never written past the block.
+    Returns (received planes, the received-row mask), n * quota rows,
+    source-major; vector planes keep their trailing dimension.
+
+    One scatter of row indices fills the send order (every discard into
+    one dump slot past the blocks); each plane is then a gather, zeroed
+    in the slots no row filled."""
+    n = mesh.size
+    total = n * quota
+    cap = pid.shape[0]
+    split = [quota] * n
+    with record_function("mesh.route"):
+        src = torch.full((total + 1,), cap, dtype=torch.int64,
+                         device=pid.device)
+        src.scatter_(0, _dest_slots(pid, range(0, total, quota), total,
+                                    quota),
+                     torch.arange(cap, dtype=torch.int64, device=pid.device))
+        src = src[:total]
+        sent = src < cap
+        src = src.clamp(max=cap - 1)
+        recv_mask = mesh.all_to_all(sent, split, split)
+        out: dict = {}
+        for name, (data, valid) in planes.items():
+            filled = sent.reshape((total,) + (1,) * (data.ndim - 1))
+            buf = torch.where(filled, data[src],
+                              torch.zeros((), dtype=data.dtype,
+                                          device=data.device))
+            r_data = mesh.all_to_all(buf, split, split)
+            r_valid = mesh.all_to_all(valid[src] & sent, split, split)
+            out[name] = (r_data, r_valid & recv_mask)
+    return out, recv_mask
 
 
 def _sample_pivots(table: ShardedTable, key_names: list[str],

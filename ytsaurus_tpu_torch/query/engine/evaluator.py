@@ -1,12 +1,20 @@
 """The query evaluator: plan + chunk → result chunk, eagerly in torch.
 
 Port of the JAX package's `query/engine/evaluator.py` (`Evaluator.run_plan`,
-`_PendingResult.finish`, `_project_chunk`, the join cascade with
-`_initial_namespace` / `_extend_namespace`, WITH TOTALS with
-`_make_totals_plan`, `_typed_null` and `_zero_value`, `select_rows`).
-PyTorch runs eagerly, so the JAX evaluator's compile cache, AOT layers,
-tiering, compile observatory, buffer donation and query statistics have no
-counterpart here.
+`run_plan_async`, `_PendingResult.finish`, `finish_all`, `_project_chunk`,
+the join cascade with `_initial_namespace` / `_extend_namespace`, WITH
+TOTALS with `_make_totals_plan`, `_typed_null` and `_zero_value`,
+`select_rows`). PyTorch runs eagerly, so the JAX evaluator's compile
+cache, AOT layers, tiering, compile observatory and buffer donation have
+no counterpart here.
+
+A run plan's output row count stays on the device until it is read:
+`run_plan_async` returns the pending result without reading it, and
+`finish_all` reads the counts of many pending results as one stacked
+device → host transfer (the coordinator's shard fan-out). `count_reads()`
+counts these reads: one per `finish` of a lone result, one per stacked
+`finish_all`. The staged programs' own reads (a dense GROUP BY's key
+range, the radix sort's digit check) are not among them.
 
 Joins run first, in the planner's order (query/planner.py) when there are
 several, each widening the namespace (query/engine/joins.py); the rest of
@@ -31,10 +39,23 @@ from ytsaurus_tpu_torch.query.engine.lowering import prepare
 from ytsaurus_tpu_torch.schema import EValueType, TableSchema
 
 
+_count_reads_n = 0
+
+
+def count_reads() -> int:
+    """Row-count reads (device → host) of pending results so far."""
+    return _count_reads_n
+
+
+def _note_count_read() -> None:
+    global _count_reads_n
+    _count_reads_n += 1
+
+
 class _PendingResult:
     """A run plan's output planes and its row count, still on the device.
-    `finish()` reads the count (the one device → host sync) and wraps the
-    chunk."""
+    `finish()` reads the count (one device → host read) and wraps the
+    chunk; given `host_count` (read by `finish_all`), it reads nothing."""
 
     __slots__ = ("planes", "count", "output", "_chunk")
 
@@ -44,9 +65,13 @@ class _PendingResult:
         self.output = output
         self._chunk: Optional[ColumnarChunk] = None
 
-    def finish(self) -> ColumnarChunk:
+    def finish(self, host_count: Optional[int] = None) -> ColumnarChunk:
         if self._chunk is None:
-            n = int(self.count)
+            if host_count is None:
+                _note_count_read()
+                n = int(self.count)
+            else:
+                n = int(host_count)
             out_columns: dict[str, Column] = {}
             out_schema_cols = []
             for out_col, (data, valid) in zip(self.output, self.planes):
@@ -60,6 +85,36 @@ class _PendingResult:
         return self._chunk
 
 
+class _ReadyResult:
+    """An already materialized result (a WITH TOTALS plan reads its
+    counts as it runs)."""
+
+    __slots__ = ("_chunk",)
+
+    def __init__(self, chunk: ColumnarChunk):
+        self._chunk = chunk
+
+    def finish(self, host_count: Optional[int] = None) -> ColumnarChunk:
+        return self._chunk
+
+
+def finish_all(pendings: Sequence) -> list[ColumnarChunk]:
+    """Finish a batch of dispatched plans with ONE host transfer: the
+    row counts of the open pending results cross as one stacked tensor
+    instead of one blocking read each."""
+    open_ = [p for p in pendings
+             if isinstance(p, _PendingResult) and p._chunk is None]
+    host: dict[int, int] = {}
+    if len(open_) > 1:
+        # The one stacked transfer; a single open result falls through to
+        # finish(), which counts its own read.
+        _note_count_read()
+        counts = torch.stack([p.count.reshape(()).to(torch.int64)
+                              for p in open_]).cpu().tolist()
+        host = {id(p): c for p, c in zip(open_, counts)}
+    return [p.finish(host_count=host.get(id(p))) for p in pendings]
+
+
 class Evaluator:
     """Runs plans over chunks on one device."""
 
@@ -67,10 +122,25 @@ class Evaluator:
         self.device = resolve_device(device)
 
     def run_plan(self, plan: "ir.Query | ir.FrontQuery", chunk: ColumnarChunk,
-                 foreign_chunks: Optional[Mapping[str, ColumnarChunk]] = None
-                 ) -> ColumnarChunk:
+                 foreign_chunks: Optional[Mapping[str, ColumnarChunk]] = None,
+                 stats=None, token=None) -> ColumnarChunk:
         """Execute a plan over one input chunk (and the foreign chunks of
-        its joins, by table path), all on this evaluator's device."""
+        its joins, by table path), all on this evaluator's device.
+        `token` (query/serving.CancellationToken) is checked first;
+        `stats` is accepted for the coordinator's call sites (the
+        evaluator itself writes no statistics)."""
+        return self.run_plan_async(plan, chunk, foreign_chunks, stats=stats,
+                                   token=token).finish()
+
+    def run_plan_async(self, plan: "ir.Query | ir.FrontQuery",
+                       chunk: ColumnarChunk,
+                       foreign_chunks: Optional[
+                           Mapping[str, ColumnarChunk]] = None,
+                       stats=None, token=None):
+        """Run a plan without reading its row count: a pending result
+        whose `finish()` (or `finish_all`) yields the chunk."""
+        if token is not None:
+            token.check()
         self._check_device(chunk)
         if isinstance(plan, ir.Query) and plan.joins:
             foreign_chunks = foreign_chunks or {}
@@ -94,9 +164,9 @@ class Evaluator:
         elif isinstance(plan, ir.Query):
             chunk = _project_chunk(chunk, plan.schema)
         if plan.group is not None and plan.group.totals:
-            result = self._execute(plan, chunk)
-            totals = self._execute(_make_totals_plan(plan), chunk)
-            return concat_chunks([result, totals])
+            result = self._execute(plan, chunk).finish()
+            totals = self._execute(_make_totals_plan(plan), chunk).finish()
+            return _ReadyResult(concat_chunks([result, totals]))
         return self._execute(plan, chunk)
 
     def _check_device(self, chunk: ColumnarChunk) -> None:
@@ -105,13 +175,13 @@ class Evaluator:
                           f"on {self.device}",
                           code=EErrorCode.QueryExecutionError)
 
-    def _execute(self, plan, chunk: ColumnarChunk) -> ColumnarChunk:
+    def _execute(self, plan, chunk: ColumnarChunk) -> _PendingResult:
         prepared = prepare(plan, chunk)
         columns = {c.name: (chunk.columns[c.name].data,
                             chunk.columns[c.name].valid)
                    for c in plan.schema}
         planes, count = prepared.run(columns, chunk.row_valid)
-        return _PendingResult(planes, count, prepared.output).finish()
+        return _PendingResult(planes, count, prepared.output)
 
 
 def _initial_namespace(plan: ir.Query) -> list[tuple[str, str]]:

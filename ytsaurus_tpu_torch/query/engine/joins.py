@@ -110,11 +110,16 @@ def _lex_searchsorted(sorted_planes, n_sorted: int, max_n: int,
     """For each query row, binary-search the sorted key planes.
     side='left' → first index whose key >= query; 'right' → first > query.
     The iteration count follows the capacity bound `max_n`, as in the
-    reference, not the live count `n_sorted`; lo and hi stay int64."""
+    reference, not the live count `n_sorted`; lo and hi stay int64.
+    `n_sorted` may be a 0-d device tensor (read nothing to the host)."""
     cap_q = query_planes[0][0].shape[0]
     device = query_planes[0][0].device
     lo = torch.zeros(cap_q, dtype=torch.int64, device=device)
-    hi = torch.full((cap_q,), n_sorted, dtype=torch.int64, device=device)
+    if torch.is_tensor(n_sorted):
+        hi = n_sorted.to(torch.int64).expand(cap_q).clone()
+    else:
+        hi = torch.full((cap_q,), n_sorted, dtype=torch.int64,
+                        device=device)
     iters = max(1, int(np.ceil(np.log2(max(max_n, 2)))) + 1)
     for _ in range(iters):
         active = lo < hi

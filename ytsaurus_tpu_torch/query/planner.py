@@ -12,14 +12,15 @@ decides the row order of a LIMIT without ORDER BY):
                    join's pulled column cannot move before it) and by
                    LEFT-join barriers (outer joins keep their position).
   side strategy    broadcast vs partition, by the foreign row count
-                   against BROADCAST_JOIN_ROWS (recorded for parity; the
-                   single-device evaluator runs every join the same way).
+                   against `CompileConfig.broadcast_join_rows` (the
+                   whole-plan rung's strategy; the single-device
+                   evaluator runs every join the same way).
   semi-join ranges the [min, max] of a selective INNER side's key, pushed
                    toward the scan (recorded for parity as well).
 
-The reference reads its knobs from `CompileConfig`; the port has no
-config layer, so they are the constants below, at the reference's
-defaults.
+The broadcast threshold is `CompileConfig.broadcast_join_rows` (the
+port's `config.py`), at the reference's default. The reference's
+`cost_join_planner` switch has no counterpart: the planner is always on.
 """
 
 from __future__ import annotations
@@ -30,11 +31,8 @@ from dataclasses import dataclass, replace as dc_replace
 from typing import Mapping, Optional
 
 from ytsaurus_tpu_torch.chunks.columnar import chunk_column_stats, ndv_estimate
+from ytsaurus_tpu_torch.config import compile_config
 from ytsaurus_tpu_torch.query import ir
-
-# The reference's CompileConfig defaults.
-COST_JOIN_PLANNER = True
-BROADCAST_JOIN_ROWS = 65536
 
 # Per-chunk stats memo, keyed by object identity with a liveness check.
 _stats_lock = threading.Lock()
@@ -97,6 +95,13 @@ class JoinPlan:
     def order(self) -> tuple:
         return tuple(d.index for d in self.decisions)
 
+    def pushdown_ranges(self) -> tuple:
+        """Flat ((self_column, lo, hi), ...) across every decision."""
+        out = []
+        for d in self.decisions:
+            out.extend(d.pushdown)
+        return tuple(out)
+
 
 def _base_columns(plan: ir.Query) -> set:
     """Self-table columns (plan.schema minus join-contributed names)."""
@@ -144,11 +149,12 @@ def _pushdown_for(join: ir.JoinClause, f_stats: Optional[dict],
 def plan_joins(plan: ir.Query, self_rows: int,
                foreign_stats: Mapping[str, Optional[dict]],
                self_stats: Optional[dict] = None) -> Optional[JoinPlan]:
-    """Plan `plan.joins` (None when there is nothing to plan or the
-    planner is off). `foreign_stats` maps foreign table path → column
+    """Plan `plan.joins` (None when there is nothing to plan).
+    `foreign_stats` maps foreign table path → column
     stats; missing entries degrade that side to neutral estimates."""
-    if not plan.joins or not COST_JOIN_PLANNER:
+    if not plan.joins:
         return None
+    broadcast_cap = compile_config().broadcast_join_rows
     base = _base_columns(plan)
 
     # LEFT joins are barriers: blocks of consecutive INNER joins reorder
@@ -215,7 +221,7 @@ def plan_joins(plan: ir.Query, self_rows: int,
             if join.is_left:
                 est_out = max(est_out, est)
             strategy = "broadcast" if f_rows is not None \
-                and 0 < f_rows <= BROADCAST_JOIN_ROWS else "partition"
+                and 0 < f_rows <= broadcast_cap else "partition"
             decisions.append(JoinDecision(
                 index=pick, strategy=strategy, est_in=est, est_out=est_out,
                 foreign_rows=f_rows if f_rows is not None else 0,
@@ -252,6 +258,16 @@ def plan_for_chunks(plan: ir.Query, self_rows: int,
         stats[join.foreign_table] = \
             stats_for_chunk(chunk) if chunk is not None else None
     return plan_joins(plan, self_rows, stats)
+
+
+def est_drift(est_rows, actual_rows) -> float:
+    """Relative estimate error |actual - est| / max(actual, 1); 0.0 when
+    no estimate was recorded (est <= 0)."""
+    est = int(est_rows or 0)
+    actual = int(actual_rows or 0)
+    if est <= 0:
+        return 0.0
+    return round(abs(actual - est) / float(max(actual, 1)), 4)
 
 
 def reorder_for_chunks(plan: ir.Query, self_rows: int,
