@@ -71,6 +71,29 @@ Phases (any failure exits non-zero and prints no result line):
      order exactly; the retained row count, and visible_chunk of the
      retained versions equal to that of the originals at both
      timestamps. REPS warm runs, with each operation's time;
+     DYNTABLE: the same table through the storage path (the host codec
+     library must load; it fails otherwise): a history of 24,000,000
+     base versions (g and v) and 8,000,000 later versions on random keys
+     (99% partial writes of v, 1% deletes), interleaved at random over
+     timestamps 1..32,000,000 (each key's first version is its base), so
+     the compaction cut supersedes versions; cut by timestamp into 4 chunks of
+     8,000,000 versions, each sorted by (k, -ts) with numpy and written
+     through FsChunkStore.write_chunk at zlib_6 into a temporary
+     directory, then mounted in a Tablet on the card by their chunk ids;
+     1,000,000 writes through TransactionManager in 1,000 transactions
+     (90% partial writes of v to existing keys, 9% new keys writing g and
+     v, 1% deletes; writes/s on the host); flush() once under the
+     profiler (the store's device sort and the serialize + write apart);
+     read_snapshot at MAX_TIMESTAMP cold (5 decodes: decode, host -> device
+     copy and merge apart), then at 16,000,000 through the path runner,
+     then a latest read that must hit the snapshot cache; GROUP BY g over
+     both snapshots (REPS warm runs); lookup_rows of 4,096 keys (history
+     only, rewritten, deleted, new, absent; REPS runs with the row cache
+     cleared, one that hits it); compact(retention_timestamp=16,000,000)
+     once under the profiler: one chunk of the oracle's retained row
+     count, the old files gone, and both reads unchanged. Every result
+     is held to a numpy oracle (the TABLET oracle over the history and
+     the writes at their commit timestamps), exactly;
      SELECT (query/coordinator.py::coordinate_and_execute, the host rung
      behind select_rows, one evaluator on the card): SELECT_8 (bench.py's
      select over 8 chunks of 8,000,000 rows: k the row number, g uniform
@@ -365,8 +388,10 @@ def phase_argsort(rx, gen) -> dict:
             "two_word_launches": passes}
 
 
-def _profile(run, hr, rx, ranges=(), runs: int = 2) -> dict:
-    """The last of `runs` runs of `run` under torch.profiler: device time
+def _profile(run, hr, rx, ranges=(), runs: int = 2, first=None) -> dict:
+    """The last of `runs` runs of `run` under torch.profiler (`first`, when
+    given, runs in place of the runs before it: a stage that changes
+    state runs once, after a small warm-up of the profiler): device time
     by kernel name and by the torch op that launched it, and the device's
     idle share of the wall time (both as seen under the profiler, which
     slows the host). Busy time is the union of the device events' spans;
@@ -385,7 +410,7 @@ def _profile(run, hr, rx, ranges=(), runs: int = 2) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(runs - 1):
-            run()
+            (first or run)()
         torch.cuda.synchronize()
         _reset_launches(hr, rx)
         with record_function(RUN_RANGE):
@@ -1098,6 +1123,31 @@ def _tablet_oracle(d: dict, read_points) -> dict:
     return out
 
 
+def _check_visible(name: str, vis, want: dict) -> int:
+    """A visible chunk's rows equal the oracle's columns (data where
+    valid, and validity) exactly; returns the row count."""
+    import numpy as np
+    got = vis.to_numpy()["planes"]
+    m = len(want["cols"]["k"][0])
+    if vis.row_count != m:
+        raise AssertionError(f"{name}: {vis.row_count} rows, not {m}")
+    for col, (w_data, w_valid) in want["cols"].items():
+        data, valid = got[col]
+        if not np.array_equal(valid[:m], w_valid) or \
+                not np.array_equal(np.where(w_valid, data[:m], 0), w_data):
+            raise AssertionError(f"{name}: column {col} differs from the "
+                                 "oracle")
+    return m
+
+
+def _check_groups(name: str, result, want: dict) -> int:
+    """TABLET_QUERY's groups equal the oracle's exactly."""
+    groups = {r["g"]: (r["s"], r["c"]) for r in result.to_rows()}
+    if groups != want["groups"]:
+        raise AssertionError(f"{name} differs from the oracle")
+    return len(groups)
+
+
 def _same_visible(a, b) -> bool:
     """Two visible chunks (on the card) agree: row count, validity, and
     data where valid."""
@@ -1179,25 +1229,10 @@ def phase_tablet(seed: int, hr, rx, port) -> dict:
         rows = 0
         for ts in read_points:
             want = oracle["read"][ts]
-            vis = out[label("visible", ts)]
-            got = vis.to_numpy()["planes"]
-            m = len(want["cols"]["k"][0])
-            if vis.row_count != m:
-                raise AssertionError(f"TABLET visible@{ts}: "
-                                     f"{vis.row_count} rows, not {m}")
-            for name, (w_data, w_valid) in want["cols"].items():
-                data, valid = got[name]
-                if not np.array_equal(valid[:m], w_valid) or \
-                        not np.array_equal(np.where(w_valid, data[:m], 0),
-                                           w_data):
-                    raise AssertionError(f"TABLET visible@{ts} column "
-                                         f"{name} differs from the oracle")
-            groups = {r["g"]: (r["s"], r["c"])
-                      for r in out[label("group_by", ts)].to_rows()}
-            if groups != want["groups"]:
-                raise AssertionError(f"TABLET GROUP BY @{ts} differs from "
-                                     "the oracle")
-            rows += m + len(groups)
+            rows += _check_visible(f"TABLET visible@{ts}",
+                                   out[label("visible", ts)], want)
+            rows += _check_groups(f"TABLET GROUP BY @{ts}",
+                                  out[label("group_by", ts)], want)
         srt = out["sorted"].to_numpy()["planes"]
         order = oracle["order"]
         if out["sorted"].row_count != n:
@@ -1230,6 +1265,398 @@ def phase_tablet(seed: int, hr, rx, port) -> dict:
          f"{json.dumps(out['op_median_ms'])}")
     del chunk
     torch.cuda.empty_cache()
+    return out
+
+
+# --- DYNTABLE: the dynamic-table storage path -------------------------------
+
+DYN_KEYS = 24_000_000        # keys, each with one base version (g and v)
+DYN_LATER = 8_000_000        # later versions on random keys
+DYN_CHUNK = 8_000_000        # versions per mounted chunk, cut by timestamp
+DYN_WRITES = 1_000_000       # max_dynamic_store_row_count's default
+DYN_TX_ROWS = 1_000          # rows per transaction
+DYN_NEW_SHARE = 0.09         # writes that add a key (g and v)
+DYN_WRITE_DELETES = 0.01     # writes that delete a key; the rest write v
+DYN_READ_TS = 16_000_000     # the historical read and the compaction cut
+DYN_LOOKUPS = 4_096
+DYN_RANGES = ("tablet.flush", "tablet.read", "tablet.compact",
+              "tablet.write") + MVCC_RANGES
+
+
+def _dyntable_history(seed: int) -> dict:
+    """The mounted history in timestamp order, at timestamps 1..n: a base
+    version (g and v) per key and DYN_LATER later versions on random keys
+    (99% partial writes of v, 1% deletes), interleaved at random in time,
+    so each key's first version in time is its base and versions at or
+    below the compaction cut supersede one another."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 11)
+    nk, n = DYN_KEYS, DYN_KEYS + DYN_LATER
+    k = np.concatenate([np.arange(nk, dtype=np.int64),
+                        rng.integers(0, nk, DYN_LATER)])[rng.permutation(n)]
+    first = np.full(nk, n, dtype=np.int64)
+    np.minimum.at(first, k, np.arange(n, dtype=np.int64))
+    base = np.zeros(n, dtype=bool)
+    base[first] = True
+    tomb = ~base & (rng.random(n) < TABLET_DELETE_SHARE)
+    g = np.where(base, rng.integers(0, TABLET_GROUPS, n), 0)
+    v = np.where(~tomb, rng.integers(0, 1000, n), 0)
+    return {"k": k, "$timestamp": np.arange(1, n + 1, dtype=np.int64),
+            "$tombstone": tomb, "g": g, "$w:g": base, "v": v, "$w:v": ~tomb}
+
+
+def _dyntable_writes(seed: int) -> dict:
+    """The store's writes, DYN_TX_ROWS a transaction: distinct existing
+    keys get partial writes of v or deletes, new keys (from DYN_KEYS up)
+    write g and v. Also the lookup keys of each kind."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 12)
+    n_tx = DYN_WRITES // DYN_TX_ROWS
+    per_new = int(DYN_TX_ROWS * DYN_NEW_SHARE)
+    per_del = int(DYN_TX_ROWS * DYN_WRITE_DELETES)
+    per_part = DYN_TX_ROWS - per_new - per_del
+    perm = rng.permutation(DYN_KEYS)
+    n_part, n_del = per_part * n_tx, per_del * n_tx
+    part = perm[:n_part]
+    dels = perm[n_part:n_part + n_del]
+    new = DYN_KEYS + np.arange(per_new * n_tx, dtype=np.int64)
+    lookups = np.concatenate([
+        perm[n_part + n_del:n_part + n_del + 1024],     # history only
+        part[:1024], dels[:512], new[:1024],
+        new[-1] + 1 + np.arange(512)])                  # absent
+    return {"n_tx": n_tx, "per": (per_part, per_new, per_del),
+            "part": part, "part_v": rng.integers(0, 1000, n_part),
+            "dels": dels, "new": new,
+            "new_g": rng.integers(0, TABLET_GROUPS, len(new)),
+            "new_v": rng.integers(0, 1000, len(new)),
+            "lookups": rng.permutation(lookups)}
+
+
+def _dyntable_oracle_versions(hist: dict, w: dict, commit_ts) -> dict:
+    """The history and the written versions as one set of arrays."""
+    import numpy as np
+    per_part, per_new, per_del = w["per"]
+    ts = np.asarray(commit_ts, dtype=np.int64)
+    nb = len(w["part"]) + len(w["new"]) + len(w["dels"])
+    k = np.concatenate([w["part"], w["new"], w["dels"]])
+    wts = np.concatenate([np.repeat(ts, per_part), np.repeat(ts, per_new),
+                          np.repeat(ts, per_del)])
+    tomb = np.zeros(nb, dtype=bool)
+    tomb[len(w["part"]) + len(w["new"]):] = True
+    wg = np.zeros(nb, dtype=bool)
+    wg[len(w["part"]):len(w["part"]) + len(w["new"])] = True
+    g = np.zeros(nb, dtype=np.int64)
+    g[wg] = w["new_g"]
+    v = np.concatenate([w["part_v"], w["new_v"],
+                        np.zeros(len(w["dels"]), dtype=np.int64)])
+    written = {"k": k, "$timestamp": wts, "$tombstone": tomb, "g": g,
+               "$w:g": wg, "v": v, "$w:v": ~tomb}
+    return {name: np.concatenate([hist[name], written[name]])
+            for name in hist}
+
+
+def _dyntable_stage(name: str, run, hr, rx, extra=None) -> tuple:
+    """One state-changing stage, run once under the profiler (after a
+    small radix argsort that warms the profiler session up): its result,
+    and its record (launches, wall and device ms, idle share, the
+    tablet.* and mvcc.* ranges, peak device memory)."""
+    import torch
+    box = {}
+    primer = torch.arange(4096, dtype=torch.int64, device="cuda")
+
+    def once():
+        box["out"] = run()
+
+    torch.cuda.reset_peak_memory_stats()
+    prof = _profile(once, hr, rx, DYN_RANGES,
+                    first=lambda: rx.radix_argsort_u32([primer]))
+    rec = {"launches": prof["launched"], "wall_ms": prof["wall_ms"],
+           "device_busy_ms": prof["device_busy_ms"],
+           "idle_share": prof["idle_share"],
+           "ranges_ms": prof["ranges_ms"],
+           "ranges_host_ms": prof["ranges_host_ms"],
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "profile": prof, **(extra or {})}
+    for kernel in PATH_KERNELS:
+        if rec["launches"][kernel] <= 0:
+            raise AssertionError(f"{name}: no {kernel} kernel was launched")
+    return box["out"], rec
+
+
+def _dyntable_disk(tablet) -> int:
+    return sum(os.path.getsize(tablet.chunk_store._path(cid))
+               for cid in tablet.chunk_ids)
+
+
+def _dyntable_log(name: str, rec: dict) -> None:
+    _log(f"{name}: {json.dumps({k: v for k, v in rec.items() if k != 'profile'})}")
+
+
+def phase_dyntable(seed: int, hr, rx, port) -> dict:
+    """DYNTABLE: a sorted dynamic table through the port's storage path:
+    the history written as chunks and mounted, writes through
+    transactions, flush, reads, GROUP BY, lookups and a compaction, each
+    held to a numpy oracle."""
+    import numpy as np
+    import torch
+    from ytsaurus_tpu_torch import native
+    from ytsaurus_tpu_torch.chunks.encoding import decode_totals
+    from ytsaurus_tpu_torch.chunks.store import FsChunkStore
+    from ytsaurus_tpu_torch.tablet.tablet import Tablet, snapshot_cache_stats
+    from ytsaurus_tpu_torch.tablet.transactions import TransactionManager
+    t_phase = time.perf_counter()
+    status = native.status()
+    _log(f"dyntable: host codec library {json.dumps(status)}")
+    if status["path"] != "native":
+        raise AssertionError("the native codec library did not load")
+    table = port.TableSchema.make([("k", "int64", "ascending"),
+                                   ("g", "int64"), ("v", "int64")])
+    vschema = port.versioned_schema(table)
+    spec = [(c.name, c.type.value) + ((c.sort_order.value,)
+            if c.sort_order is not None else ()) for c in vschema]
+    out: dict = {"paths": {}}
+    stages = out["stages"] = {}
+    with tempfile.TemporaryDirectory() as root:
+        store = FsChunkStore(root)
+        stages["store"] = {"codec": store.codec, "native": status}
+        # 1. The history, cut by timestamp into mounted chunks.
+        t0 = time.perf_counter()
+        hist = _dyntable_history(seed)
+        made_s = time.perf_counter() - t0
+        ids, write_s, sort_s = [], 0.0, 0.0
+        n = DYN_KEYS + DYN_LATER
+        cap = port.pad_capacity(DYN_CHUNK)
+        for lo in range(0, n, DYN_CHUNK):
+            t = time.perf_counter()
+            part = {name: a[lo:lo + DYN_CHUNK] for name, a in hist.items()}
+            order = np.lexsort((-part["$timestamp"], part["k"]))
+            planes = {}
+            for c in vschema:
+                data = np.zeros(cap, dtype=part[c.name].dtype)
+                data[:DYN_CHUNK] = part[c.name][order]
+                valid = np.zeros(cap, dtype=bool)
+                valid[:DYN_CHUNK] = part["$w:" + c.name][order] \
+                    if c.name in ("g", "v") else True
+                planes[c.name] = (data, valid)
+            chunk = port.chunk_from_numpy(spec, DYN_CHUNK, planes,
+                                          device="cuda")
+            torch.cuda.synchronize()
+            sort_s += time.perf_counter() - t
+            t = time.perf_counter()
+            ids.append(store.write_chunk(chunk))
+            write_s += time.perf_counter() - t
+            del chunk, planes
+        tablet = Tablet(table, store, device="cuda")
+        tablet.chunk_ids = list(ids)
+        stages["history"] = {
+            "versions": n, "chunks": len(ids), "made_s": made_s,
+            "sort_and_stage_s": sort_s, "write_s": write_s,
+            "bytes_on_disk": _dyntable_disk(tablet)}
+        _dyntable_log("dyntable history", stages["history"])
+        # 2. Writes through transactions.
+        w = _dyntable_writes(seed)
+        txm = TransactionManager()
+        per_part, per_new, per_del = w["per"]
+        commit_ts = []
+        misses0 = tablet.chunk_cache.misses
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        first_s = None
+        for i in range(w["n_tx"]):
+            part = w["part"][i * per_part:(i + 1) * per_part].tolist()
+            part_v = w["part_v"][i * per_part:(i + 1) * per_part].tolist()
+            new = w["new"][i * per_new:(i + 1) * per_new].tolist()
+            new_g = w["new_g"][i * per_new:(i + 1) * per_new].tolist()
+            new_v = w["new_v"][i * per_new:(i + 1) * per_new].tolist()
+            dels = w["dels"][i * per_del:(i + 1) * per_del].tolist()
+            tx = txm.start()
+            txm.write_rows(tx, tablet, [{"k": k, "v": v}
+                                        for k, v in zip(part, part_v)],
+                           update=True)
+            txm.write_rows(tx, tablet, [{"k": k, "g": g, "v": v}
+                                        for k, g, v in zip(new, new_g,
+                                                           new_v)])
+            txm.delete_rows(tx, tablet, [(k,) for k in dels])
+            commit_ts.append(txm.commit(tx))
+            if first_s is None:
+                first_s = time.perf_counter() - t0
+        writes_s = time.perf_counter() - t0
+        if min(commit_ts) <= n:
+            raise AssertionError("DYNTABLE: a commit timestamp is not above "
+                                 "the history's")
+        stages["writes"] = {
+            "rows": DYN_WRITES, "transactions": w["n_tx"],
+            "host_s": writes_s, "writes_per_s": DYN_WRITES / writes_s,
+            "first_transaction_s": first_s,
+            "decodes": tablet.chunk_cache.misses - misses0,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "store_rows": tablet.active_store.store_row_count}
+        _dyntable_log("dyntable writes", stages["writes"])
+        # 3. Flush.
+        t0 = time.perf_counter()
+        flushed, rec = _dyntable_stage("dyntable flush", tablet.flush, hr,
+                                       rx)
+        rec["host_s"] = time.perf_counter() - t0
+        meta = store.read_meta(flushed)
+        if meta["row_count"] != DYN_WRITES or len(tablet.chunk_ids) != 5:
+            raise AssertionError(f"DYNTABLE flush wrote {meta['row_count']} "
+                                 f"rows, {len(tablet.chunk_ids)} chunks")
+        rec.update(versions=DYN_WRITES, chunks=len(tablet.chunk_ids),
+                   bytes_on_disk=_dyntable_disk(tablet),
+                   flushed_bytes=os.path.getsize(store._path(flushed)))
+        stages["flush"] = rec
+        out["paths"]["dyntable_flush"] = rec
+        _dyntable_log("dyntable flush", rec)
+        # 4. The oracle.
+        t0 = time.perf_counter()
+        versions = _dyntable_oracle_versions(hist, w, commit_ts)
+        del hist
+        read_points = (port.MAX_TIMESTAMP, DYN_READ_TS)
+        oracle = _tablet_oracle(versions, read_points)
+        total = len(versions["k"])
+        del versions
+        _log(f"dyntable oracle (numpy): {total} versions, "
+             f"{time.perf_counter() - t0:.1f} s")
+        # 5. Reads: cold at MAX_TIMESTAMP, warm at DYN_READ_TS, a hit.
+        for cid in tablet.chunk_ids:
+            tablet.chunk_cache.invalidate(cid)
+        misses0 = tablet.chunk_cache.misses
+        dec0 = decode_totals()
+        t0 = time.perf_counter()
+        vis_max, rec = _dyntable_stage(
+            "dyntable cold read", lambda: tablet.read_snapshot(), hr, rx)
+        rec["host_s"] = time.perf_counter() - t0
+        dec1 = decode_totals()
+        rec.update(versions=total, chunks=len(tablet.chunk_ids),
+                   bytes_on_disk=_dyntable_disk(tablet),
+                   decodes=tablet.chunk_cache.misses - misses0,
+                   decode_s=dec1["decode_seconds"] - dec0["decode_seconds"],
+                   copy_s=dec1["copy_seconds"] - dec0["copy_seconds"],
+                   bytes_copied=dec1["bytes_copied"] - dec0["bytes_copied"],
+                   cache_bytes=tablet.chunk_cache.used_bytes,
+                   rows_out=_check_visible("DYNTABLE read@max", vis_max,
+                                           oracle["read"][read_points[0]]))
+        stages["read_cold"] = rec
+        out["paths"]["dyntable_read_cold"] = rec
+        _dyntable_log("dyntable cold read", rec)
+        misses0 = tablet.chunk_cache.misses
+        keep_16 = {}
+
+        def read_16():
+            keep_16["chunk"] = tablet.read_snapshot(DYN_READ_TS)
+            return keep_16["chunk"]
+
+        name = f"dyntable_read@{DYN_READ_TS}"
+        path = _run_path(
+            name, read_16,
+            lambda vis: _check_visible(name, vis,
+                                       oracle["read"][DYN_READ_TS]),
+            total, hr, rx, DYN_RANGES)
+        path["decodes_per_read"] = (tablet.chunk_cache.misses - misses0) / \
+            (REPS + 3)
+        out["paths"][name] = path
+        vis_16 = keep_16["chunk"]
+        hits0 = snapshot_cache_stats()["hits"]
+        if tablet.read_snapshot() is not vis_max or \
+                snapshot_cache_stats()["hits"] != hits0 + 1:
+            raise AssertionError("DYNTABLE: the latest read was not a "
+                                 "snapshot cache hit")
+        # 6. GROUP BY over both snapshots.
+        for ts, vis in ((read_points[0], vis_max), (DYN_READ_TS, vis_16)):
+            label = "max" if ts == port.MAX_TIMESTAMP else str(ts)
+            _reset_launches(hr, rx)
+            res = port.select_rows(TABLET_QUERY, {"//t": vis}, device="cuda")
+            torch.cuda.synchronize()
+            launches = _launches(hr, rx)
+            groups = _check_groups(f"DYNTABLE GROUP BY @{label}", res,
+                                   oracle["read"][ts])
+            times = []
+            for _ in range(REPS):
+                t = time.perf_counter()
+                port.select_rows(TABLET_QUERY, {"//t": vis}, device="cuda")
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            rec = {"rows_in": vis.row_count, "rows_out": groups,
+                   "launches": launches,
+                   "median_ms": statistics.median(times), "ms_runs": times}
+            out["paths"][f"dyntable_group_by@{label}"] = rec
+            _dyntable_log(f"dyntable GROUP BY @{label}", rec)
+        # 7. Lookups.
+        want_k = oracle["read"][read_points[0]]["cols"]["k"][0]
+        want_g, want_gv = oracle["read"][read_points[0]]["cols"]["g"]
+        want_v = oracle["read"][read_points[0]]["cols"]["v"][0]
+        keys = [(int(k),) for k in w["lookups"]]
+        pos = np.minimum(np.searchsorted(want_k, w["lookups"]),
+                         len(want_k) - 1)
+        found = want_k[pos] == w["lookups"]
+        expect = [{"k": int(k), "g": int(want_g[p]) if want_gv[p] else None,
+                   "v": int(want_v[p])} if f else None
+                  for k, p, f in zip(w["lookups"], pos, found)]
+        t = time.perf_counter()
+        if tablet.lookup_rows(keys) != expect:
+            raise AssertionError("DYNTABLE lookup_rows differs from the "
+                                 "oracle")
+        first_ms = (time.perf_counter() - t) * 1e3
+        times = []
+        for _ in range(REPS):
+            tablet._row_cache.clear()
+            t = time.perf_counter()
+            tablet.lookup_rows(keys)
+            times.append((time.perf_counter() - t) * 1e3)
+        hits0 = tablet.row_cache_hits
+        t = time.perf_counter()
+        if tablet.lookup_rows(keys) != expect:
+            raise AssertionError("DYNTABLE row-cache lookups differ")
+        hit_ms = (time.perf_counter() - t) * 1e3
+        if tablet.row_cache_hits - hits0 != len(keys):
+            raise AssertionError("DYNTABLE: the repeated lookups missed the "
+                                 "row cache")
+        stages["lookup"] = {
+            "keys": len(keys), "found": int(found.sum()),
+            "first_ms": first_ms, "median_ms": statistics.median(times),
+            "ms_runs": times, "row_cache_hit_ms": hit_ms}
+        _dyntable_log("dyntable lookup", stages["lookup"])
+        # 8. Compaction.
+        old_ids = list(tablet.chunk_ids)
+        want_rows = oracle["read"][DYN_READ_TS]["retained"]
+        if want_rows >= total:
+            raise AssertionError("DYNTABLE: the compaction cut supersedes "
+                                 "no version")
+        t0 = time.perf_counter()
+        new_id, rec = _dyntable_stage(
+            "dyntable compact",
+            lambda: tablet.compact(retention_timestamp=DYN_READ_TS), hr, rx)
+        rec["host_s"] = time.perf_counter() - t0
+        rows = store.read_meta(new_id)["row_count"]
+        if tablet.chunk_ids != [new_id] or rows != want_rows:
+            raise AssertionError(f"DYNTABLE compaction left "
+                                 f"{tablet.chunk_ids} with {rows} rows, not "
+                                 f"one chunk of {want_rows}")
+        if any(store.exists(cid) for cid in old_ids) or \
+                store.list_chunks() != [new_id]:
+            raise AssertionError("DYNTABLE: compaction left old chunk files")
+        rec.update(versions_in=total, versions_out=rows, chunks=1,
+                   bytes_on_disk=_dyntable_disk(tablet))
+        stages["compact"] = rec
+        out["paths"]["dyntable_compact"] = rec
+        _dyntable_log("dyntable compact", rec)
+        misses0 = tablet.chunk_cache.misses
+        t0 = time.perf_counter()
+        for ts, before in ((read_points[0], vis_max),
+                           (DYN_READ_TS, vis_16)):
+            if not _same_visible(tablet.read_snapshot(ts), before):
+                raise AssertionError(f"DYNTABLE: the compacted table reads "
+                                     f"differently at {ts}")
+        torch.cuda.synchronize()
+        stages["reads_after_compaction"] = {
+            "host_s": time.perf_counter() - t0,
+            "decodes": tablet.chunk_cache.misses - misses0}
+        _dyntable_log("dyntable reads after compaction",
+                      stages["reads_after_compaction"])
+        del vis_max, vis_16, keep_16, tablet
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    _log(f"dyntable: {out['seconds']:.1f} s in all")
     return out
 
 
@@ -2347,6 +2774,8 @@ def main() -> int:
     port = _port_entry_points()
     paths["sort"] = phase_sort(args.seed, hr, rx, port, keep)
     paths["tablet"] = phase_tablet(args.seed, hr, rx, port)
+    dyntable = phase_dyntable(args.seed, hr, rx, port)
+    paths.update(dyntable.pop("paths"))
     paths.update(phase_select(args.seed, hr, rx, tpch, port, keep))
     paths.update(phase_mesh(hr, rx, tpch, keep))
     keep.clear()
@@ -2378,7 +2807,7 @@ def main() -> int:
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "rows": ROWS, "orders": ORDERS,
               "window_rows": WINDOW_ROWS, "sort_rows": SORT_ROWS,
-              "tablet_versions": TABLET_VERSIONS,
+              "tablet_versions": TABLET_VERSIONS, "dyntable": dyntable,
               "extsort_rows": paths["extsort"]["rows_in"],
               "strings_rows": STRINGS_ROWS, "vector_rows": VECTOR_ROWS,
               "vector": vec, "mesh_ranks": mesh_ranks,

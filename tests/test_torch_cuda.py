@@ -633,3 +633,104 @@ def test_whole_plan_q18_over_nccl_matches_the_cpu(nccl_mesh):
         assert rx.launches["radix_onesweep"] > 0
         _rows_match(got, want)
     assert stats.whole_plan_retries == 0
+
+
+class _CountingTimestamps:
+    """Timestamps 1, 2, 3, ...: two runs of one history get the same."""
+
+    def __init__(self):
+        self._last = 0
+
+    def generate(self) -> int:
+        self._last += 1
+        return self._last
+
+    def last(self) -> int:
+        return self._last
+
+
+def _dyn_history(device, root):
+    """A small dynamic table driven through transactions, two flushes,
+    a compaction and more writes, on `device`; returns the tablet."""
+    import random
+
+    from ytsaurus_tpu_torch.chunks.store import FsChunkStore
+    from ytsaurus_tpu_torch.schema import TableSchema
+    from ytsaurus_tpu_torch.tablet.tablet import Tablet
+    from ytsaurus_tpu_torch.tablet.transactions import TransactionManager
+    schema = TableSchema.make([("k", "int64", "ascending"), ("g", "int64"),
+                               ("s", "string"), ("v", "uint64")])
+    tablet = Tablet(schema, FsChunkStore(root), device=device)
+    txm = TransactionManager(_CountingTimestamps())
+    rng = random.Random(4)
+    for step in range(6):
+        tx = txm.start()
+        keys = rng.sample(range(4000), 1500)
+        txm.write_rows(tx, tablet, [
+            {"k": k, "g": k % 7, "s": f"s{k % 13}", "v": 2**63 + k}
+            for k in keys[:1000]])
+        txm.write_rows(tx, tablet, [{"k": k, "v": step} for k in
+                                    keys[1000:1400]], update=True)
+        txm.delete_rows(tx, tablet, [(k,) for k in keys[1400:]])
+        txm.commit(tx)
+        if step in (1, 3):
+            tablet.flush()
+        if step == 4:
+            tablet.compact(retention_timestamp=txm.timestamps.last() - 1)
+    return tablet
+
+
+def test_tablet_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """Flush, compaction and snapshot reads of a tablet on the card (its
+    sorts through the radix kernels) equal the same tablet on the CPU."""
+    from ytsaurus_tpu_torch.config import TabletConfig, set_tablet_config
+    set_tablet_config(TabletConfig(vectorized_scan_min_rows=0))
+    try:
+        rx.reset_launches()
+        gpu = _dyn_history(cuda_device, str(tmp_path / "gpu"))
+        torch.cuda.synchronize()
+        assert rx.launches["radix_upsweep"] > 0 and \
+            rx.launches["radix_onesweep"] > 0
+        cpu = _dyn_history("cpu", str(tmp_path / "cpu"))
+        for a, b in zip(gpu.chunk_ids, cpu.chunk_ids):
+            assert gpu.chunk_store.get_blob(a) == cpu.chunk_store.get_blob(b)
+        got = gpu.read_snapshot()
+        assert got.device.type == cuda_device.type
+        assert got.to_rows() == cpu.read_snapshot().to_rows()
+        keys = [(k,) for k in range(0, 4000, 7)]
+        assert gpu.lookup_rows(keys) == cpu.lookup_rows(keys)
+    finally:
+        set_tablet_config(None)
+
+
+def test_deserialize_chunk_onto_the_card_matches_the_cpu(cuda_device):
+    from ytsaurus_tpu_torch.chunks.columnar import ColumnarChunk
+    from ytsaurus_tpu_torch.chunks.encoding import (
+        deserialize_chunk,
+        serialize_chunk,
+    )
+    from ytsaurus_tpu_torch.schema import TableSchema
+    schema = TableSchema.make([("k", "int64"), ("u", "uint64"),
+                               ("d", "double"), ("b", "boolean"),
+                               ("s", "string"),
+                               ("e", "vector<float, 3>")])
+    rows = [{"k": i, "u": 2**64 - 1 - i, "d": [float("nan"), -0.0, i][i % 3],
+             "b": i % 2 == 0, "s": None if i % 5 == 0 else f"x{i % 9}",
+             "e": [i, -i, 0.5]} for i in range(3000)]
+    blob = serialize_chunk(ColumnarChunk.from_rows(schema, rows,
+                                                   device="cpu"))
+    cpu = deserialize_chunk(blob, device="cpu")
+    gpu = deserialize_chunk(blob, device=cuda_device)
+    assert gpu.device.type == cuda_device.type and \
+        gpu.capacity == cpu.capacity
+    for name, col in cpu.columns.items():
+        other = gpu.columns[name]
+        assert torch.equal(other.valid.cpu(), col.valid), name
+        a, b = other.data.cpu(), col.data
+        if a.is_floating_point():
+            a, b = a.view(torch.int32 if a.dtype == torch.float32
+                          else torch.int64), \
+                b.view(torch.int32 if b.dtype == torch.float32
+                       else torch.int64)
+        assert torch.equal(a, b), name
+    assert serialize_chunk(gpu) == blob

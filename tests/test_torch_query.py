@@ -314,7 +314,9 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
     observatory, the config and the utilities import, `split_plan` splits
     Q1 and `coordinate_and_execute` runs it over two lazy shards
     (tests/test_torch_distributed.py runs the mesh and the ladder on ranks
-    with both blocked)."""
+    with both blocked); the storage path (YSON, the chunk wire format, the
+    chunk store, `Tablet` and `TransactionManager`) writes a table through
+    a transaction, flushes, compacts and reads it back."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -417,6 +419,33 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
             halves)}, device="cpu")
         assert sorted(r["count_order"] for r in multi.to_rows()) == \
             sorted(r["count_order"] for r in single.to_rows())
+        import tempfile
+        from ytsaurus_tpu_torch import native, yson
+        from ytsaurus_tpu_torch.chunks.encoding import (
+            deserialize_chunk, serialize_chunk)
+        from ytsaurus_tpu_torch.chunks.store import FsChunkStore
+        from ytsaurus_tpu_torch.tablet.tablet import Tablet
+        from ytsaurus_tpu_torch.tablet.transactions import TransactionManager
+        assert yson.loads(yson.dumps({"a": [1, 2.5]}, binary=True)) == \
+            {"a": [1, 2.5]}
+        assert native.status()["path"] in ("native", "numpy")
+        back = deserialize_chunk(serialize_chunk(halves[0]), device="cpu")
+        assert back.to_rows() == halves[0].to_rows()
+        dyn = TableSchema.make([("k", "int64", "ascending"), ("v", "int64")])
+        with tempfile.TemporaryDirectory() as root:
+            tab = Tablet(dyn, FsChunkStore(root), device="cpu")
+            txm = TransactionManager()
+            tx = txm.start()
+            txm.write_rows(tx, tab, [{"k": i, "v": i * i} for i in range(50)])
+            txm.commit(tx)
+            tab.flush()
+            tx = txm.start()
+            txm.delete_rows(tx, tab, [(3,)])
+            txm.commit(tx)
+            tab.flush()
+            tab.compact(retention_timestamp=txm.timestamps.generate())
+            assert tab.lookup_rows([(2,), (3,)]) == [{"k": 2, "v": 4}, None]
+            assert tab.read_snapshot().row_count == 49
         assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                              if v is not None}
         print("ok", len(rows))

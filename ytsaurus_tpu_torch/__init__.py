@@ -27,8 +27,15 @@ It runs QL queries over columnar chunks on one device:
   - parallel/ — the mesh over torch.distributed, the stitched paths, the
     whole-plan rung, the degradation ladder (`coordinate_distributed`)
     and the mesh observatory;
-  - config.py, utils/ — the knobs, failpoints, trace spans and sensors
-    those read.
+  - the storage path of a sorted dynamic table: tablet/tablet.py
+    (`Tablet`: writes, flush, compaction, snapshot reads, lookups),
+    tablet/dynamic_store.py, tablet/transactions.py (2PC over tablets),
+    tablet/timestamp.py, chunks/encoding.py (the reference's wire format,
+    byte for byte), chunks/store.py (`FsChunkStore`, `ChunkCache`),
+    chunks/compression.py, chunks/hunks.py, yson/, and native/ (the host
+    codec library, built with g++ at first use);
+  - config.py, utils/ — the knobs, failpoints, trace spans, sensors,
+    invariant checks and varints those read.
 
 Every entry point takes `device=`, which defaults to "cuda" and raises
 when no card is present (see device.py).

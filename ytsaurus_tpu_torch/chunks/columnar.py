@@ -4,7 +4,8 @@ Port of the JAX package's `chunks/columnar.py` (`next_pow2`, `pad_capacity`,
 `Column`, `ColumnarChunk`, `from_rows`, `from_arrays`, `to_rows`,
 `to_tuples`, `with_capacity`, `slice_rows`, `unify_dictionaries`,
 `concat_chunks`, and the column statistics the join
-planner reads: `chunk_column_stats`, `column_ndv_sketch`, `ndv_estimate`,
+planner and the chunk meta read: `chunk_column_stats` (one column's
+entry: `column_stats`), `column_ndv_sketch`, `ndv_estimate`,
 `merge_column_stats`, `vector_column_stats`):
 
   * A chunk is a struct-of-arrays: one fixed-width plane per column plus a
@@ -831,31 +832,38 @@ def chunk_column_stats(chunk: ColumnarChunk) -> dict:
     out: dict[str, dict] = {}
     n = chunk.row_count
     for name, col in chunk.columns.items():
-        if col.type in (EValueType.any, EValueType.null):
-            continue
-        if isinstance(col.type, VectorType):
-            out[name] = vector_column_stats(col, n)
-            continue
-        data, valid = _host_planes(col, n)
-        entry: dict = {"has_null": bool((~valid).any()) if n else True,
-                       "min": None, "max": None}
-        if n and valid.any():
-            data = data[valid]
-            if col.type is EValueType.string:
-                entry["min"] = bytes(
-                    col.dictionary[int(data.min())])[:_STAT_STRING_CAP]
-                entry["max"] = _string_stat_upper(
-                    bytes(col.dictionary[int(data.max())]))
-            elif col.type is EValueType.boolean:
-                entry["min"] = bool(data.min())
-                entry["max"] = bool(data.max())
-            elif col.type is EValueType.double:
-                entry["min"] = float(data.min())
-                entry["max"] = float(data.max())
-            else:
-                entry["min"] = int(data.min())
-                entry["max"] = int(data.max())
-        entry["ndv_sketch"] = column_ndv_sketch(col, n)
-        out[name] = entry
+        entry = column_stats(col, n)
+        if entry is not None:
+            out[name] = entry
     out["$row_count"] = n
     return out
+
+
+def column_stats(col: Column, n: int) -> "dict | None":
+    """One column's entry of `chunk_column_stats` over its first n rows
+    (None for `any` and `null` columns, which have none)."""
+    if col.type in (EValueType.any, EValueType.null):
+        return None
+    if isinstance(col.type, VectorType):
+        return vector_column_stats(col, n)
+    data, valid = _host_planes(col, n)
+    entry: dict = {"has_null": bool((~valid).any()) if n else True,
+                   "min": None, "max": None}
+    if n and valid.any():
+        data = data[valid]
+        if col.type is EValueType.string:
+            entry["min"] = bytes(
+                col.dictionary[int(data.min())])[:_STAT_STRING_CAP]
+            entry["max"] = _string_stat_upper(
+                bytes(col.dictionary[int(data.max())]))
+        elif col.type is EValueType.boolean:
+            entry["min"] = bool(data.min())
+            entry["max"] = bool(data.max())
+        elif col.type is EValueType.double:
+            entry["min"] = float(data.min())
+            entry["max"] = float(data.max())
+        else:
+            entry["min"] = int(data.min())
+            entry["max"] = int(data.max())
+    entry["ndv_sketch"] = column_ndv_sketch(col, n)
+    return entry

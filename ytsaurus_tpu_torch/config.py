@@ -15,6 +15,9 @@ counterpart):
                      whole-plan read) and `mesh_max_imbalance` (the skew
                      above which the mesh observatory counts an execution
                      as skewed)
+  TabletConfig       the tablet's read-path knobs: the host-plane LRU's
+                     size, the snapshot cache, and the version count at
+                     which the MVCC merge goes columnar
 
 The reference's CompileConfig knobs for compile caches, AOT artifacts and
 buffer donation have no counterpart: nothing here is compiled.
@@ -147,3 +150,45 @@ def set_telemetry_config(config: Optional[TelemetryConfig]) -> None:
     """Install a process-wide telemetry config (None restores defaults)."""
     global _TELEMETRY_CONFIG
     _TELEMETRY_CONFIG = config
+
+
+@dataclass
+class TabletConfig:
+    """Tablet read-path knobs (tablet/tablet.py):
+
+    - `host_plane_cache_capacity`: entries in the per-tablet LRU of
+      host numpy views of chunk planes (promote on hit; the lookup
+      probe's device → host staging cache).
+    - `snapshot_cache_enabled`: memoize the materialized visible chunk
+      per (flush generation, store mutation count) for latest-timestamp
+      reads; any write, flush or compaction invalidates it.
+    - `vectorized_scan_min_rows`: version count at and above which the
+      MVCC merge (read_snapshot, flush, compact) runs as the columnar
+      device pipeline (tablet/mvcc.py); below it the Python merge runs.
+      0 forces the columnar path."""
+
+    host_plane_cache_capacity: int = 64
+    snapshot_cache_enabled: bool = True
+    vectorized_scan_min_rows: int = 1024
+
+    def __post_init__(self):
+        _check("host_plane_cache_capacity", self.host_plane_cache_capacity,
+               ge=1)
+        _check("vectorized_scan_min_rows", self.vectorized_scan_min_rows,
+               ge=0)
+
+
+_TABLET_CONFIG: Optional[TabletConfig] = None
+
+
+def tablet_config() -> TabletConfig:
+    global _TABLET_CONFIG
+    if _TABLET_CONFIG is None:
+        _TABLET_CONFIG = TabletConfig()
+    return _TABLET_CONFIG
+
+
+def set_tablet_config(config: Optional[TabletConfig]) -> None:
+    """Install a process-wide tablet config (None restores defaults)."""
+    global _TABLET_CONFIG
+    _TABLET_CONFIG = config

@@ -10,14 +10,15 @@ A spec is `site=mode[:k=v]...` entries joined by `;`:
 
     query.shard_execute=error:times=2;parallel.gather=delay:ms=5:1in=3
 
-Modes: `error` (raise the site's registered error) and `delay` (sleep
-`ms` milliseconds). Knobs: `p` (trigger probability per hit, from a
+Modes: `error` (raise the site's registered error), `delay` (sleep
+`ms` milliseconds) and `torn-write` (write sites only, through
+`write_hit`: the payload is cut to its first half, and the caller writes
+that to its staging file and then fails without publishing it). Knobs: `p` (trigger probability per hit, from a
 per-site RNG seeded by (seed, site)), `1in` (every n-th eligible hit),
 `times` (at most this many triggers), `after` (skip the first n hits),
 `ms` (delay length). Activation is `active(spec, seed)` (a context
-manager) or `activate`. The reference's crash-once and
-torn-write modes (process death, write paths), its environment
-activation and its sensors are not ported.
+manager) or `activate`. The reference's crash-once mode (process death), its
+environment activation and its sensors are not ported.
 
 On a mesh every rank holds its own schedule: give every rank the same
 spec, and the sites (hit before any collective of their step) trigger on
@@ -36,7 +37,7 @@ from typing import Callable, Optional
 from ytsaurus_tpu_torch.errors import EErrorCode, YtError
 from ytsaurus_tpu_torch.utils import sanitizers
 
-MODES = ("error", "delay")
+MODES = ("error", "delay", "torn-write")
 
 
 def _default_error(site_name: str) -> BaseException:
@@ -100,9 +101,10 @@ class FailpointSite:
         self.hits = 0        # cumulative, only counted while active
         self.triggers = 0
 
-    def fire(self) -> "Optional[tuple[str, float]]":
+    def fire(self, write: bool = False) -> "Optional[tuple[str, float]]":
         """Evaluate the schedule for one hit: (mode, ms) when a fault
-        fires, None otherwise. Neither raises nor sleeps."""
+        fires, None otherwise. Neither raises nor sleeps. A torn-write
+        rule fires only on a write probe (`write=True`)."""
         state = _STATE
         if state is None:
             return None
@@ -112,6 +114,8 @@ class FailpointSite:
             if rule is None:
                 return None
             rule.hits += 1
+            if rule.mode == "torn-write" and not write:
+                return None
             if rule.hits <= rule.after:
                 return None
             if rule.times is not None and rule.triggered >= rule.times:
@@ -136,6 +140,23 @@ class FailpointSite:
             time.sleep(ms / 1000.0)
         else:
             raise self.error_factory(self.name)
+
+    def write_hit(self, blob: bytes) -> "tuple[bytes, bool]":
+        """The write-site probe: (payload, torn). With torn=True the
+        caller writes `payload` (a truncated prefix) to its staging
+        location and then fails the write without publishing it."""
+        if _STATE is None:
+            return blob, False
+        act = self.fire(write=True)
+        if act is None:
+            return blob, False
+        mode, ms = act
+        if mode == "delay":
+            time.sleep(ms / 1000.0)
+            return blob, False
+        if mode == "error":
+            raise self.error_factory(self.name)
+        return blob[: max(len(blob) // 2, 1)], True
 
 
 def register_site(name: str,

@@ -1,8 +1,9 @@
 """Sensors: counters and gauges in a process-wide registry.
 
 Own copy of the JAX package's `utils/profiling.py` as far as the mesh
-observatory reads it: `Profiler` (a prefix and tags) with its `counter`
-and `gauge`, and the registry that keys sensors by (name, tags). The
+observatory and the tablet read it: `Profiler` (a prefix and tags) with
+its `counter` and `gauge`, the registry that keys sensors by (name,
+tags), and `PoolSensorCache` (per-pool counter sets). The
 reference's summaries, histograms, Prometheus rendering and history rings
 are not ported.
 """
@@ -104,3 +105,26 @@ class Profiler:
 
     def gauge(self, name: str) -> Gauge:
         return self.registry._get(self._name(name), self.tags, Gauge)
+
+
+class PoolSensorCache:
+    """Memoized per-pool counter sets: `counters(pool)` returns
+    {name: Counter} tagged `pool=` (the untagged parent sensors when
+    pool is None or empty)."""
+
+    __slots__ = ("_profiler", "names", "_cache")
+
+    def __init__(self, prefix: str, names,
+                 registry: Optional[ProfilerRegistry] = None):
+        self._profiler = Profiler(prefix, registry=registry)
+        self.names = tuple(names)
+        self._cache: dict = {}
+
+    def counters(self, pool) -> dict:
+        entry = self._cache.get(pool)
+        if entry is None:
+            prof = self._profiler.with_tags(pool=pool) if pool \
+                else self._profiler
+            entry = self._cache[pool] = {name: prof.counter(name)
+                                         for name in self.names}
+        return entry
