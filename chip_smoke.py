@@ -94,6 +94,43 @@ Phases (any failure exits non-zero and prints no result line):
      count, the old files gone, and both reads unchanged. Every result
      is held to a numpy oracle (the TABLET oracle over the history and
      the writes at their commit timestamps), exactly;
+     DURABLE: SELECT_8's table (below) stored through the storage layer,
+     each read a query through coordinate_and_execute over lazy shards
+     that decode the chunks onto the card, held to SELECT_8's oracle. An
+     FsChunkStore holds the 8 chunks erasure-coded as lrc_12_2_2 (12 data
+     and 4 parity parts; every part's sha256 recorded); chunks 0-3 then
+     lose one data part each (both locality groups), chunks 4-5 two data
+     parts and one parity part; read 1 repairs (exactly the data parts
+     and, for a single loss, only its group's local parity are read; the
+     `chunks.erasure.part_read` site counts them) and every rewritten
+     part must hash as before; read 2 reads data parts only and repairs
+     nothing (profiled); verify_chunk holds for all 8; a ninth chunk that
+     lost parts 0, 1, 2 and 12 raises ChunkFormatError. Then a
+     ReplicatedChunkStore over 4 locations at replication factor 3: one
+     location's directory is deleted, the query re-replicates (every
+     chunk back at 3 copies, each the same bytes), a clean read
+     (profiled), one replica with a flipped byte fails verify_chunk and
+     is quarantined (the query still matches), `chunks.store.read` failing
+     once moves the read ladder to the next location (the retries
+     counted), and a chunk with no copy left raises NoSuchChunk. Host
+     seconds of the writes (serialize and erasure encode apart), of the
+     reads (decode, copy, and the repair's decode and re-encode apart),
+     bytes on disk per store, launches and peak memory per read;
+     QUEUE: an ordered (queue) tablet on the card, rows of producer in
+     [0, 64), seq (the producer's own count), v double and payload over
+     65,536 distinct 24-byte strings, from --seed + 11: 4,200,000 rows
+     appended in batches of 1,000 at their own timestamps, flushed at
+     every 1,000,000 rows (4 chunks; 200,000 rows stay in the store); 64
+     read_rows of 10,000 rows (8 across a chunk boundary or the store's
+     base), each against the oracle; trim_rows(1,500,000) removes the
+     first chunk's file, reads below and above the trim point; snapshot
+     at row 3,000,000's timestamp and the latest (host seconds, profiled
+     device ms), each queried on the card by a GROUP BY producer under
+     WHERE $row_index >= 2000000 (counts exact, sums to rtol 1e-9) and
+     an ORDER BY seq DESC, producer LIMIT 100 (rows and order exact);
+     the 640,000 consumed rows through dumps_rows / loads_rows in yson,
+     json, dsv and schemaful_dsv and dumps_skiff / loads_skiff, each
+     giving back the same rows (host seconds and bytes per format);
      SELECT (query/coordinator.py::coordinate_and_execute, the host rung
      behind select_rows, one evaluator on the card): SELECT_8 (bench.py's
      select over 8 chunks of 8,000,000 rows: k the row number, g uniform
@@ -1660,6 +1697,563 @@ def phase_dyntable(seed: int, hr, rx, port) -> dict:
     return out
 
 
+# --- DURABLE: the select table stored erasure-coded and replicated ----------
+
+DURABLE_CODEC = "lrc_12_2_2"   # YTsaurus's usual erasure codec for tables
+DURABLE_LOCATIONS = 4          # location roots of the replicated store
+DURABLE_RF = 3                 # YTsaurus's default replication_factor
+# Parts each LRC chunk loses before the first read: chunks 0-3 one data
+# part each (both locality groups hit), chunks 4-5 two data parts and one
+# parity part, chunks 6-7 none.
+DURABLE_LOST = [(1,), (4,), (7,), (10,), (0, 6, 14), (3, 11, 12), (), ()]
+# Three data parts of one group and its local parity: the reference
+# refuses this pattern (tests/test_erasure.py).
+DURABLE_UNRECOVERABLE = (0, 1, 2, 12)
+
+
+def _sha256(path: str) -> str:
+    import hashlib
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def _tree_bytes(root: str) -> int:
+    total = 0
+    for dirpath, _, names in os.walk(root):
+        total += sum(os.path.getsize(os.path.join(dirpath, n))
+                     for n in names)
+    return total
+
+
+def _durable_read(name: str, co, ev, plan, shards, check, hr, rx,
+                  expect_parts=None, profile: bool = True) -> dict:
+    """One query over lazily read chunks: a counted run held to the oracle
+    (with its part reads, repairs and host seconds), then, with `profile`,
+    two more runs under the profiler (the second gives device ms and the
+    idle share)."""
+    import torch
+    from ytsaurus_tpu_torch.chunks.encoding import decode_totals
+    from ytsaurus_tpu_torch.chunks.store import repair_totals
+    from ytsaurus_tpu_torch.utils import failpoints
+    site = failpoints._SITES["chunks.erasure.part_read"]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _reset_launches(hr, rx)
+    dec0, rep0 = decode_totals(), repair_totals()
+    # A zero delay on the part-read site counts every part read.
+    with failpoints.active("chunks.erasure.part_read=delay:ms=0"):
+        hits0 = site.hits
+        t = time.perf_counter()
+        result = co.coordinate_and_execute(plan, shards(), evaluator=ev)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t
+        parts_read = site.hits - hits0
+    launches = _launches(hr, rx)
+    dec1, rep1 = decode_totals(), repair_totals()
+    rec = {"host_s": host_s, "rows_out": check(result),
+           "launches": launches, "part_reads": parts_read,
+           "decodes": dec1["chunks"] - dec0["chunks"],
+           "decode_s": dec1["decode_seconds"] - dec0["decode_seconds"],
+           "copy_s": dec1["copy_seconds"] - dec0["copy_seconds"],
+           **{f"repair_{k}": rep1[k] - rep0[k] for k in rep1},
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del result
+    if expect_parts is not None and parts_read != expect_parts:
+        raise AssertionError(f"{name}: {parts_read} part reads, not "
+                             f"{expect_parts}")
+    for kernel in PATH_KERNELS:
+        if launches[kernel] <= 0:
+            raise AssertionError(f"{name}: the main path launched no "
+                                 f"{kernel} kernel")
+    if profile:
+        prof = _profile(lambda: co.coordinate_and_execute(
+            plan, shards(), evaluator=ev), hr, rx)
+        rec.update(device_busy_ms=prof["device_busy_ms"],
+                   idle_share=prof["idle_share"], wall_ms=prof["wall_ms"],
+                   profile=prof)
+    _dyntable_log(name, rec)
+    return rec
+
+
+def phase_durable(seed: int, hr, rx, port) -> dict:
+    """DURABLE: the select table (64M rows as 8 chunks of 8M) stored
+    erasure-coded (lrc_12_2_2) and then replicated (4 locations, factor
+    3), damaged, and read back through coordinate_and_execute with lazy
+    shards that decode onto the card, each read held to SELECT_8's
+    oracle."""
+    import shutil
+
+    import torch
+    from ytsaurus_tpu_torch.chunks.encoding import serialize_chunk
+    from ytsaurus_tpu_torch.chunks.erasure import get_erasure_codec
+    from ytsaurus_tpu_torch.chunks.replicated import ReplicatedChunkStore
+    from ytsaurus_tpu_torch.chunks.store import FsChunkStore
+    from ytsaurus_tpu_torch.errors import EErrorCode, YtError
+    from ytsaurus_tpu_torch.utils import failpoints
+    t_phase = time.perf_counter()
+    co = _coordinator_entry_points()
+    ev = co.Evaluator("cuda")
+    codec = get_erasure_codec(DURABLE_CODEC)
+    arrays = _select_arrays(seed)
+    check = _select_group_check(arrays, "DURABLE")
+    schema = port.TableSchema.make([("k", "int64", "ascending"),
+                                    ("g", "int64"), ("v", "int64")])
+    plan = co.build_query(SELECT_QUERY, {"//t": schema})
+    out: dict = {"paths": {}, "lrc": {}, "replicated": {}}
+    with tempfile.TemporaryDirectory() as root:
+        # 1. The LRC store: serialize each chunk once, then its parts.
+        lrc = out["lrc"]
+        store = FsChunkStore(os.path.join(root, "lrc"))
+        ids, blobs = [], []
+        ser_s = enc_s = put_s = 0.0
+        for i, a in enumerate(arrays):
+            chunk = port.ColumnarChunk.from_arrays(schema, a, device="cuda")
+            t = time.perf_counter()
+            blob = serialize_chunk(chunk, store.codec)
+            ser_s += time.perf_counter() - t
+            t = time.perf_counter()
+            codec.encode(blob)
+            enc_s += time.perf_counter() - t
+            cid = "%032x" % (0xD0 + i)
+            t = time.perf_counter()
+            store.put_blob(cid, blob, erasure=DURABLE_CODEC)
+            put_s += time.perf_counter() - t
+            ids.append(cid)
+            blobs.append(len(blob))
+            del chunk
+        sha = {(cid, i): _sha256(store._part_path(cid, i))
+               for cid in ids for i in range(codec.total_parts)}
+        lrc["write"] = {"chunks": len(ids), "blob_bytes": blobs,
+                        "serialize_s": ser_s, "encode_s": enc_s,
+                        "encode_and_write_s": put_s,
+                        "bytes_on_disk": _tree_bytes(store.root)}
+        _dyntable_log("durable lrc write", lrc["write"])
+        for cid, lost in zip(ids, DURABLE_LOST):
+            for i in lost:
+                os.unlink(store._part_path(cid, i))
+
+        def lrc_shards():
+            return [(lambda cid=cid: store.read_chunk(cid, device="cuda"))
+                    for cid in ids]
+
+        # Read 1 repairs: 12 data-part reads a chunk, one local parity
+        # for each single loss, all four parities where data parts of
+        # both groups are gone.
+        want_parts = len(ids) * codec.data_parts + sum(
+            1 if len(lost) == 1 else codec.parity_parts
+            for lost in DURABLE_LOST if lost)
+        rec = _durable_read("durable lrc read 1 (repair)", co, ev, plan,
+                            lrc_shards, check, hr, rx,
+                            expect_parts=want_parts, profile=False)
+        damaged = sum(1 for lost in DURABLE_LOST if lost)
+        if rec["repair_repairs"] != damaged or rec["repair_parts_rewritten"] \
+                != sum(len(lost) for lost in DURABLE_LOST):
+            raise AssertionError(f"DURABLE: {rec['repair_repairs']} repairs "
+                                 f"rewrote {rec['repair_parts_rewritten']} "
+                                 "parts")
+        bad = [key for key, digest in sha.items()
+               if _sha256(store._part_path(*key)) != digest]
+        if bad:
+            raise AssertionError(f"DURABLE: repaired parts differ: {bad}")
+        lrc["read_repair"] = rec
+        out["paths"]["durable_lrc_repair"] = rec
+        # Read 2: data parts only, no repair.
+        rec = _durable_read("durable lrc read 2", co, ev, plan, lrc_shards,
+                            check, hr, rx,
+                            expect_parts=len(ids) * codec.data_parts)
+        if rec["repair_repairs"]:
+            raise AssertionError("DURABLE: the clean read repaired")
+        lrc["read_clean"] = rec
+        out["paths"]["durable_lrc_read"] = rec
+        t = time.perf_counter()
+        if not all(store.verify_chunk(cid) for cid in ids):
+            raise AssertionError("DURABLE: verify_chunk failed after repair")
+        lrc["verify_s"] = time.perf_counter() - t
+        small = port.ColumnarChunk.from_arrays(
+            schema, {k: a[:1000] for k, a in arrays[0].items()},
+            device="cuda")
+        lost_cid = store.write_chunk(small, erasure=DURABLE_CODEC)
+        for i in DURABLE_UNRECOVERABLE:
+            os.unlink(store._part_path(lost_cid, i))
+        try:
+            store.read_chunk(lost_cid, device="cuda")
+        except YtError as e:
+            if e.code != EErrorCode.ChunkFormatError:
+                raise
+            lrc["unrecoverable_code"] = e.code
+        else:
+            raise AssertionError("DURABLE: parts 0, 1, 2 and 12 lost, the "
+                                 "read did not raise")
+        store.remove_chunk(lost_cid)
+        lrc["bytes_on_disk"] = _tree_bytes(store.root)
+        _dyntable_log("durable lrc", {k: v for k, v in lrc.items()
+                                      if k.startswith(("verify", "unrec",
+                                                       "bytes"))})
+        shutil.rmtree(store.root)
+
+        # 2. The replicated store.
+        rep = out["replicated"]
+        roots = [os.path.join(root, f"loc{i}")
+                 for i in range(DURABLE_LOCATIONS)]
+        rs = ReplicatedChunkStore(roots, replication_factor=DURABLE_RF)
+        t = time.perf_counter()
+        for cid, a in zip(ids, arrays):
+            rs.write_chunk(port.ColumnarChunk.from_arrays(schema, a,
+                                                          device="cuda"),
+                           chunk_id=cid)
+        rep["write"] = {"host_s": time.perf_counter() - t,
+                        "bytes_on_disk": sum(_tree_bytes(r) for r in roots)}
+        _dyntable_log("durable replicated write", rep["write"])
+
+        def copies(cid):
+            return [s for s in rs.locations if s.exists(cid)]
+
+        def rs_shards():
+            return [(lambda cid=cid: rs.read_chunk(cid, device="cuda"))
+                    for cid in ids]
+
+        dead = rs.locations[1]
+        lost_copies = sum(1 for cid in ids if dead.exists(cid))
+        shutil.rmtree(dead.root)
+        os.makedirs(dead.root)
+        t = time.perf_counter()
+        rec = _durable_read("durable replicated read (dead disk)", co, ev,
+                            plan, rs_shards, check, hr, rx, profile=False)
+        for cid in ids:
+            holders = copies(cid)
+            digests = {_sha256(s._path(cid)) for s in holders}
+            if len(holders) != DURABLE_RF or len(digests) != 1:
+                raise AssertionError(f"DURABLE: chunk {cid} has "
+                                     f"{len(holders)} copies, "
+                                     f"{len(digests)} distinct")
+        rec["copies_lost"] = lost_copies
+        rec["copies_restored"] = sum(1 for cid in ids if dead.exists(cid))
+        rep["read_dead_disk"] = rec
+        out["paths"]["durable_replicated_repair"] = rec
+        rec = _durable_read("durable replicated read", co, ev, plan,
+                            rs_shards, check, hr, rx)
+        rep["read_clean"] = rec
+        out["paths"]["durable_replicated_read"] = rec
+        # A flipped byte: that replica fails verification and is moved
+        # aside; the query is still served.
+        holder = rs._placement(ids[0])[0]
+        path = holder._path(ids[0])
+        with open(path, "r+b") as f:
+            f.seek(os.path.getsize(path) // 2)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([byte[0] ^ 0x5A]))
+        if holder.verify_chunk(ids[0]):
+            raise AssertionError("DURABLE: a flipped byte passed verify")
+        holder.quarantine_chunk(ids[0])
+        if holder.exists(ids[0]) or \
+                not os.path.exists(path + ".quarantine"):
+            raise AssertionError("DURABLE: quarantine left the replica")
+        rep["flip"] = _durable_read("durable replicated read (quarantined)",
+                                    co, ev, plan, rs_shards, check, hr, rx,
+                                    profile=False)
+        # The read ladder: one location's read fails, the next serves.
+        rs._banned_until.clear()
+        with failpoints.active("chunks.store.read=error:times=1"):
+            site = failpoints._SITES["chunks.store.read"]
+            hits0 = site.hits
+            check(co.coordinate_and_execute(plan, rs_shards(), evaluator=ev))
+            probes = site.hits - hits0
+            failed = failpoints._STATE.rules["chunks.store.read"].triggered
+        rep["ladder"] = {"probes": probes, "failed": failed,
+                         "retries": probes - len(ids),
+                         "banned": len(rs._banned_until)}
+        if failed != 1 or probes != len(ids) + 1:
+            raise AssertionError(f"DURABLE ladder: {rep['ladder']}")
+        _dyntable_log("durable replicated ladder", rep["ladder"])
+        gone = rs.write_chunk(small)
+        for s in rs.locations:
+            s.remove_chunk(gone)
+        try:
+            rs.read_chunk(gone, device="cuda")
+        except YtError as e:
+            if e.code != EErrorCode.NoSuchChunk:
+                raise
+            rep["no_copy_code"] = e.code
+        else:
+            raise AssertionError("DURABLE: a chunk with no copy was read")
+        rep["bytes_on_disk"] = sum(_tree_bytes(r) for r in roots)
+        _dyntable_log("durable replicated", {
+            "no_copy_code": rep["no_copy_code"],
+            "bytes_on_disk": rep["bytes_on_disk"]})
+    del arrays
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    _log(f"durable: {out['seconds']:.1f} s in all")
+    return out
+
+
+# --- QUEUE: an ordered (queue) tablet ----------------------------------------
+
+QUEUE_ROWS = 4_000_000         # rows flushed into chunks
+QUEUE_TAIL = 200_000           # rows left in the dynamic store
+QUEUE_BATCH = 1_000            # rows per append, each at its own timestamp
+QUEUE_FLUSH = 1_000_000        # max_dynamic_store_row_count's default
+QUEUE_PRODUCERS = 64
+QUEUE_PAYLOADS = 65_536        # distinct 24-byte payloads
+QUEUE_CONSUMERS = 64
+QUEUE_READ = 10_000            # rows per consumer read
+QUEUE_TRIM = 1_500_000
+QUEUE_SNAPSHOT_ROW = 3_000_000  # snapshot(ts) at this row's timestamp
+QUEUE_GROUP_FROM = 2_000_000   # the GROUP BY's least $row_index
+QUEUE_GROUP = ("producer, count(*) AS c, sum(v) AS s FROM [//q] "
+               f"WHERE $row_index >= {QUEUE_GROUP_FROM} GROUP BY producer")
+QUEUE_TOP = 100
+QUEUE_ORDER = (f"producer, seq, $row_index FROM [//q] "
+               f"ORDER BY seq DESC, producer LIMIT {QUEUE_TOP}")
+QUEUE_COLUMNS = ["$row_index", "$timestamp", "producer", "seq", "v",
+                 "payload"]
+
+
+def _queue_data(seed: int) -> dict:
+    """The queue's rows as numpy columns: producer uniform in [0, 64),
+    seq each producer's own count, v uniform in [0, 1), payload one of
+    65,536 distinct 24-byte values."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 11)
+    n = QUEUE_ROWS + QUEUE_TAIL
+    producer = rng.integers(0, QUEUE_PRODUCERS, n)
+    order = np.argsort(producer, kind="stable")
+    first = np.searchsorted(producer[order], np.arange(QUEUE_PRODUCERS))
+    seq = np.empty(n, dtype=np.int64)
+    seq[order] = np.arange(n) - np.repeat(first, np.bincount(
+        producer, minlength=QUEUE_PRODUCERS))
+    salt = rng.integers(0, 1 << 62, QUEUE_PAYLOADS)
+    vocab = [b"%08x%016x" % (i, s) for i, s in enumerate(salt.tolist())]
+    return {"producer": producer, "seq": seq, "v": rng.uniform(0, 1, n),
+            "payload": rng.integers(0, QUEUE_PAYLOADS, n), "vocab": vocab,
+            "timestamp": np.arange(n) // QUEUE_BATCH + 1}
+
+
+def _queue_expect(d: dict, lo: int, hi: int) -> dict:
+    """The oracle's columns of rows [lo, hi)."""
+    vocab = d["vocab"]
+    return {"$row_index": list(range(lo, hi)),
+            "$timestamp": d["timestamp"][lo:hi].tolist(),
+            "producer": d["producer"][lo:hi].tolist(),
+            "seq": d["seq"][lo:hi].tolist(),
+            "v": d["v"][lo:hi].tolist(),
+            "payload": [vocab[i] for i in d["payload"][lo:hi].tolist()]}
+
+
+def _check_queue_rows(name: str, rows: list, d: dict, lo: int,
+                      hi: int) -> None:
+    want = _queue_expect(d, lo, hi)
+    if len(rows) != hi - lo:
+        raise AssertionError(f"{name}: {len(rows)} rows, not {hi - lo}")
+    for col, values in want.items():
+        if [r[col] for r in rows] != values:
+            raise AssertionError(f"{name}: column {col} differs from the "
+                                 "oracle")
+
+
+def _format_text(value):
+    """A value as the DSV formats write it, parsed back."""
+    if isinstance(value, bytes):
+        return value.decode()
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    return str(value)
+
+
+def _queue_formats(rows: list, port) -> dict:
+    """The consumers' rows through every row format and back: each must
+    give back the same rows (YSON and JSON carry bytes back as text, the
+    DSV formats carry every value as text, skiff is exact)."""
+    from ytsaurus_tpu_torch import formats
+    out = {}
+    schema = port.TableSchema.make([
+        ("$row_index", "int64"), ("$timestamp", "int64"),
+        ("producer", "int64"), ("seq", "int64"), ("v", "double"),
+        ("payload", "string")])
+    as_text = [{k: v.decode() if isinstance(v, bytes) else v
+                for k, v in r.items()} for r in rows]
+    for fmt in ("yson", "json", "dsv", "schemaful_dsv", "skiff"):
+        t = time.perf_counter()
+        if fmt == "skiff":
+            blob = formats.dumps_skiff(rows, schema)
+        else:
+            blob = formats.dumps_rows(rows, fmt, columns=QUEUE_COLUMNS)
+        dump_s = time.perf_counter() - t
+        t = time.perf_counter()
+        if fmt == "skiff":
+            back, want = formats.loads_skiff(blob, schema), rows
+        else:
+            back = formats.loads_rows(blob, fmt, columns=QUEUE_COLUMNS)
+            want = as_text if fmt in ("yson", "json") else \
+                [{k: _format_text(v) for k, v in r.items()} for r in rows]
+        load_s = time.perf_counter() - t
+        if back != want:
+            raise AssertionError(f"QUEUE: {fmt} did not give back the rows")
+        out[fmt] = {"bytes": len(blob), "dumps_s": dump_s,
+                    "loads_s": load_s}
+        del blob, back
+    return out
+
+
+def phase_queue(seed: int, hr, rx, port) -> dict:
+    """QUEUE: an ordered tablet on the card. 4,200,000 message rows
+    appended in batches of 1,000 (each at its own timestamp), flushed at
+    every 1,000,000 rows (4 chunks, 200,000 rows left in the store); 64
+    consumer reads of 10,000 rows; a trim; snapshots at a timestamp and
+    at the latest, each queried on the card (GROUP BY and ORDER BY ...
+    LIMIT); the consumers' rows through every row format. Everything is
+    held to a numpy oracle."""
+    import numpy as np
+    import torch
+    from ytsaurus_tpu_torch.chunks.store import FsChunkStore
+    from ytsaurus_tpu_torch.tablet.ordered import OrderedTablet
+    t_phase = time.perf_counter()
+    d = _queue_data(seed)
+    n = QUEUE_ROWS + QUEUE_TAIL
+    made_s = time.perf_counter() - t_phase
+    schema = port.TableSchema.make([("producer", "int64"), ("seq", "int64"),
+                                    ("v", "double"), ("payload", "string")])
+    out: dict = {"paths": {}, "rows": n}
+    with tempfile.TemporaryDirectory() as root:
+        tablet = OrderedTablet(schema, FsChunkStore(root), device="cuda")
+        append_s, flush_s = 0.0, []
+        producer, seq = d["producer"].tolist(), d["seq"].tolist()
+        v, vocab = d["v"].tolist(), d["vocab"]
+        payload = d["payload"].tolist()
+        for b in range(n // QUEUE_BATCH):
+            lo = b * QUEUE_BATCH
+            rows = [{"producer": p, "seq": s, "v": x, "payload": vocab[q]}
+                    for p, s, x, q in zip(
+                        producer[lo:lo + QUEUE_BATCH],
+                        seq[lo:lo + QUEUE_BATCH], v[lo:lo + QUEUE_BATCH],
+                        payload[lo:lo + QUEUE_BATCH])]
+            t = time.perf_counter()
+            if tablet.append_rows(rows, b + 1) != lo:
+                raise AssertionError("QUEUE: an append got the wrong index")
+            append_s += time.perf_counter() - t
+            if (lo + QUEUE_BATCH) % QUEUE_FLUSH == 0 and \
+                    lo + QUEUE_BATCH <= QUEUE_ROWS:
+                t = time.perf_counter()
+                tablet.flush()
+                torch.cuda.synchronize()
+                flush_s.append(time.perf_counter() - t)
+        del producer, seq, v, payload
+        if tablet.row_count != n or len(tablet.chunk_ids) != \
+                QUEUE_ROWS // QUEUE_FLUSH or tablet.base_index != QUEUE_ROWS:
+            raise AssertionError(f"QUEUE: {tablet.row_count} rows, "
+                                 f"{len(tablet.chunk_ids)} chunks")
+        store = tablet.chunk_store
+        out["write"] = {
+            "made_s": made_s, "append_s": append_s,
+            "appends_per_s": n / append_s, "flush_s": flush_s,
+            "chunk_bytes": [os.path.getsize(store._path(c))
+                            for c in tablet.chunk_ids],
+            "bytes_on_disk": _tree_bytes(root)}
+        _dyntable_log("queue write", out["write"])
+        # Consumers: offsets spread over the log, 8 across the chunk
+        # boundaries and the store's base.
+        edges = [b * QUEUE_FLUSH + d_ for b in range(1, 5)
+                 for d_ in (-QUEUE_READ // 2, -1)]
+        spread = np.linspace(0, n - QUEUE_READ, QUEUE_CONSUMERS
+                             - len(edges)).astype(np.int64).tolist()
+        offsets = sorted(spread + edges)
+        consumed, times = [], []
+        for off in offsets:
+            t = time.perf_counter()
+            rows = tablet.read_rows(off, QUEUE_READ)
+            times.append((time.perf_counter() - t) * 1e3)
+            _check_queue_rows(f"QUEUE read@{off}", rows, d, off,
+                              off + QUEUE_READ)
+            consumed += rows
+        out["consumers"] = {"reads": len(offsets), "rows": len(consumed),
+                            "median_ms": statistics.median(times),
+                            "ms_max": max(times),
+                            "decodes": tablet.chunk_cache.misses}
+        _dyntable_log("queue consumers", out["consumers"])
+        # Trim: the first chunk goes from disk; reads below the trim
+        # point start at it.
+        first = tablet.chunk_ids[0]
+        tablet.trim_rows(QUEUE_TRIM)
+        if store.exists(first) or len(tablet.chunk_ids) != 3:
+            raise AssertionError("QUEUE: the trim left the first chunk")
+        above = QUEUE_TRIM + QUEUE_FLUSH // 10
+        for off, lo in ((0, QUEUE_TRIM),
+                        (QUEUE_TRIM - QUEUE_READ // 2, QUEUE_TRIM),
+                        (above, above)):
+            _check_queue_rows(f"QUEUE read@{off} after the trim",
+                              tablet.read_rows(off, QUEUE_READ), d, lo,
+                              lo + QUEUE_READ)
+        # Snapshots, then queries on the card.
+        ts = int(d["timestamp"][QUEUE_SNAPSHOT_ROW])
+        hi_ts = int(np.searchsorted(d["timestamp"], ts, side="right"))
+        snaps = {}
+        for label, at, hi in ((f"ts{ts}", ts, hi_ts), ("latest", None, n)):
+            t = time.perf_counter()
+            snap = tablet.snapshot(at)
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t
+            planes = snap.to_numpy()["planes"]
+            got_index = planes["$row_index"][0][:snap.row_count]
+            if snap.row_count != hi - QUEUE_TRIM or not np.array_equal(
+                    got_index, np.arange(QUEUE_TRIM, hi)) or \
+                    not np.array_equal(planes["v"][0][:snap.row_count],
+                                       d["v"][QUEUE_TRIM:hi]):
+                raise AssertionError(f"QUEUE snapshot {label} differs")
+            prof = _profile(lambda at=at: tablet.snapshot(at), hr, rx)
+            rec = {"rows": snap.row_count, "host_s": host_s,
+                   "device_busy_ms": prof["device_busy_ms"],
+                   "idle_share": prof["idle_share"],
+                   "wall_ms": prof["wall_ms"],
+                   "launches": prof["launched"], "profile": prof}
+            out["paths"][f"queue_snapshot_{label}"] = rec
+            _dyntable_log(f"queue snapshot {label}", rec)
+            snaps[label] = (snap, hi)
+        for label, (snap, hi) in snaps.items():
+            lo = max(QUEUE_TRIM, QUEUE_GROUP_FROM)
+            p, vv = d["producer"][lo:hi], d["v"][lo:hi]
+            want_c = np.bincount(p, minlength=QUEUE_PRODUCERS)
+            want_s = np.bincount(p, weights=vv, minlength=QUEUE_PRODUCERS)
+
+            def check_group(result, want_c=want_c, want_s=want_s) -> int:
+                got = {r["producer"]: r for r in result.to_rows()}
+                if sorted(got) != np.flatnonzero(want_c).tolist():
+                    raise AssertionError("QUEUE GROUP BY groups differ")
+                for g, r in got.items():
+                    if r["c"] != want_c[g] or not np.isclose(
+                            r["s"], want_s[g], rtol=1e-9, atol=0):
+                        raise AssertionError(f"QUEUE GROUP BY {g} differs")
+                return len(got)
+
+            live = np.arange(QUEUE_TRIM, hi)
+            top = live[np.lexsort((d["producer"][live],
+                                   -d["seq"][live]))][:QUEUE_TOP]
+
+            def check_order(result, top=top) -> int:
+                rows = result.to_rows()
+                if [r["$row_index"] for r in rows] != top.tolist() or \
+                        [r["seq"] for r in rows] != d["seq"][top].tolist():
+                    raise AssertionError("QUEUE ORDER BY rows differ")
+                return len(rows)
+
+            for qname, query, check in (("group", QUEUE_GROUP, check_group),
+                                        ("order", QUEUE_ORDER, check_order)):
+                name = f"queue_{qname}_{label}"
+                out["paths"][name] = _run_path(
+                    name, lambda query=query, snap=snap: port.select_rows(
+                        query, {"//q": snap}, device="cuda"),
+                    check, snap.row_count, hr, rx)
+        del snaps, snap
+        # The consumers' rows through the row formats.
+        out["formats"] = _queue_formats(consumed, port)
+        _dyntable_log("queue formats", out["formats"])
+        del consumed, tablet
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    _log(f"queue: {out['seconds']:.1f} s in all")
+    return out
+
+
 # --- SELECT: multi-chunk selects through the host coordinator ---------------
 
 SELECT_ROWS = 64_000_000     # bench.py's select table at the q1 bench size
@@ -1683,6 +2277,32 @@ def _select_arrays(seed: int) -> list:
              "g": rng.integers(0, SELECT_GROUPS, per),
              "v": rng.integers(0, 1000, per)}
             for i in range(SELECT_CHUNKS)]
+
+
+def _select_group_check(arrays: list, name: str):
+    """SELECT_QUERY's numpy oracle over the select table's chunks: a check
+    that a result holds exactly its groups, sums and counts (it returns
+    the rows out)."""
+    import numpy as np
+    g = np.concatenate([a["g"] for a in arrays])
+    v = np.concatenate([a["v"] for a in arrays])
+    sel = v < 900
+    want_s = np.bincount(g[sel], weights=v[sel], minlength=SELECT_GROUPS)
+    want_c = np.bincount(g[sel], minlength=SELECT_GROUPS)
+    del g, v, sel
+
+    def check(result) -> int:
+        planes = result.to_numpy()["planes"]
+        n = result.row_count
+        got_g = planes["g"][0][:n]
+        if n != int((want_c > 0).sum()) or \
+                not np.array_equal(planes["s"][0][:n].astype(np.float64),
+                                   want_s[got_g]) or \
+                not np.array_equal(planes["c"][0][:n], want_c[got_g]) or \
+                len(np.unique(got_g)) != n:
+            raise AssertionError(f"{name} groups differ from the oracle")
+        return n
+    return check
 
 
 def _coordinator_entry_points():
@@ -1722,27 +2342,11 @@ def phase_select(seed: int, hr, rx, tpch, port, keep: dict) -> dict:
     chunks = [port.ColumnarChunk.from_arrays(schema, a, device="cuda")
               for a in arrays]
     torch.cuda.synchronize()
-    g = np.concatenate([a["g"] for a in arrays])
+    check_select = _select_group_check(arrays, "SELECT_8")
     v = np.concatenate([a["v"] for a in arrays])
-    sel = v < 900
-    want_s = np.bincount(g[sel], weights=v[sel], minlength=SELECT_GROUPS)
-    want_c = np.bincount(g[sel], minlength=SELECT_GROUPS)
-    del g, sel
     per = SELECT_ROWS // SELECT_CHUNKS
     _log(f"select table: {SELECT_ROWS} rows as {SELECT_CHUNKS} chunks of "
          f"{per}, made in {time.perf_counter() - t0:.1f} s (seed {seed + 7})")
-
-    def check_select(result) -> int:
-        planes = result.to_numpy()["planes"]
-        n = result.row_count
-        got_g = planes["g"][0][:n]
-        if n != int((want_c > 0).sum()) or \
-                not np.array_equal(planes["s"][0][:n].astype(np.float64),
-                                   want_s[got_g]) or \
-                not np.array_equal(planes["c"][0][:n], want_c[got_g]) or \
-                len(np.unique(got_g)) != n:
-            raise AssertionError("SELECT_8 groups differ from the oracle")
-        return n
 
     want_limit_k = np.flatnonzero(v > 900)[:1000]
 
@@ -2776,6 +3380,10 @@ def main() -> int:
     paths["tablet"] = phase_tablet(args.seed, hr, rx, port)
     dyntable = phase_dyntable(args.seed, hr, rx, port)
     paths.update(dyntable.pop("paths"))
+    durable = phase_durable(args.seed, hr, rx, port)
+    paths.update(durable.pop("paths"))
+    queue = phase_queue(args.seed, hr, rx, port)
+    paths.update(queue.pop("paths"))
     paths.update(phase_select(args.seed, hr, rx, tpch, port, keep))
     paths.update(phase_mesh(hr, rx, tpch, keep))
     keep.clear()
@@ -2808,6 +3416,7 @@ def main() -> int:
               "cuda": torch.version.cuda, "rows": ROWS, "orders": ORDERS,
               "window_rows": WINDOW_ROWS, "sort_rows": SORT_ROWS,
               "tablet_versions": TABLET_VERSIONS, "dyntable": dyntable,
+              "durable": durable, "queue": queue,
               "extsort_rows": paths["extsort"]["rows_in"],
               "strings_rows": STRINGS_ROWS, "vector_rows": VECTOR_ROWS,
               "vector": vec, "mesh_ranks": mesh_ranks,

@@ -734,3 +734,75 @@ def test_deserialize_chunk_onto_the_card_matches_the_cpu(cuda_device):
                        else torch.int64)
         assert torch.equal(a, b), name
     assert serialize_chunk(gpu) == blob
+
+
+def test_erasure_and_replicated_reads_onto_the_card(cuda_device, tmp_path):
+    """An erasure chunk repaired on read and a replicated chunk
+    re-replicated from the card's planes give the CPU's rows and the same
+    bytes on disk."""
+    import os
+    import shutil
+
+    from ytsaurus_tpu_torch.chunks.columnar import ColumnarChunk
+    from ytsaurus_tpu_torch.chunks.replicated import ReplicatedChunkStore
+    from ytsaurus_tpu_torch.chunks.store import FsChunkStore
+    from ytsaurus_tpu_torch.schema import TableSchema
+    schema = TableSchema.make([("k", "int64"), ("s", "string"),
+                               ("a", "any")])
+    rows = [{"k": i, "s": f"s{i % 11}", "a": [i] if i % 3 else None}
+            for i in range(5000)]
+    chunk = ColumnarChunk.from_rows(schema, rows, device=cuda_device)
+    store = FsChunkStore(str(tmp_path / "lrc"))
+    cid = store.write_chunk(chunk, erasure="lrc_12_2_2")
+    part = store._part_path(cid, 5)
+    with open(part, "rb") as f:
+        original = f.read()
+    os.unlink(part)
+    got = store.read_chunk(cid, device=cuda_device)
+    assert got.device.type == cuda_device.type
+    assert got.to_rows() == store.read_chunk(cid, device="cpu").to_rows() \
+        == chunk.to_rows()
+    with open(part, "rb") as f:
+        assert f.read() == original
+    rs = ReplicatedChunkStore([str(tmp_path / f"loc{i}") for i in range(4)],
+                              replication_factor=3)
+    cid = rs.write_chunk(chunk)
+    holder = next(s for s in rs._placement(cid) if s.exists(cid))
+    blob = holder.get_blob(cid)
+    shutil.rmtree(holder.root)
+    os.makedirs(holder.root)
+    assert rs.read_chunk(cid, device=cuda_device).to_rows() == \
+        chunk.to_rows()
+    assert holder.get_blob(cid) == blob
+
+
+def test_ordered_tablet_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    from ytsaurus_tpu_torch.chunks.store import FsChunkStore
+    from ytsaurus_tpu_torch.query import select_rows
+    from ytsaurus_tpu_torch.schema import TableSchema
+    from ytsaurus_tpu_torch.tablet.ordered import OrderedTablet
+    schema = TableSchema.make([("p", "int64"), ("v", "double"),
+                               ("s", "string")])
+    tablets = [OrderedTablet(schema, FsChunkStore(str(tmp_path / str(d))),
+                             device=d) for d in (cuda_device, "cpu")]
+    rng = np.random.default_rng(4)
+    for b in range(30):
+        rows = [{"p": int(rng.integers(0, 9)), "v": float(rng.normal()),
+                 "s": f"m{int(rng.integers(0, 40))}"} for _ in range(200)]
+        for t in tablets:
+            t.append_rows(rows, b + 1)
+            if b % 8 == 7:
+                t.flush()
+    for t in tablets:
+        t.trim_rows(1500)
+    gpu, cpu = tablets
+    assert gpu.read_rows(1000, 3000) == cpu.read_rows(1000, 3000)
+    for ts in (None, 17):
+        snap = gpu.snapshot(ts)
+        assert snap.device.type == cuda_device.type
+        assert snap.to_rows() == cpu.snapshot(ts).to_rows()
+        query = "p, s FROM [//q] ORDER BY v DESC LIMIT 25"
+        assert select_rows(query, {"//q": snap},
+                           device=cuda_device).to_rows() == \
+            select_rows(query, {"//q": cpu.snapshot(ts)},
+                        device="cpu").to_rows()

@@ -14,6 +14,7 @@ import os
 import subprocess
 import sys
 import textwrap
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -47,8 +48,13 @@ def _to_port(chunk: RefChunk):
               for c in chunk.schema}
     vocabs = {name: col.dictionary for name, col in chunk.columns.items()
               if col.dictionary is not None}
-    return chunk_from_numpy(spec, chunk.row_count, planes, vocabs,
+    port = chunk_from_numpy(spec, chunk.row_count, planes, vocabs,
                             sorted_by=chunk.sorted_by, device="cpu")
+    for name, col in chunk.columns.items():
+        if col.host_values is not None:       # `any` payloads
+            port.columns[name] = replace(port.columns[name],
+                                         host_values=list(col.host_values))
+    return port
 
 
 def _split(row: dict):

@@ -203,6 +203,17 @@ def test_codec_registry_matches_the_reference():
 
 WIDE = [("k", "int64", "ascending"), ("u", "uint64"), ("d", "double"),
         ("b", "boolean"), ("s", "string")]
+# tests/test_chunk_store.py's schema: WIDE and an `any` column.
+WIDE_ANY = WIDE + [("a", "any")]
+
+
+def _wide_any_rows(n: int = 300, seed: int = 0) -> list:
+    """_wide_rows with test_chunk_store.py's `any` payloads (maps, lists,
+    a str, non-UTF-8 bytes and nulls)."""
+    rows = _wide_rows(n, seed)
+    for i, row in enumerate(rows):
+        row["a"] = [{"i": i}, [1, i], "text", b"\xff\xfe", None][i % 5]
+    return rows
 
 
 def _wide_rows(n: int = 300, seed: int = 0) -> list:
@@ -224,6 +235,7 @@ def _wide_rows(n: int = 300, seed: int = 0) -> list:
 
 CHUNK_CASES = {
     "wide": (WIDE, _wide_rows()),
+    "wide_any": (WIDE_ANY, _wide_any_rows()),
     "all_null": (WIDE, [{"k": None, "u": None, "d": None, "b": None,
                          "s": None}] * 5),
     "empty": (WIDE, []),
@@ -341,17 +353,25 @@ def test_decode_errors_carry_the_reference_codes(corrupt):
 
 
 def test_any_columns_are_not_ported():
+    """(Named when the port refused `any` columns.) A blob with an `any`
+    column reads back with its payloads, and the port writes it byte for
+    byte."""
     ref_schema = RefSchema.make([("k", "int64"), ("a", "any")])
-    blob = ref_serialize(RefChunk.from_rows(ref_schema, [(1, {"x": 1})]))
-    with pytest.raises(YtError, match="not yet ported"):
-        deserialize_chunk(blob, device=CPU)
+    ref_chunk = RefChunk.from_rows(ref_schema, [(1, {"x": 1}), (2, None),
+                                                (3, "text")])
+    blob = ref_serialize(ref_chunk)
+    back = deserialize_chunk(blob, device=CPU)
+    assert back.to_rows() == ref_chunk.to_rows()
+    assert back.columns["a"].host_values[:3] == [{"x": 1}, None, "text"]
+    assert len(back.columns["a"].host_values) == back.capacity
+    assert serialize_chunk(back) == blob
 
 
 # --- twins of tests/test_chunk_store.py ----------------------------------------
 
 def _store_chunk(n: int = 100, seed: int = 0) -> ColumnarChunk:
-    return ColumnarChunk.from_rows(TableSchema.make(WIDE),
-                                   _wide_rows(n, seed), device=CPU)
+    return ColumnarChunk.from_rows(TableSchema.make(WIDE_ANY),
+                                   _wide_any_rows(n, seed), device=CPU)
 
 
 @pytest.mark.parametrize("codec", ["none", "zlib_6", "lzma"])
@@ -492,16 +512,19 @@ def test_read_stats_sealed_and_backfilled(tmp_path):
 
 
 def test_erasure_is_not_ported(tmp_path):
+    """(Named when the port refused erasure chunks.) Each package reads
+    the erasure chunks the other wrote; tests/test_torch_erasure.py holds
+    the erasure layer to the reference in full."""
     store = FsChunkStore(str(tmp_path))
-    with pytest.raises(YtError, match="not yet ported"):
-        store.write_chunk(_store_chunk(8), erasure="rs_3_2")
+    chunk = _store_chunk(8)
+    cid = store.write_chunk(chunk, erasure="rs_3_2")
     ref_store = RefStore(str(tmp_path))
+    assert _rows_equal(ref_store.read_chunk(cid).to_rows(), chunk.to_rows())
     ref_schema = RefSchema.make([("k", "int64")])
-    cid = ref_store.write_chunk(RefChunk.from_rows(ref_schema, [(1,)]),
-                                erasure="rs_3_2")
-    assert store.exists(cid) and cid in store.list_chunks()
-    with pytest.raises(YtError, match="not yet ported"):
-        store.read_chunk(cid, device=CPU)
+    ref_cid = ref_store.write_chunk(RefChunk.from_rows(ref_schema, [(1,)]),
+                                    erasure="rs_3_2")
+    assert store.exists(ref_cid) and ref_cid in store.list_chunks()
+    assert store.read_chunk(ref_cid, device=CPU).to_rows() == [{"k": 1}]
 
 
 # --- failpoint sites ------------------------------------------------------------

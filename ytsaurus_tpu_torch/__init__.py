@@ -34,6 +34,12 @@ It runs QL queries over columnar chunks on one device:
     byte for byte), chunks/store.py (`FsChunkStore`, `ChunkCache`),
     chunks/compression.py, chunks/hunks.py, yson/, and native/ (the host
     codec library, built with g++ at first use);
+  - the rest of the storage layer: chunks/erasure.py (Reed–Solomon and
+    LRC over GF(2^8); `FsChunkStore` stores parts and repairs them on
+    read), chunks/replicated.py (`ReplicatedChunkStore`), `any` columns,
+    tablet/ordered.py (`OrderedTablet`, queue tables), formats.py (yson,
+    json, dsv, schemaful_dsv, skiff) and arrow.py;
+  - bench/chip_phases.py — chip_smoke's storage phases alone on the card;
   - config.py, utils/ — the knobs, failpoints, trace spans, sensors,
     invariant checks and varints those read.
 

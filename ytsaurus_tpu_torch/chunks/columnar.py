@@ -20,10 +20,14 @@ entry: `column_stats`), `column_ndv_sketch`, `ndv_estimate`,
     float32 plane beside the `(capacity,)` validity plane; invalid rows
     carry zeros. Ragged, wrong-dim and non-finite vectors are refused at
     write time.
+  * `any`-typed payloads stay host-side (`Column.host_values`, a list of
+    YSON values padded with None to the capacity) beside an int8
+    placeholder plane and the validity plane; they ride along through
+    slicing, concatenation, the wire format, sorts and joins but are
+    opaque to device compute.
 
 The statistics are host (numpy) code, as in the reference, over the planes
-read back from the device. Left out: the invariants hook, hunks and `any`
-columns.
+read back from the device. Left out: the invariants hook and hunks.
 
 `chunk_from_numpy` / `ColumnarChunk.to_numpy` carry a chunk across as plain
 numpy arrays, so a caller can hand the port the exact bytes another
@@ -64,12 +68,20 @@ def pad_capacity(n: int) -> int:
     return next_pow2(n, floor=LANE)
 
 
+def _plane_dtype(ty: EValueType) -> torch.dtype:
+    """Torch dtype of a column's plane: `any` columns carry host payloads
+    and an int8 placeholder plane."""
+    if ty is EValueType.any:
+        return torch.int8
+    return device_dtype(ty)
+
+
 def _np_plane_dtype(ty: EValueType) -> np.dtype:
     """Host dtype of a plane as it crosses to torch (uint64 as int64)."""
     return np.dtype({torch.int64: np.int64, torch.float64: np.float64,
                      torch.bool: np.bool_, torch.int32: np.int32,
                      torch.int8: np.int8,
-                     torch.float32: np.float32}[device_dtype(ty)])
+                     torch.float32: np.float32}[_plane_dtype(ty)])
 
 
 def _plane_shape(ty, capacity: int) -> tuple:
@@ -118,6 +130,7 @@ class Column:
     data: torch.Tensor                   # (capacity,) or (capacity, dim)
     valid: torch.Tensor                  # (capacity,) bool
     dictionary: Optional[np.ndarray] = None   # host vocab for string columns
+    host_values: Optional[list] = None        # payloads for `any` columns
 
     @property
     def capacity(self) -> int:
@@ -137,6 +150,8 @@ class Column:
                 out.append([float(x) for x in data[i]])
             elif self.type is EValueType.string:
                 out.append(bytes(self.dictionary[int(data[i])]))
+            elif self.type is EValueType.any:
+                out.append(self.host_values[i])
             elif self.type is EValueType.boolean:
                 out.append(bool(data[i]))
             elif self.type is EValueType.double:
@@ -249,9 +264,8 @@ class ColumnarChunk:
             name = col_schema.name
             ty = col_schema.type
             if ty is EValueType.any:
-                raise YtError(f"from_arrays does not support {ty.value!r} "
-                              "columns in this port",
-                              code=EErrorCode.QueryUnsupported)
+                raise YtError("from_arrays does not support `any` columns; "
+                              "use from_rows", code=EErrorCode.QueryUnsupported)
             arr = np.asarray(arrays[name])
             if len(arr) != n:
                 raise YtError(f"Column {name!r} length {len(arr)} != {n}")
@@ -310,8 +324,12 @@ class ColumnarChunk:
         end = min(self.row_count, end)
         n = max(0, end - start)
         cap = pad_capacity(max(n, 1))
-        columns = {name: _repadded(col, start, n, cap)
-                   for name, col in self.columns.items()}
+        columns = {}
+        for name, col in self.columns.items():
+            col = _repadded(col, start, n, cap)
+            if col.host_values is not None:
+                col = replace(col, host_values=col.host_values[start:end])
+            columns[name] = col
         return ColumnarChunk(schema=self.schema, row_count=n, columns=columns,
                              sorted_by=self.sorted_by)
 
@@ -450,24 +468,35 @@ def _build_vector_plane(ty: VectorType, values: Sequence[Any], cap: int,
     return data_np, valid_np
 
 
+# The Python type whose values fill a plane of these types directly.
+_PLAIN_TYPES = {EValueType.int64: int, EValueType.double: float}
+
+
 def _build_column(ty: EValueType, values: Sequence[Any], cap: int,
                   device: torch.device, name: str = "") -> Column:
     if isinstance(ty, VectorType):
         data_np, valid_np = _build_vector_plane(ty, values, cap, name)
         return Column(type=ty, data=torch.from_numpy(data_np).to(device),
                       valid=torch.from_numpy(valid_np).to(device))
-    if ty is EValueType.any:
-        raise YtError(f"Columns of type {ty.value!r} are not yet ported",
-                      code=EErrorCode.QueryUnsupported)
     n = len(values)
     valid_np = np.zeros(cap, dtype=bool)
     data_np = np.zeros(cap, dtype=_np_plane_dtype(ty))
     vocab = None
-    if ty is EValueType.string:
+    host_values = None
+    if ty is EValueType.any:
+        host_values = list(values) + [None] * (cap - n)
+        valid_np[:n] = [v is not None for v in values]
+    elif ty is EValueType.string:
         encoded = [None if v is None else _to_bytes(v) for v in values]
         codes, valid, vocab = _encode_strings(encoded)
         data_np[:n] = codes
         valid_np[:n] = valid
+    elif _PLAIN_TYPES.get(ty) is not None and \
+            set(map(type, values)) <= {_PLAIN_TYPES[ty]}:
+        # Every value a plain int (float): one array conversion, the same
+        # numbers as the loop below.
+        data_np[:n] = values
+        valid_np[:n] = True
     elif ty is not EValueType.null:
         for i, v in enumerate(values):
             if v is None:
@@ -483,7 +512,7 @@ def _build_column(ty: EValueType, values: Sequence[Any], cap: int,
                 data_np[i] = np.int64(v)
     return Column(type=ty, data=torch.from_numpy(data_np).to(device),
                   valid=torch.from_numpy(valid_np).to(device),
-                  dictionary=vocab)
+                  dictionary=vocab, host_values=host_values)
 
 
 # --- dictionary unification and concatenation ------------------------------
@@ -556,14 +585,20 @@ def concat_chunks(chunks: Sequence[ColumnarChunk]) -> ColumnarChunk:
         if col_schema.type is EValueType.string:
             cols, vocab = unify_dictionaries(cols)
         data = torch.zeros(_plane_shape(col_schema.type, cap),
-                           dtype=device_dtype(col_schema.type), device=device)
+                           dtype=_plane_dtype(col_schema.type), device=device)
         valid = torch.zeros(cap, dtype=torch.bool, device=device)
         data[:total] = torch.cat([col.data[:chunk.row_count].to(data.dtype)
                                   for chunk, col in zip(chunks, cols)])
         valid[:total] = torch.cat([col.valid[:chunk.row_count]
                                    for chunk, col in zip(chunks, cols)])
+        host_values = None
+        if col_schema.type is EValueType.any:
+            host_values = []
+            for chunk, col in zip(chunks, cols):
+                host_values.extend((col.host_values or [])[:chunk.row_count])
+            host_values += [None] * (cap - total)
         columns[name] = Column(type=col_schema.type, data=data, valid=valid,
-                               dictionary=vocab)
+                               dictionary=vocab, host_values=host_values)
     return ColumnarChunk(schema=schema, row_count=total, columns=columns)
 
 

@@ -30,8 +30,8 @@ decoded on a small shared thread pool, one task per column: zlib, numpy
 and the codec library release the interpreter lock, so a chunk of many
 millions of rows takes a fraction of the sequential host time. The
 blocks are laid out in schema order, so the bytes do not change.
-`any` columns are not ported: the port's chunks cannot hold them, and a
-blob that carries one raises.
+An `any` column writes an empty data block and its payloads as one
+binary YSON list in the aux block, as the reference does.
 """
 
 from __future__ import annotations
@@ -100,11 +100,6 @@ def decode_totals() -> dict:
             "chunks": int(_CHUNKS.get())}
 
 
-def _not_ported(ty) -> YtError:
-    return YtError(f"Columns of type {ty.value!r} are not yet ported",
-                   code=EErrorCode.QueryUnsupported)
-
-
 def _encode_column(col: Column, ty, n: int) -> tuple[bytes, bytes]:
     """Returns (data_block, aux_block) raw bytes; aux = vocab payload."""
     data = col.data[:n].cpu().numpy()
@@ -139,10 +134,13 @@ def _encode_column(col: Column, ty, n: int) -> tuple[bytes, bytes]:
                 parts.append(_encode_varint_u(len(v)))
                 parts.append(bytes(v))
         aux = b"".join(parts)
+    elif ty is EValueType.any:
+        block = b""
+        values = (col.host_values or [])[:n]
+        aux = yson.dumps([None if v is None else v for v in values],
+                         binary=True)
     elif ty is EValueType.null:
         block = b""
-    elif ty is EValueType.any:
-        raise _not_ported(ty)
     else:
         raise YtError(f"Cannot encode column type {ty.value}",
                       code=EErrorCode.ChunkFormatError)
@@ -151,9 +149,12 @@ def _encode_column(col: Column, ty, n: int) -> tuple[bytes, bytes]:
 
 def _decode_column(ty, data_block: bytes, aux_block: bytes, n: int,
                    format_version: int = 2
-                   ) -> tuple[np.ndarray, Optional[np.ndarray]]:
-    """The column's first n values as a host plane, and its vocabulary."""
+                   ) -> tuple[np.ndarray, Optional[np.ndarray],
+                              Optional[list]]:
+    """The column's first n values as a host plane, its vocabulary, and
+    the payloads of an `any` column."""
     dictionary = None
+    host_values = None
     if isinstance(ty, VectorType):
         flat = np.frombuffer(data_block, dtype="<f4", count=n * ty.dim)
         plane = flat.reshape(n, ty.dim)
@@ -190,14 +191,18 @@ def _decode_column(ty, data_block: bytes, aux_block: bytes, n: int,
                               code=EErrorCode.ChunkFormatError)
         dictionary = np.empty(count, dtype=object)
         dictionary[:] = vocab
+    elif ty is EValueType.any:
+        # utf-8 decode so str payloads round-trip as str (bytes that are
+        # not valid utf-8 stay bytes — the YSON wire format cannot
+        # distinguish).
+        host_values = list(yson.loads(aux_block)) if aux_block else []
+        plane = np.zeros(n, dtype=_np_plane_dtype(ty))
     elif ty is EValueType.null:
         plane = np.zeros(n, dtype=_np_plane_dtype(ty))
-    elif ty is EValueType.any:
-        raise _not_ported(ty)
     else:
         raise YtError(f"Cannot decode column type {ty.value}",
                       code=EErrorCode.ChunkFormatError)
-    return plane, dictionary
+    return plane, dictionary, host_values
 
 
 def serialize_chunk(chunk: ColumnarChunk, codec: str = DEFAULT_CODEC,
@@ -318,11 +323,12 @@ def deserialize_chunk(blob: bytes,
     format_version = int(meta.get("format_version", 1))
 
     def decode(col_meta: dict) -> tuple:
-        """(name, type, padded plane, padded validity, vocabulary)."""
+        """(name, type, padded plane, padded validity, vocabulary, `any`
+        payloads)."""
         name = col_meta["name"]
         ty = schema.get(name).type
         valid = native.bitmap_unpack(read_block(col_meta["valid"]), n)
-        plane, dictionary = _decode_column(
+        plane, dictionary, host_values = _decode_column(
             ty, read_block(col_meta["data"]), read_block(col_meta["aux"]),
             n, format_version=format_version)
         if isinstance(ty, VectorType) and n and \
@@ -336,7 +342,9 @@ def deserialize_chunk(blob: bytes,
         full[:n] = plane
         full_valid = np.zeros(cap, dtype=bool)
         full_valid[:n] = valid
-        return name, ty, full, full_valid, dictionary
+        if host_values is not None:
+            host_values += [None] * (cap - n)
+        return name, ty, full, full_valid, dictionary, host_values
 
     try:
         host = _map(decode, list(meta["columns"]))
@@ -346,11 +354,11 @@ def deserialize_chunk(blob: bytes,
     t1 = time.perf_counter()
     columns: dict[str, Column] = {}
     copied = 0
-    for name, ty, full, full_valid, dictionary in host:
+    for name, ty, full, full_valid, dictionary, host_values in host:
         columns[name] = Column(
             type=ty, data=torch.from_numpy(full).to(dev),
             valid=torch.from_numpy(full_valid).to(dev),
-            dictionary=dictionary)
+            dictionary=dictionary, host_values=host_values)
         copied += full.nbytes + full_valid.nbytes
     _DECODE_SECONDS.increment(t1 - t0)
     _COPY_SECONDS.increment(time.perf_counter() - t1)

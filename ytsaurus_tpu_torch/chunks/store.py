@@ -10,27 +10,42 @@ Ref mapping: data node chunk storage (server/node/data_node/blob_chunk.h,
 chunk_store.h) collapses to a host-side store whose unit is the whole
 columnar chunk; the cache holds decoded chunks, the analog of the tablet
 node's in-memory mode (tablet_node/in_memory_manager.h) at `uncompressed`
-level.
+level. A chunk written with `erasure=` is stored as the codec's part files
+plus a binary YSON meta file `{"codec", "size"}` (`chunks/erasure.py`),
+byte for byte the reference's layout, so each package reads the other's.
+A read takes the data parts only; on damage it reads parity, decodes
+under the `chunk.erasure_repair` span and rewrites the lost parts
+(repair on read); the `chunks/erasure_repair` sensors sum the repairs,
+their decode and re-encode seconds and the parts rewritten
+(`repair_totals()`).
 
 Differences from the reference: reads decode onto an explicit device
 (`read_chunk(..., device=)`; a `ChunkCache` decodes onto its own device,
 default "cuda", which raises without a card). A cached chunk's bytes are
-`numel() * element_size()` of its planes. The erasure layout
-(`chunks/erasure.py`) is not ported yet: `write_chunk(erasure=...)` and
-`put_blob(erasure=...)` raise, and so does a read of a chunk stored as
-erasure parts.
+`numel() * element_size()` of its planes. When a read of an erasure chunk
+finds exactly one data part lost and the codec has a locality group for
+it (LRC), it reads only that group's local parity and XOR-repairs the
+part; the reference reads every parity part there. It rebuilds the
+other parity parts whose files are gone (found by a stat, not a read),
+so the files after the read are the reference's; a parity part that
+exists but cannot be read stays until a read needs it. The repair
+rewrites only the lost parts (`ErasureCodec.encode_parts`) where the
+reference re-encodes all of them and writes the lost ones: the same
+bytes on disk.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 import uuid
 from collections import OrderedDict
 from typing import Optional
 
 import torch
 
+from ytsaurus_tpu_torch import yson
 from ytsaurus_tpu_torch.chunks.columnar import ColumnarChunk, chunk_column_stats
 from ytsaurus_tpu_torch.chunks.encoding import (
     DEFAULT_CODEC,
@@ -38,9 +53,11 @@ from ytsaurus_tpu_torch.chunks.encoding import (
     read_chunk_meta,
     serialize_chunk,
 )
+from ytsaurus_tpu_torch.chunks.erasure import get_erasure_codec
 from ytsaurus_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from ytsaurus_tpu_torch.errors import EErrorCode, YtError
 from ytsaurus_tpu_torch.utils import failpoints, sanitizers
+from ytsaurus_tpu_torch.utils.profiling import Profiler
 from ytsaurus_tpu_torch.utils.tracing import child_span
 
 # Fault sites on every disk boundary: disk-shaped failures are OSErrors
@@ -64,6 +81,23 @@ _FP_REMOVE = failpoints.register_site(
     error=lambda s: OSError(f"injected remove failure at {s}"))
 
 
+_repair_profiler = Profiler("chunks/erasure_repair")
+_REPAIRS = _repair_profiler.counter("repairs")
+_REPAIR_DECODE_SECONDS = _repair_profiler.counter("decode_seconds")
+_REPAIR_ENCODE_SECONDS = _repair_profiler.counter("encode_seconds")
+_PARTS_REWRITTEN = _repair_profiler.counter("parts_rewritten")
+
+
+def repair_totals() -> dict:
+    """Process totals of erasure repair on read: the reads that repaired,
+    host seconds rebuilding the data (XOR or GF decode) and re-encoding
+    the lost parts, and the parts rewritten."""
+    return {"repairs": int(_REPAIRS.get()),
+            "decode_seconds": _REPAIR_DECODE_SECONDS.get(),
+            "encode_seconds": _REPAIR_ENCODE_SECONDS.get(),
+            "parts_rewritten": int(_PARTS_REWRITTEN.get())}
+
+
 def _stats_missing_sketch(stats: dict) -> bool:
     """True when a sealed column_stats payload predates the NDV sketch
     (read_stats then decode-backfills it like the pre-stats path)."""
@@ -71,9 +105,23 @@ def _stats_missing_sketch(stats: dict) -> bool:
                for name, entry in stats.items() if name != "$row_count")
 
 
-def _erasure_not_ported() -> YtError:
-    return YtError("Erasure-coded chunks (chunks/erasure.py) are not yet "
-                   "ported", code=EErrorCode.QueryUnsupported)
+def _codec_name(name) -> str:
+    """A codec name read back from a meta file may be bytes."""
+    return name.decode() if isinstance(name, bytes) else name
+
+
+def _tag_repair(span, lost: list, parts_read: int, local: bool) -> None:
+    span.add_tag("lost_parts", len(lost))
+    span.add_tag("parts_read", parts_read)
+    span.add_tag("local", local)
+
+
+def _count_repair(t0: float, t1: float, parts: int) -> None:
+    """Sensors of one repair: decoded over [t0, t1), re-encoded since."""
+    _REPAIRS.increment()
+    _REPAIR_DECODE_SECONDS.increment(t1 - t0)
+    _REPAIR_ENCODE_SECONDS.increment(time.perf_counter() - t1)
+    _PARTS_REWRITTEN.increment(parts)
 
 
 def new_chunk_id() -> str:
@@ -99,6 +147,10 @@ class FsChunkStore:
     def _path(self, chunk_id: str) -> str:
         return os.path.join(self.root, chunk_id[:2], f"{chunk_id}.chunk")
 
+    def _part_path(self, chunk_id: str, index: int) -> str:
+        return os.path.join(self.root, chunk_id[:2],
+                            f"{chunk_id}.part{index}")
+
     def _erasure_meta_path(self, chunk_id: str) -> str:
         return os.path.join(self.root, chunk_id[:2], f"{chunk_id}.erasure")
 
@@ -106,11 +158,9 @@ class FsChunkStore:
                     chunk_id: Optional[str] = None,
                     codec: Optional[str] = None,
                     erasure: Optional[str] = None) -> str:
-        if erasure is not None:
-            raise _erasure_not_ported()
         chunk_id = chunk_id or new_chunk_id()
         blob = serialize_chunk(chunk, codec or self.codec, hunk_store=self)
-        return self.put_blob(chunk_id, blob)
+        return self.put_blob(chunk_id, blob, erasure=erasure)
 
     def _atomic_write(self, path: str, blob: bytes) -> None:
         # torn-write injection truncates the payload AND fails the write
@@ -128,11 +178,24 @@ class FsChunkStore:
                           "(torn tmp left unpublished)")
         os.replace(tmp, path)      # atomic publish
 
+    def _write_erasure(self, chunk_id: str, blob: bytes,
+                       erasure: str) -> str:
+        """Erasure-coded layout: k+m part files + a small meta file (ref:
+        striped erasure writer, ytlib/chunk_client/striped_erasure_writer.h)."""
+        parts = get_erasure_codec(erasure).encode(blob)
+        os.makedirs(os.path.dirname(self._path(chunk_id)), exist_ok=True)
+        for i, part in enumerate(parts):
+            self._atomic_write(self._part_path(chunk_id, i), part)
+        self._atomic_write(self._erasure_meta_path(chunk_id), yson.dumps(
+            {"codec": erasure, "size": len(blob)}, binary=True))
+        return chunk_id
+
     def put_blob(self, chunk_id: str, blob: bytes,
                  erasure: Optional[str] = None) -> str:
-        """Store an already-serialized chunk blob."""
+        """Store an already-serialized chunk blob (whole, or as the parts of
+        the erasure codec named)."""
         if erasure is not None:
-            raise _erasure_not_ported()
+            return self._write_erasure(chunk_id, blob, erasure)
         path = self._path(chunk_id)
         os.makedirs(os.path.dirname(path), exist_ok=True)
         self._atomic_write(path, blob)
@@ -189,10 +252,95 @@ class FsChunkStore:
                 return f.read()
         except FileNotFoundError:
             pass
-        if os.path.exists(self._erasure_meta_path(chunk_id)):
-            raise _erasure_not_ported()
-        raise YtError(f"No such chunk {chunk_id}",
-                      code=EErrorCode.NoSuchChunk)
+        blob = self._read_erasure_blob(chunk_id)
+        if blob is None:
+            raise YtError(f"No such chunk {chunk_id}",
+                          code=EErrorCode.NoSuchChunk)
+        return blob
+
+    def _erasure_meta(self, chunk_id: str) -> Optional[dict]:
+        try:
+            with open(self._erasure_meta_path(chunk_id), "rb") as f:
+                return yson.loads(f.read())
+        except FileNotFoundError:
+            return None
+
+    def _read_part(self, chunk_id: str, index: int) -> Optional[bytes]:
+        try:
+            _FP_PART_READ.hit()
+            with open(self._part_path(chunk_id, index), "rb") as f:
+                return f.read()
+        except OSError:
+            return None            # erased / lost part → repair below
+
+    def _read_erasure_blob(self, chunk_id: str) -> Optional[bytes]:
+        meta = self._erasure_meta(chunk_id)
+        if meta is None:
+            return None
+        codec = get_erasure_codec(_codec_name(meta["codec"]))
+        size = meta["size"]
+        k = codec.data_parts
+        # Fast path: data parts only; parity reads happen only on damage.
+        parts = [self._read_part(chunk_id, i) for i in range(k)]
+        parts += [None] * codec.parity_parts
+        lost = [i for i in range(k) if parts[i] is None]
+        if not lost:
+            return codec.decode(parts, size)
+        with child_span("chunk.erasure_repair", chunk_id=chunk_id) as span:
+            attempted = set(range(k))
+            group = codec.locality_group(lost[0]) if len(lost) == 1 \
+                else None
+            if group is not None:
+                # One lost data part of a locality group: its other data
+                # members are in hand, so only the group's local parity
+                # is read, and the part is their XOR.
+                for i in group:
+                    if i >= k:
+                        parts[i] = self._read_part(chunk_id, i)
+                        attempted.add(i)
+                if all(parts[i] is not None for i in group):
+                    t0 = time.perf_counter()
+                    parts[lost[0]] = codec.repair_part(parts, lost[0])
+                    blob = codec.decode(parts, size)
+                    t1 = time.perf_counter()
+                    # The parity parts not read are rebuilt too where
+                    # their files are gone, as a read of every part
+                    # would find them lost.
+                    gone = [i for i in range(k, codec.total_parts)
+                            if i not in attempted and not os.path.exists(
+                                self._part_path(chunk_id, i))]
+                    fresh = dict(zip(gone, codec.encode_parts(blob, gone)))
+                    _count_repair(t0, t1, len(gone) + 1)
+                    fresh[lost[0]] = parts[lost[0]]
+                    self._rewrite_parts(chunk_id, lost + gone, fresh)
+                    _tag_repair(span, lost + gone, len(attempted),
+                                local=True)
+                    return blob
+            for i in range(k, codec.total_parts):
+                if i not in attempted:
+                    parts[i] = self._read_part(chunk_id, i)
+                    attempted.add(i)
+            lost = [i for i, part in enumerate(parts) if part is None]
+            _tag_repair(span, lost, len(attempted), local=False)
+            t0 = time.perf_counter()
+            blob = codec.decode(parts, size)
+            t1 = time.perf_counter()
+            # Repair-on-read (ref chunk_replicator.h Repair jobs invoked
+            # from the read ladder): the decode just proved the chunk
+            # reconstructs, so rebuild the lost parts now instead of
+            # paying parity reads on every future access.
+            fresh = dict(zip(lost, codec.encode_parts(blob, lost)))
+            _count_repair(t0, t1, len(lost))
+            self._rewrite_parts(chunk_id, lost, fresh)
+            return blob
+
+    def _rewrite_parts(self, chunk_id: str, lost: list, parts) -> None:
+        """Best effort: the read already succeeded."""
+        try:
+            for i in lost:
+                self._atomic_write(self._part_path(chunk_id, i), parts[i])
+        except OSError:
+            pass
 
     def exists(self, chunk_id: str) -> bool:
         return os.path.exists(self._path(chunk_id)) or \
@@ -211,15 +359,38 @@ class FsChunkStore:
             # every decode failure means the stored bytes are bad.
             return False
 
+    def _chunk_paths(self, chunk_id: str) -> "list[str]":
+        """Every file that can belong to this chunk (blob, erasure meta
+        + parts): the one enumeration shared by remove and quarantine, so
+        a layout change cannot desync them."""
+        paths = [self._path(chunk_id)]
+        meta_path = self._erasure_meta_path(chunk_id)
+        if os.path.exists(meta_path):
+            try:
+                total = get_erasure_codec(_codec_name(
+                    self._erasure_meta(chunk_id)["codec"])).total_parts
+            except Exception:   # noqa: BLE001 — damaged meta: sweep wide
+                total = 32
+            paths.append(meta_path)
+            paths.extend(self._part_path(chunk_id, i)
+                         for i in range(total))
+        return paths
+
     def quarantine_chunk(self, chunk_id: str) -> None:
         """Move a corrupt chunk's files aside (`.quarantine` suffix) so
         the store stops advertising it while the bytes stay on disk for
         post-mortem."""
-        path = self._path(chunk_id)
-        try:
-            os.replace(path, path + ".quarantine")
-        except FileNotFoundError:
-            pass                    # raced with remove/another scrub
+        for path in self._chunk_paths(chunk_id):
+            try:
+                os.replace(path, path + ".quarantine")
+            except FileNotFoundError:
+                continue            # raced with remove/another scrub
+
+    def erasure_codec_of(self, chunk_id: str) -> Optional[str]:
+        """Codec name when the chunk is stored erasure-coded, else None
+        (lets a replicator preserve the encoding on the target)."""
+        meta = self._erasure_meta(chunk_id)
+        return None if meta is None else _codec_name(meta.get("codec"))
 
     def remove_chunk(self, chunk_id: str) -> None:
         """Dispose a chunk's files. Removal is ADVISORY GC: flush and
@@ -231,10 +402,11 @@ class FsChunkStore:
             _FP_REMOVE.hit()
         except OSError:
             return
-        try:
-            os.unlink(self._path(chunk_id))
-        except OSError:
-            pass            # gone already, or a garbage file for the next GC
+        for path in self._chunk_paths(chunk_id):
+            try:
+                os.unlink(path)
+            except OSError:
+                continue    # gone already, or a garbage file for the next GC
 
     def list_chunks(self) -> list[str]:
         out = set()

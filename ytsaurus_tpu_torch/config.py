@@ -6,7 +6,9 @@ reference's `YsonStruct` layer and its daemon configs have no
 counterpart):
 
   RetryPolicyConfig  the jittered exponential backoff of the per-shard
-                     retry in `query/coordinator.py` (`retry_policy`)
+                     retry in `query/coordinator.py` and of the
+                     replicated chunk read ladder
+                     (`chunks/replicated.py`) (`retry_policy`)
   CompileConfig      `whole_plan` (the top rung of the degradation
                      ladder), `whole_plan_headroom` (the overflow
                      escalation's slack) and `broadcast_join_rows`
@@ -69,6 +71,9 @@ class RetryPolicyConfig:
 
 _RETRY_POLICIES: dict[str, RetryPolicyConfig] = {}
 _RETRY_DEFAULTS: dict[str, dict] = {
+    # Replicated chunk read ladder: rotate fast, short waits.
+    "chunk_read": dict(attempts=3, backoff=0.05, backoff_cap=1.0,
+                       jitter=0.5),
     # Per-shard retry inside coordinate_and_execute.
     "query_shard": dict(attempts=3, backoff=0.05, backoff_cap=0.5,
                         jitter=0.5),

@@ -11,7 +11,8 @@ Differences from the reference:
   * uint64 key columns are int64 bit patterns; they sort unsigned.
   * The permutation is int32 inside the radix sort, so a chunk whose
     capacity exceeds `radix.MAX_N` rows raises instead of wrapping.
-  * `any` columns (host values) are not ported and raise.
+  * `any` columns' host payloads are gathered through the permutation,
+    which is read back from the device once for all of them.
   * `sort_chunk` / `sort_chunks` take `device=` like every entry point of
     the port: the chunks must lie on it, and "cuda" without a card raises.
 """
@@ -28,7 +29,6 @@ from ytsaurus_tpu_torch.device import DEFAULT_DEVICE, resolve_for
 from ytsaurus_tpu_torch.errors import EErrorCode, YtError
 from ytsaurus_tpu_torch.ops.radix import MAX_N
 from ytsaurus_tpu_torch.ops.segments import packed_sort_indices
-from ytsaurus_tpu_torch.query.engine.expr import not_ported
 from ytsaurus_tpu_torch.schema import EValueType, SortOrder, TableSchema
 
 
@@ -42,9 +42,6 @@ def sort_chunk(chunk: ColumnarChunk, key_columns: Sequence[str],
         if name not in chunk.schema:
             raise YtError(f"No such sort column {name!r}",
                           code=EErrorCode.QueryTypeError)
-    for name, col in chunk.columns.items():
-        if col.type is EValueType.any:
-            raise not_ported(f"Sorting a chunk with the `any` column {name!r}")
     if chunk.capacity > MAX_N:
         raise YtError(f"sort_chunk sorts at most {MAX_N} rows of capacity "
                       f"(an int32 permutation), got {chunk.capacity}",
@@ -62,8 +59,20 @@ def sort_chunk(chunk: ColumnarChunk, key_columns: Sequence[str],
         items.append((col.data, col.valid, descending, bits,
                       col.type is EValueType.uint64))
     order = packed_sort_indices(items)
-    columns = {name: replace(col, data=col.data[order], valid=col.valid[order])
-               for name, col in chunk.columns.items()}
+    idx_host = None
+    columns = {}
+    for name, col in chunk.columns.items():
+        host_values = None
+        if col.host_values is not None:
+            if idx_host is None:
+                # `any` payloads live on the host: the permutation
+                # crosses once for all of them.
+                idx_host = order[:chunk.row_count].cpu().tolist()
+            host_values = [col.host_values[i] for i in idx_host]
+            host_values += [None] * (chunk.capacity - len(host_values))
+        columns[name] = replace(col, data=col.data[order],
+                                valid=col.valid[order],
+                                host_values=host_values)
     order_kind = SortOrder.descending if descending else SortOrder.ascending
     schema = _with_key_order(chunk.schema, list(key_columns), order_kind)
     return ColumnarChunk(schema=schema, row_count=chunk.row_count,

@@ -26,7 +26,8 @@ Differences from the reference, forced by torch:
     double), as the reference's comparisons promote.
   * There are no compiled phase programs to cache: both phases run
     eagerly.
-  * The port has no `any` columns, so no host values ride the join.
+  * `any` columns' host payloads ride the join as in the reference
+    (`_gather_host`): each side's row index crosses to the host once.
 """
 
 from __future__ import annotations
@@ -52,7 +53,6 @@ from ytsaurus_tpu_torch.query.engine.expr import (
     _remap_table,
     _vocab_bucket,
     bindings_to_device,
-    not_ported,
 )
 from ytsaurus_tpu_torch.schema import EValueType, TableSchema
 
@@ -214,10 +214,6 @@ def execute_join(chunk: ColumnarChunk, combined_schema: TableSchema,
                  foreign_chunk: ColumnarChunk) -> ColumnarChunk:
     """Materialize `chunk ⋈ foreign_chunk` into a wider columnar chunk.
     `combined_schema` is the namespace *after* this join (flat names)."""
-    for side in (chunk, foreign_chunk):
-        for col in side.columns.values():
-            if col.type is EValueType.any:
-                raise not_ported("JOIN over a column of type 'any'")
     device = chunk.device
     self_schema = chunk.schema
     all_bindings: list = []
@@ -305,17 +301,33 @@ def _materialize(chunk, foreign_chunk, join, combined_schema, self_columns,
     del out_idx
 
     columns: dict[str, Column] = {}
+    self_row_host = None
     for name, col in chunk.columns.items():
         data, valid = self_columns[name]
+        host_values = None
+        if col.host_values is not None:
+            if self_row_host is None:
+                # `any` payloads live on the host: the gather index
+                # crosses once.
+                self_row_host = self_row.cpu().tolist()
+            host_values = _gather_host(col, self_row_host)
         columns[name] = replace(col, data=data[self_row],
-                                valid=valid[self_row] & out_valid_row)
+                                valid=valid[self_row] & out_valid_row,
+                                host_values=host_values)
     del self_row
     pulled_valid = out_valid_row & matched
+    foreign_row_host = None
     for fname in join.foreign_columns:
         fcol = foreign_chunk.columns[fname]
         flat = f"{join.alias}.{fname}" if join.alias else fname
+        host_values = None
+        if fcol.host_values is not None:
+            if foreign_row_host is None:
+                foreign_row_host = foreign_row.cpu().tolist()
+            host_values = _gather_host(fcol, foreign_row_host)
         columns[flat] = replace(fcol, data=fcol.data[foreign_row],
-                                valid=fcol.valid[foreign_row] & pulled_valid)
+                                valid=fcol.valid[foreign_row] & pulled_valid,
+                                host_values=host_values)
     out_columns = {}
     for col_schema in combined_schema:
         if col_schema.name not in columns:
@@ -324,3 +336,9 @@ def _materialize(chunk, foreign_chunk, join, combined_schema, self_columns,
         out_columns[col_schema.name] = columns[col_schema.name]
     return ColumnarChunk(schema=combined_schema, row_count=total,
                          columns=out_columns)
+
+
+def _gather_host(col: Column, idx: list) -> list:
+    """An `any` column's payloads at the gather index `idx`."""
+    values = col.host_values
+    return [values[i] if i < len(values) else None for i in idx]

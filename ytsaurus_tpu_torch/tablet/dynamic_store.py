@@ -13,6 +13,9 @@ tablet's), and the sorted key list is kept lazily: a new key is appended,
 and the list is sorted when the store is next iterated, so a store of n
 keys costs O(n log n) to fill instead of the O(n^2) of inserting each key
 at its place (a store holds up to 1,000,000 rows before a flush).
+`OrderedDynamicStore` also appends a batch under one lock acquisition
+(`append_rows`) and hands its rows out column-wise (`columns`), which the
+ordered tablet's flush and snapshot build planes from.
 """
 
 from __future__ import annotations
@@ -178,6 +181,22 @@ class OrderedDynamicStore:
         with self._lock:
             self._rows.append((timestamp, dict(row)))
             return len(self._rows) - 1
+
+    def append_rows(self, rows: "list[dict]", timestamp: int) -> None:
+        """Append a batch at one timestamp under one lock acquisition (the
+        rows are taken as they are, not copied)."""
+        with self._lock:
+            self._rows.extend((timestamp, row) for row in rows)
+
+    def columns(self, names: "list[str]"
+                ) -> "tuple[list[int], dict[str, list]]":
+        """The rows column-wise: their timestamps and each named column's
+        values."""
+        with self._lock:
+            rows = self._rows
+            return ([ts for ts, _ in rows],
+                    {name: [row.get(name) for _, row in rows]
+                     for name in names})
 
     def read(self, start_index: int = 0,
              limit: Optional[int] = None) -> list[dict]:

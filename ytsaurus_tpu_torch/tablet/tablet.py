@@ -1009,6 +1009,7 @@ def _chunk_key_rows(chunk: ColumnarChunk, schema: TableSchema,
 def _decode_chunk_rows(chunk: ColumnarChunk, host_planes: dict,
                        idx) -> list[dict]:
     """Decode only the rows at `idx` (usually tiny vs the chunk)."""
+    n = chunk.row_count
     rows = []
     cols = {name: chunk.columns[name] for name in chunk.schema.column_names}
     host = host_planes
@@ -1020,6 +1021,8 @@ def _decode_chunk_rows(chunk: ColumnarChunk, host_planes: dict,
                 row[name] = None
             elif col.type is EValueType.string:
                 row[name] = bytes(col.dictionary[int(data[i])])
+            elif col.type is EValueType.any:
+                row[name] = (col.host_values or [None] * n)[i]
             elif isinstance(col.type, VectorType):
                 row[name] = [float(x) for x in data[i]]
             elif col.type is EValueType.boolean:

@@ -1,10 +1,16 @@
 """YSON parser: text and binary, one-pass recursive descent.
 
 Ref: yt/yt/core/yson/parser.h / pull_parser.h.
+
+Own copy of the JAX package's parser. The text format's bare strings,
+quoted-string runs and numbers are matched as whole runs by regular
+expressions where the reference walks them byte by byte; the values and
+the errors are the reference's.
 """
 
 from __future__ import annotations
 
+import re
 import struct
 
 from ytsaurus_tpu_torch.errors import YtError
@@ -14,6 +20,18 @@ from ytsaurus_tpu_torch.yson.writer import zigzag_decode
 
 _BARE = set(
     b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789_-%./")
+# Runs the character loops below would walk byte by byte, matched whole:
+# a bare string, the bytes of a quoted string up to its next quote or
+# escape, and a number (the bytes `chr(b).isdigit()` accepts, which
+# include a few superscripts above 127, and [.eE] with an optional sign).
+_BARE_RUN = re.compile(b"[" + re.escape(bytes(sorted(_BARE))) + b"]*")
+_QUOTED_RUN = re.compile(rb'[^"\\]*')
+_NUMBER_START = frozenset(
+    [b for b in range(256) if chr(b).isdigit()] + [ord("-"), ord("+")])
+_NUMBER = re.compile(
+    b"[+-]?(?:[" + re.escape(bytes(b for b in range(256)
+                                     if chr(b).isdigit()))
+    + rb"]|[.eE][+-]?)*")
 
 
 class _Parser:
@@ -36,8 +54,10 @@ class _Parser:
         return self.data[self.pos]
 
     def skip_ws(self) -> None:
-        while self.pos < len(self.data) and self.data[self.pos] in b" \t\r\n":
-            self.pos += 1
+        data, pos = self.data, self.pos
+        while pos < len(data) and data[pos] in b" \t\r\n":
+            pos += 1
+        self.pos = pos
 
     def expect(self, char: bytes) -> None:
         if self.peek() != char[0]:
@@ -62,9 +82,11 @@ class _Parser:
 
     def parse_value(self):
         attributes = None
-        if self.try_consume(b"<"):
-            attributes = self._parse_map_body(b">")
         c = self.peek()
+        if c == 0x3C:                                       # '<'
+            self.pos += 1
+            attributes = self._parse_map_body(b">")
+            c = self.peek()
         value = None
         # Binary markers.
         if c == 0x01:
@@ -91,20 +113,20 @@ class _Parser:
         elif c == 0x06:
             self.pos += 1
             value = YsonUint64(self.read_varint())
-        elif c == ord("#"):
+        elif c == 0x23:                                     # '#'
             self.pos += 1
             value = None
-        elif c == ord("{"):
+        elif c == 0x7B:                                     # '{'
             self.pos += 1
             value = self._parse_map_body(b"}")
-        elif c == ord("["):
+        elif c == 0x5B:                                     # '['
             self.pos += 1
             value = self._parse_list_body()
-        elif c == ord('"'):
+        elif c == 0x22:                                     # '"'
             value = self._parse_quoted_string()
-        elif c == ord("%"):
+        elif c == 0x25:                                     # '%'
             value = self._parse_special()
-        elif chr(c).isdigit() or c in (ord("-"), ord("+")):
+        elif c in _NUMBER_START:
             value = self._parse_number()
         elif c in _BARE:
             value = self._parse_bare_string()
@@ -150,6 +172,9 @@ class _Parser:
         self.expect(b'"')
         out = bytearray()
         while True:
+            run = _QUOTED_RUN.match(self.data, self.pos)
+            out += run.group()
+            self.pos = run.end()
             if self.pos >= len(self.data):
                 raise self.error("unterminated string")
             b = self.data[self.pos]
@@ -174,8 +199,7 @@ class _Parser:
 
     def _parse_bare_string(self):
         start = self.pos
-        while self.pos < len(self.data) and self.data[self.pos] in _BARE:
-            self.pos += 1
+        self.pos = _BARE_RUN.match(self.data, start).end()
         return self._decode_string(self.data[start:self.pos])
 
     def _parse_special(self):
@@ -189,21 +213,9 @@ class _Parser:
 
     def _parse_number(self):
         start = self.pos
-        if self.data[self.pos] in b"+-":
-            self.pos += 1
-        is_double = False
-        while self.pos < len(self.data):
-            b = self.data[self.pos]
-            if chr(b).isdigit():
-                self.pos += 1
-            elif b in b".eE":
-                is_double = True
-                self.pos += 1
-                if self.pos < len(self.data) and self.data[self.pos] in b"+-":
-                    self.pos += 1
-            else:
-                break
+        self.pos = _NUMBER.match(self.data, start).end()
         text = self.data[start:self.pos]
+        is_double = b"." in text or b"e" in text or b"E" in text
         if self.pos < len(self.data) and self.data[self.pos] in b"uU":
             self.pos += 1
             return YsonUint64(int(text))

@@ -3,11 +3,16 @@
 Ref: yt/yt/core/yson/writer.h.  Binary markers: 0x01 string (varint byte
 length), 0x02 int64 (zigzag varint), 0x03 double (8 LE bytes), 0x04 false,
 0x05 true, 0x06 uint64 (varint).
+
+Own copy of the JAX package's writer; a text string is checked for the
+bare form and escaped by regular expressions where the reference walks it
+byte by byte: the same bytes.
 """
 
 from __future__ import annotations
 
 import math
+import re
 import struct
 
 from ytsaurus_tpu_torch.yson.types import (
@@ -26,6 +31,12 @@ _UINT64_MARKER = b"\x06"
 
 _BARE_OK = set(
     b"abcdefghijklmnopqrstuvwxyzABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789_-%./")
+_BARE_STRING = re.compile(b"[" + re.escape(bytes(sorted(_BARE_OK))) + b"]+")
+# The escape of each byte a quoted string cannot hold as it is.
+_ESCAPES = {b: (b"\\" + bytes([b]) if b in b'"\\' else
+                {10: b"\\n", 9: b"\\t", 13: b"\\r"}.get(b, b"\\x%02x" % b))
+            for b in range(256) if b in b'"\\' or not 32 <= b < 127}
+_NEEDS_ESCAPE = re.compile(b"[" + re.escape(bytes(sorted(_ESCAPES))) + b"]")
 
 
 from ytsaurus_tpu_torch.utils.varint import write_varint_u as _write_varint  # noqa: E402
@@ -111,28 +122,14 @@ class _Writer:
             self.out += _STRING_MARKER
             _write_varint(self.out, len(raw))
             self.out += raw
-        elif raw and all(b in _BARE_OK for b in raw) and \
+        elif raw and _BARE_STRING.fullmatch(raw) and \
                 not raw[0:1].isdigit() and raw not in (b"%true", b"%false") \
                 and not raw.startswith(b"%") and not raw.startswith(b"-"):
             self.out += raw
         else:
             self.out += b'"'
-            for b in raw:
-                c = bytes([b])
-                if c == b'"':
-                    self.out += b'\\"'
-                elif c == b"\\":
-                    self.out += b"\\\\"
-                elif 32 <= b < 127:
-                    self.out += c
-                elif c == b"\n":
-                    self.out += b"\\n"
-                elif c == b"\t":
-                    self.out += b"\\t"
-                elif c == b"\r":
-                    self.out += b"\\r"
-                else:
-                    self.out += b"\\x%02x" % b
+            self.out += _NEEDS_ESCAPE.sub(lambda m: _ESCAPES[m.group()[0]],
+                                          raw)
             self.out += b'"'
 
     def _write_map_body(self, mapping: dict) -> None:
