@@ -131,6 +131,31 @@ Phases (any failure exits non-zero and prints no result line):
      the 640,000 consumed rows through dumps_rows / loads_rows in yson,
      json, dsv and schemaful_dsv and dumps_skiff / loads_skiff, each
      giving back the same rows (host seconds and bytes per format);
+     CLIENT: the slice through ytsaurus_tpu_torch.client.connect(tmp,
+     device="cuda") and the client's methods alone: SELECT's table (below)
+     published into Cypress as 8 chunks of 8,000,000 rows
+     (publish_table_chunks) and a 10,000-row dimension table written from
+     row dicts; select_rows of SELECT_8's query, of a k range that chunk
+     statistics prune to one chunk (shards_pruned 7), of the join with the
+     dimension grouped by name (both radix kernels must launch), and of
+     SELECT_8's query with explain_analyze (its top spans and compile /
+     execute split printed); run_sort of the 64,000,000 rows on (g, k) on
+     the card (both radix kernels; the order exactly np's, the device
+     branch under YT_TPU_HBM_BUDGET), an ORDER BY g, k LIMIT 1000 over the
+     output; run_merge of the dimension with itself, sorted, and run_erase
+     of the result; a master snapshot; a dynamic table (k key, g, v)
+     mounted and written with 500,000 rows in 500 tablet transactions,
+     4,096 lookups from 16 threads (fewer gateway batches than calls),
+     a GROUP BY g, unmount; a restart (connect(..., fresh=True) in this
+     process: the master recovers from its snapshot and changelog), then
+     mount, the same lookups and selects, and every acknowledged write
+     read back; 262,144 vectors at dim 256 written, flushed and remounted,
+     then nearest_rows from 16 threads through the vector batcher (fewer
+     batches than callers), each held to batched_nearest's. Each stage
+     runs once under the profiler, after 1,000 tiny kernels: host
+     seconds, device ms, idle share, peak memory, the chunk cache's hits
+     and misses, radix launches; a stage that is not host-only must put
+     work on the device;
      SELECT (query/coordinator.py::coordinate_and_execute, the host rung
      behind select_rows, one evaluator on the card): SELECT_8 (bench.py's
      select over 8 chunks of 8,000,000 rows: k the row number, g uniform
@@ -190,8 +215,11 @@ Phases (any failure exits non-zero and prints no result line):
      each pass's host seconds. Every chunk sorted, each chunk's first key
      at least the previous chunk's last, the row total, and two
      order-independent wrapping sums, splitmix64(k) and
-     splitmix64(k ^ bits(p)), equal between the input (numpy, in the
-     suppliers) and the output (torch, on the card). If the host's
+     splitmix64(k ^ bits(p)), equal between the input (numpy on 8
+     threads, in the suppliers) and the output (torch, on the card). The
+     oracles of SORT, TABLET, DYNTABLE and VECTOR are numpy's orders and
+     float64 measures, computed the faster ways of _stable_argsort,
+     _newest_first_order and vector_measures' threads. If the host's
      available memory cannot hold the spill, the rows are halved until it
      can, and the line says so;
   5. the `kernels` line: each kernel's time at the main path's shape (the
@@ -238,6 +266,7 @@ STRINGS_ROWS = 10_000_000    # bench.py --config strings at its device size
 VECTOR_ROWS = 4_000_000      # bench.py --config vector at its device size
 REPS = 5                     # warm runs per query; the median is reported
 M32 = 0xFFFFFFFF
+HASH_THREADS = 8             # threads of EXTSORT's input hash (_hash_sums_np)
 # Each port kernel by its wrapper's name, and the name of its CUDA kernel
 # in a profiler trace.
 TRACE_NAMES = {"hist_rank": "hist_rank_kernel",
@@ -249,6 +278,10 @@ TRACE_NAMES = {"hist_rank": "hist_rank_kernel",
 PATH_KERNELS = ("radix_upsweep", "radix_onesweep")
 # The profiler range around the profiled run.
 RUN_RANGE = "chip_smoke.run"
+# torch.cuda._sleep's kernel, launched alone just before a profiled run:
+# where the run starts on the device's clock (_profile).
+MARK_KERNEL = "spin_kernel"
+MARK_CYCLES = 1_000
 # Profiler ranges of a join's phases (query/engine/joins.py).
 JOIN_RANGES = ("join.sort_foreign", "join.search", "join.materialize")
 # Profiler ranges of the external sort's passes (ops/bigsort.py).
@@ -425,7 +458,8 @@ def phase_argsort(rx, gen) -> dict:
             "two_word_launches": passes}
 
 
-def _profile(run, hr, rx, ranges=(), runs: int = 2, first=None) -> dict:
+def _profile(run, hr, rx, ranges=(), runs: int = 2, first=None,
+             host_only: bool = False) -> dict:
     """The last of `runs` runs of `run` under torch.profiler (`first`, when
     given, runs in place of the runs before it: a stage that changes
     state runs once, after a small warm-up of the profiler): device time
@@ -436,10 +470,18 @@ def _profile(run, hr, rx, ranges=(), runs: int = 2, first=None) -> dict:
     Raises unless the trace holds as many kernels of each port kernel as
     the run launched. For each profiler range named in `ranges`, the
     device time of the kernels launched inside it and its share of the
-    busy time. Only events inside the last run's range count: late in a
-    long process the trace was seen to lose the first kernels of a
-    profiler session (VECTOR, chip_smoke), and the earlier runs take
-    that loss."""
+    busy time. Only the last run counts. Its device events are told from
+    the earlier runs' on the device's own clock: a marker kernel
+    (MARK_KERNEL) runs alone between them, and the run's events are the
+    ones that start after it ends. The host clock is not used for that:
+    late in a long process, traces placed a run's first kernels before
+    the run's host range (VECTOR, CLIENT's short stages), which gave them
+    to the runs before it. `clock_lead_us` is the run range's host start
+    less the marker's end (tens of microseconds, more where the host
+    stalls between the two). A trace can also drop device events, the
+    marker among them: the host clock then decides (`device_clock` is
+    false), and the count check still holds. A run that put no work on
+    the device raises, unless `host_only` (its idle share is then 1)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -449,6 +491,8 @@ def _profile(run, hr, rx, ranges=(), runs: int = 2, first=None) -> dict:
         for _ in range(runs - 1):
             (first or run)()
         torch.cuda.synchronize()
+        torch.cuda._sleep(MARK_CYCLES)
+        torch.cuda.synchronize()
         _reset_launches(hr, rx)
         with record_function(RUN_RANGE):
             t = time.perf_counter()
@@ -456,25 +500,30 @@ def _profile(run, hr, rx, ranges=(), runs: int = 2, first=None) -> dict:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t) * 1e6
     launched = _launches(hr, rx)
-    run_start = min(e.time_range.start for e in prof.events()
+    events = prof.events()
+    run_start = min(e.time_range.start for e in events
                     if e.name == RUN_RANGE)
+    marks = [e.time_range.end for e in events
+             if e.device_type == DeviceType.CUDA and MARK_KERNEL in e.name]
+    device_start = max(marks) if marks else run_start
     by_kernel: dict = {}
     spans = []
     traced = dict.fromkeys(TRACE_NAMES, 0)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and \
-                e.time_range.start >= run_start and \
-                not getattr(e, "is_user_annotation", False):
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total
-            spans.append((e.time_range.start, e.time_range.end))
-            for kernel, trace_name in TRACE_NAMES.items():
-                traced[kernel] += trace_name in e.name
+    for e in events:
+        if e.device_type != DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False) or \
+                e.time_range.start < device_start or MARK_KERNEL in e.name:
+            continue
+        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total
+        spans.append((e.time_range.start, e.time_range.end))
+        for kernel, trace_name in TRACE_NAMES.items():
+            traced[kernel] += trace_name in e.name
     if traced != launched:
         raise AssertionError(f"the trace holds {traced} port kernels, the "
                              f"run launched {launched}")
     listed_us = sum(by_kernel.values())
     busy_us = _busy_us(spans)
-    if busy_us <= 0:
+    if busy_us <= 0 and not host_only:
         raise AssertionError("the trace holds no device time")
     op_acc: dict = {}
     for e in prof.events():
@@ -502,10 +551,12 @@ def _profile(run, hr, rx, ranges=(), runs: int = 2, first=None) -> dict:
                              f"ranges {list(ranges)}")
     return {
         "ranges_ms": {name: us / 1e3 for name, us in in_range.items()},
-        "ranges_share": {name: us / busy_us
+        "ranges_share": {name: us / busy_us if busy_us else 0.0
                          for name, us in in_range.items()},
         "ranges_host_ms": {name: us / 1e3 for name, us in host_range.items()},
         "wall_ms": wall_us / 1e3,
+        "device_clock": bool(marks),
+        "clock_lead_us": run_start - device_start,
         "launched": launched,
         "traced": traced,
         "port_kernels_ms": port_ms,
@@ -999,12 +1050,51 @@ def _splitmix64_torch(x):
 
 def _hash_sums_np(k, p) -> tuple:
     """The two order-independent sums of a block: splitmix64(k) and
-    splitmix64(k ^ bits(p)), each wrapping mod 2^64."""
+    splitmix64(k ^ bits(p)), each wrapping mod 2^64; over HASH_THREADS
+    slices of the block on threads (numpy's ufuncs release the GIL)."""
     import numpy as np
-    ku = k.view(np.uint64)
-    h1 = int(_splitmix64_np(ku).sum(dtype=np.uint64))
-    h2 = int(_splitmix64_np(ku ^ p.view(np.uint64)).sum(dtype=np.uint64))
-    return h1, h2
+    from concurrent.futures import ThreadPoolExecutor
+    ku, pu = k.view(np.uint64), p.view(np.uint64)
+    step = max(1, -(-len(ku) // HASH_THREADS))
+
+    def part(lo):
+        x = ku[lo:lo + step]
+        return (int(_splitmix64_np(x).sum(dtype=np.uint64)),
+                int(_splitmix64_np(x ^ pu[lo:lo + step]).sum(dtype=np.uint64)))
+
+    with ThreadPoolExecutor(HASH_THREADS) as pool:
+        parts = list(pool.map(part, range(0, len(ku), step)))
+    return tuple(sum(h[i] for h in parts) % (1 << 64) for i in (0, 1))
+
+
+def _stable_argsort(keys):
+    """np.argsort(keys, kind="stable"), in a fraction of its time on
+    random 64-bit keys: an unstable argsort, then each run of equal keys
+    put back in index order, which gives the same permutation."""
+    import numpy as np
+    order = np.argsort(keys)
+    ordered = keys[order]
+    tie = np.flatnonzero(ordered[1:] == ordered[:-1])
+    if len(tie) > 4096:
+        return np.argsort(keys, kind="stable")
+    if len(tie):
+        first = np.r_[True, tie[1:] != tie[:-1] + 1]
+        last = np.r_[tie[1:] != tie[:-1] + 1, True]
+        for lo, hi in zip(tie[first], tie[last] + 2):
+            order[lo:hi].sort()
+    return order
+
+
+def _newest_first_order(k, ts):
+    """np.lexsort((-ts, k)): by key, then newest version first, ties in
+    index order. When k fits in 37 bits and ts in 26, the stable argsort
+    of one packed key, which is the same order and several times faster
+    at 64M versions."""
+    import numpy as np
+    if len(k) and k.min() >= 0 and k.max() < 1 << 37 and \
+            ts.min() >= 0 and ts.max() < 1 << 26:
+        return _stable_argsort((k << 26) | ((1 << 26) - 1 - ts))
+    return np.lexsort((-ts, k))
 
 
 def _port_entry_points():
@@ -1054,7 +1144,7 @@ def phase_sort(seed: int, hr, rx, port, keep: dict) -> dict:
     torch.cuda.synchronize()
     made_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    order = np.argsort(k, kind="stable")
+    order = _stable_argsort(k)
     want_k, want_p = k[order], p[order]
     del order
     _log(f"sort table: {SORT_ROWS} rows, capacity {chunk.capacity}, made "
@@ -1122,7 +1212,7 @@ def _tablet_oracle(d: dict, read_points) -> dict:
     keeps."""
     import numpy as np
     n = len(d["k"])
-    order = np.lexsort((-d["$timestamp"], d["k"]))
+    order = _newest_first_order(d["k"], d["$timestamp"])
     s = {name: a[order] for name, a in d.items()}
     starts = np.ones(n, dtype=bool)
     starts[1:] = s["k"][1:] != s["k"][:-1]
@@ -1466,7 +1556,7 @@ def phase_dyntable(seed: int, hr, rx, port) -> dict:
         for lo in range(0, n, DYN_CHUNK):
             t = time.perf_counter()
             part = {name: a[lo:lo + DYN_CHUNK] for name, a in hist.items()}
-            order = np.lexsort((-part["$timestamp"], part["k"]))
+            order = _newest_first_order(part["k"], part["$timestamp"])
             planes = {}
             for c in vschema:
                 data = np.zeros(cap, dtype=part[c.name].dtype)
@@ -2254,6 +2344,486 @@ def phase_queue(seed: int, hr, rx, port) -> dict:
     return out
 
 
+# --- CLIENT: the port's own client over every plane below it ---------------
+
+CLIENT_DIM_ROWS = 10_000       # the dimension table, written as row dicts
+CLIENT_NAMES = 100             # distinct names in the dimension table
+CLIENT_RANGE = (24_000_000, 24_001_000)   # k range inside SELECT's chunk 3
+# Rows written into the dynamic table: half of max_dynamic_store_row_count's
+# default (1,000,000), cut because CLIENT took 187 s on the card at the
+# full store, above the 180 s it may take.
+CLIENT_DYN_ROWS = 500_000
+CLIENT_DYN_TX_ROWS = 1_000     # rows per tablet transaction
+CLIENT_DYN_KEYS = 4_000_000    # keys drawn without repeats from [0, this)
+CLIENT_LOOKUPS = 4_096
+CLIENT_THREADS = 16            # lookup and NEAREST caller threads
+CLIENT_LOOKUP_BATCH = 16       # keys per lookup_rows call
+CLIENT_VEC_ROWS = 262_144      # 256 MB of float32 vectors at dim 256
+CLIENT_VEC_DIM = 256           # VECTOR's headline width
+CLIENT_VEC_TX_ROWS = 16_384
+CLIENT_VEC_K = 8
+CLIENT_T = "//bench/t"
+CLIENT_QUERY = ("g, sum(v) AS s, count(*) AS c FROM [//bench/t] "
+                "WHERE v < 900 GROUP BY g")
+CLIENT_JOIN = ("name, sum(v) AS s, count(*) AS c FROM [//bench/t] "
+               "JOIN [//bench/dim] USING g GROUP BY name")
+CLIENT_ACC_GROUP = "g, sum(v) AS s, count(*) AS c FROM [//bench/acc] GROUP BY g"
+
+
+def _client_warmup(kernels: int = 1_000) -> None:
+    """The device work a CLIENT stage's profiler session starts with, none
+    of it a port kernel: `kernels` one-element adds, so that the session
+    holds device activity before its marker and its stage (a stage that
+    launches few kernels of its own lost them to the start of a session
+    late in a long process), then the peak memory reset, so that a
+    stage's peak is its own."""
+    import torch
+    x = torch.zeros(1, device="cuda")
+    for _ in range(kernels):
+        x.add_(1.0)
+    del x
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _client_stage(name: str, run, hr, rx, cache, radix: bool = False,
+                  host_only: bool = False, extra=None) -> tuple:
+    """One stage of the CLIENT phase, run once under the profiler (after
+    `_client_warmup` in the same session): its result and its record
+    (host seconds, device busy ms and idle share, peak device memory, the
+    chunk cache's hits and misses during the stage (`cache()` gives the
+    live client's cache, or None), radix launches, which the trace must
+    hold one for one, and `overhead_s`, the stage's seconds outside its
+    run: warm-up, profiler start, stop and analysis). With `radix`, it
+    fails unless both radix kernels were launched; unless `host_only`, it
+    fails if the stage put no work on the device."""
+    import torch
+    box = {}
+
+    def once():
+        box["out"] = run()
+
+    def counts():
+        c = cache()
+        return (c.hits, c.misses) if c is not None else (0, 0)
+
+    t = time.perf_counter()
+    hits, misses = counts()
+    prof = _profile(once, hr, rx, runs=2, first=_client_warmup,
+                    host_only=host_only)
+    rec = {"host_s": prof["wall_ms"] / 1e3,
+           "device_busy_ms": prof["device_busy_ms"],
+           "idle_share": prof["idle_share"],
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "cache_hits": counts()[0] - hits,
+           "cache_misses": counts()[1] - misses,
+           "launches": prof["launched"],
+           "clock_lead_us": prof["clock_lead_us"],
+           "overhead_s": time.perf_counter() - t - prof["wall_ms"] / 1e3,
+           **(extra or {})}
+    if radix:
+        for kernel in PATH_KERNELS:
+            if rec["launches"][kernel] <= 0:
+                raise AssertionError(f"{name}: no {kernel} kernel was "
+                                     "launched")
+    _log(f"{name}: {json.dumps(rec)}")
+    rec["profile"] = prof
+    return box["out"], rec
+
+
+def _client_check_groups(name: str, rows: list, keys, sums, counts) -> int:
+    """GROUP BY rows ({key, s, c}) exactly against numpy bincounts."""
+    import numpy as np
+    want = {int(g): (int(sums[g]), int(counts[g]))
+            for g in np.flatnonzero(counts)}
+    got = {r[keys]: (int(r["s"]), int(r["c"])) for r in rows}
+    if got != want:
+        bad = sorted(set(got.items()) ^ set(want.items()))[:3]
+        raise AssertionError(f"{name}: groups differ from the oracle: {bad}")
+    return len(rows)
+
+
+def _client_data(seed: int) -> dict:
+    """The dimension table, the dynamic table's rows and lookup keys, and
+    the vectors, from --seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 13)
+    acc_k = rng.permutation(CLIENT_DYN_KEYS)[:CLIENT_DYN_ROWS]
+    acc_g = rng.integers(0, 1000, CLIENT_DYN_ROWS)
+    acc_v = rng.integers(0, 1000, CLIENT_DYN_ROWS)
+    present = rng.choice(CLIENT_DYN_ROWS, CLIENT_LOOKUPS * 3 // 4,
+                         replace=False)
+    absent = CLIENT_DYN_KEYS + rng.choice(CLIENT_DYN_KEYS,
+                                          CLIENT_LOOKUPS // 4, replace=False)
+    keys = np.concatenate([acc_k[present], absent])
+    rng.shuffle(keys)
+    vrng = np.random.default_rng(seed + 17)
+    return {"acc_k": acc_k, "acc_g": acc_g, "acc_v": acc_v,
+            "lookup_keys": keys.tolist(),
+            "vectors": vrng.standard_normal(
+                (CLIENT_VEC_ROWS, CLIENT_VEC_DIM), dtype=np.float32),
+            "queries": vrng.standard_normal(
+                (CLIENT_THREADS, CLIENT_VEC_DIM), dtype=np.float32)}
+
+
+def _client_threads(fn, n: int) -> list:
+    """fn(i) on n threads released together; their results in order. A
+    failure on any thread is raised here."""
+    import threading
+    results, errors = [None] * n, []
+    barrier = threading.Barrier(n)
+
+    def work(i):
+        try:
+            barrier.wait()
+            results[i] = fn(i)
+        except BaseException as exc:   # noqa: BLE001 — raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return results
+
+
+def _client_lookups(client, d: dict) -> int:
+    """CLIENT_LOOKUPS keys from CLIENT_THREADS threads in calls of
+    CLIENT_LOOKUP_BATCH keys, each row against the oracle."""
+    oracle = {int(k): (int(g), int(v)) for k, g, v in
+              zip(d["acc_k"], d["acc_g"], d["acc_v"])}
+    keys = d["lookup_keys"]
+    per = len(keys) // CLIENT_THREADS
+
+    def run(i):
+        mine = keys[i * per:(i + 1) * per]
+        for lo in range(0, per, CLIENT_LOOKUP_BATCH):
+            part = mine[lo:lo + CLIENT_LOOKUP_BATCH]
+            rows = client.lookup_rows("//bench/acc", [(k,) for k in part])
+            for k, row in zip(part, rows):
+                want = oracle.get(k)
+                got = None if row is None else (row["g"], row["v"])
+                if got != want or (row is not None and row["k"] != k):
+                    raise AssertionError(f"CLIENT lookup of {k}: {row} != "
+                                         f"{want}")
+        return per
+
+    return sum(_client_threads(run, CLIENT_THREADS))
+
+
+def phase_client(seed: int, hr, rx, port) -> dict:
+    """CLIENT: the slice through `ytsaurus_tpu_torch.client.connect` and
+    the client's methods alone: SELECT's 64M-row table published into
+    Cypress as 8 chunks, a dimension table written from row dicts, four
+    selects (SELECT_8's query, a pruned range, a join with a GROUP BY,
+    EXPLAIN ANALYZE), run_sort of the 64M rows on (g, k), run_merge and
+    run_erase, a dynamic table written through 500 tablet transactions,
+    looked up from 16 threads and grouped, a restart that recovers the
+    master from its snapshot and changelog, and nearest_rows from 16
+    threads through the vector batcher. Every answer is held to numpy."""
+    import numpy as np
+    import torch
+    from ytsaurus_tpu_torch.chunks.columnar import ColumnarChunk
+    from ytsaurus_tpu_torch.client import connect, publish_table_chunks
+    from ytsaurus_tpu_torch.query.vector import batched_nearest
+    t_phase = time.perf_counter()
+    arrays = _select_arrays(seed)
+    d = _client_data(seed)
+    out: dict = {"paths": {}, "stages": {}}
+    holder: dict = {}
+
+    def cache():
+        client = holder.get("client")
+        return client.cluster.chunk_cache if client is not None else None
+
+    def stage(name, run, radix=False, host_only=False, extra=None):
+        result, rec = _client_stage(f"client {name}", run, hr, rx, cache,
+                                    radix=radix, host_only=host_only,
+                                    extra=extra)
+        out["paths"][f"client_{name}"] = rec
+        return result
+
+    k_all = np.concatenate([a["k"] for a in arrays])
+    g_all = np.concatenate([a["g"] for a in arrays])
+    v_all = np.concatenate([a["v"] for a in arrays])
+    sel = v_all < 900
+    select_oracle = (np.bincount(g_all[sel], weights=v_all[sel],
+                                 minlength=SELECT_GROUPS),
+                     np.bincount(g_all[sel], minlength=SELECT_GROUPS))
+    del sel
+    dim_name = [f"name{g % CLIENT_NAMES:02d}".encode()
+                for g in range(CLIENT_DIM_ROWS)]
+    name_of_g = np.arange(SELECT_GROUPS) % CLIENT_NAMES
+    join_oracle = (np.bincount(name_of_g[g_all], weights=v_all,
+                               minlength=CLIENT_NAMES),
+                   np.bincount(name_of_g[g_all], minlength=CLIENT_NAMES))
+
+    def check_select(name, rows):
+        return _client_check_groups(name, rows, "g", *select_oracle)
+
+    def check_join(rows):
+        named = [{"name": int(r["name"][4:]), "s": r["s"], "c": r["c"]}
+                 for r in rows]
+        return _client_check_groups("CLIENT join", named, "name",
+                                    *join_oracle)
+
+    with tempfile.TemporaryDirectory() as root:
+        client = connect(root, device="cuda")
+        holder["client"] = client
+        if client.cluster.device.type != "cuda":
+            raise AssertionError("CLIENT: the cluster is not on the card")
+        schema = port.TableSchema.make([("k", "int64"), ("g", "int64"),
+                                        ("v", "int64")])
+
+        def publish():
+            client.create("table", CLIENT_T, recursive=True,
+                          attributes={"schema": schema})
+            chunks = [ColumnarChunk.from_arrays(schema, a, device="cuda")
+                      for a in arrays]
+            publish_table_chunks(client, client.cluster.chunk_store,
+                                 CLIENT_T, chunks, schema=schema)
+        stage("publish", publish)
+        if client.get(CLIENT_T + "/@row_count") != SELECT_ROWS or \
+                len(client.get(CLIENT_T + "/@chunk_ids")) != SELECT_CHUNKS:
+            raise AssertionError("CLIENT: the published table's attributes "
+                                 "differ")
+        dim_rows = [{"g": g, "name": dim_name[g]}
+                    for g in range(CLIENT_DIM_ROWS)]
+        stage("write_dim", lambda: client.write_table("//bench/dim",
+                                                       dim_rows),
+              host_only=True)
+        if client.read_table("//bench/dim") != dim_rows:
+            raise AssertionError("CLIENT: //bench/dim reads back differently")
+
+        # Selects through the gateway, each held to numpy.
+        rows = stage("select_8", lambda: client.select_rows(CLIENT_QUERY))
+        out["stages"]["select_8_groups"] = check_select("CLIENT SELECT_8",
+                                                        rows)
+        warm = []
+        for _ in range(3):
+            t = time.perf_counter()
+            client.select_rows(CLIENT_QUERY)
+            warm.append(time.perf_counter() - t)
+        out["stages"]["select_8_warm_s"] = warm
+        lo, hi = CLIENT_RANGE
+        rows = stage("select_range", lambda: client.select_rows(
+            f"k, g, v FROM [{CLIENT_T}] WHERE k >= {lo} AND k < {hi}"))
+        pruned = client.last_query_statistics.shards_pruned
+        if pruned != SELECT_CHUNKS - 1 or sorted(
+                (r["k"], r["g"], r["v"]) for r in rows) != list(zip(
+                    k_all[lo:hi].tolist(), g_all[lo:hi].tolist(),
+                    v_all[lo:hi].tolist())):
+            raise AssertionError(f"CLIENT range: {len(rows)} rows, "
+                                 f"{pruned} shards pruned")
+        out["stages"]["range_shards_pruned"] = pruned
+        rows = stage("join", lambda: client.select_rows(CLIENT_JOIN),
+                     radix=True)
+        out["stages"]["join_groups"] = check_join(rows)
+        profile = stage("explain", lambda: client.select_rows(
+            CLIENT_QUERY, explain_analyze=True))
+        check_select("CLIENT EXPLAIN ANALYZE", profile.rows)
+        (top,) = profile.span_tree()
+        explain = {"root": top["name"], "wall_s": profile.wall_time,
+                   "compile_s": profile.compile_time,
+                   "execute_s": profile.execute_time,
+                   "children": [[c["name"], c["duration"]]
+                                for c in top["children"]]}
+        if top["name"] != "query.select" or profile.execute_time <= 0:
+            raise AssertionError(f"CLIENT EXPLAIN ANALYZE: {explain}")
+        out["stages"]["explain"] = explain
+        _log(f"client explain split: {json.dumps(explain)}")
+        _log(profile.format().split("spans:")[0].rstrip())
+
+        # Operations.
+        op = stage("sort", lambda: client.run_sort(
+            CLIENT_T, "//bench/t_sorted", sort_by=["g", "k"]), radix=True)
+        branch = "external_sort" if "spill_ranges" in op.result \
+            else "sort_chunks"
+        if op.state != "completed" or op.result["rows"] != SELECT_ROWS or \
+                branch != "sort_chunks":
+            raise AssertionError(f"CLIENT run_sort: {op.state} {op.result}")
+        _log(f"client sort branch: {op.result} through {branch} (2 x "
+             f"{SELECT_ROWS * 24} bytes against YT_TPU_HBM_BUDGET)")
+        out["stages"]["sort_branch"] = branch
+        (cid,) = client.get("//bench/t_sorted/@chunk_ids")
+        planes = client.cluster.chunk_cache.get(cid).to_numpy()["planes"]
+        # k is the row number, so the (g, k) order is the stable order by
+        # g (g < 2^15: numpy's stable sort of int16 is a radix sort).
+        if not np.array_equal(k_all, np.arange(SELECT_ROWS)):
+            raise AssertionError("CLIENT: k is not the row number")
+        order = np.argsort(g_all.astype(np.int16), kind="stable")
+        for name, col in (("g", g_all), ("k", k_all), ("v", v_all)):
+            if not np.array_equal(planes[name][0][:SELECT_ROWS], col[order]):
+                raise AssertionError(f"CLIENT run_sort: {name} is not in "
+                                     "np.lexsort's order")
+        del planes
+        if client.get("//bench/t_sorted/@sorted_by") != ["g", "k"]:
+            raise AssertionError("CLIENT run_sort: @sorted_by differs")
+        rows = stage("select_sorted", lambda: client.select_rows(
+            "k, g, v FROM [//bench/t_sorted] ORDER BY g, k LIMIT 1000"))
+        top_k = order[:1000]
+        if [(r["g"], r["k"], r["v"]) for r in rows] != list(zip(
+                g_all[top_k].tolist(), k_all[top_k].tolist(),
+                v_all[top_k].tolist())):
+            raise AssertionError("CLIENT ORDER BY g, k LIMIT 1000 differs")
+        del order, top_k
+        # The 64M-row sorted chunk and the 8 input chunks together exceed
+        # the chunk cache's 2 GiB (the reference's budget, kept): this
+        # select's misses show what the sort evicted.
+        rows = stage("select_8_after_sort",
+                     lambda: client.select_rows(CLIENT_QUERY))
+        check_select("CLIENT SELECT_8 after the sort", rows)
+        out["stages"]["cache_after_sort"] = {
+            "used_bytes": client.cluster.chunk_cache.used_bytes,
+            "capacity_bytes": client.cluster.chunk_cache.capacity_bytes}
+        op = stage("merge", lambda: client.run_merge(
+            ["//bench/dim", "//bench/dim"], "//bench/dim2", mode="sorted",
+            merge_by=["g"]))
+        merged = client.read_table("//bench/dim2")
+        if op.state != "completed" or [r["g"] for r in merged] != \
+                sorted(list(range(CLIENT_DIM_ROWS)) * 2):
+            raise AssertionError(f"CLIENT run_merge: {op.state}")
+        op = stage("erase", lambda: client.run_erase("//bench/dim2"),
+                   host_only=True)
+        if op.state != "completed" or client.read_table("//bench/dim2") \
+                or client.get("//bench/dim2/@row_count") != 0:
+            raise AssertionError("CLIENT run_erase left rows")
+        # The static tables are in a snapshot; the dynamic table's
+        # mutations stay in the changelog for the restart to replay.
+        client.cluster.master.build_snapshot()
+
+        # A dynamic table through tablet transactions.
+        acc_schema = port.TableSchema.make(
+            [("k", "int64", "ascending"), ("g", "int64"), ("v", "int64")],
+            unique_keys=True)
+        client.create("table", "//bench/acc", attributes={
+            "schema": acc_schema, "dynamic": True})
+        client.mount_table("//bench/acc")
+        acc_rows = [{"k": k, "g": g, "v": v} for k, g, v in zip(
+            d["acc_k"].tolist(), d["acc_g"].tolist(), d["acc_v"].tolist())]
+
+        def insert():
+            for lo in range(0, CLIENT_DYN_ROWS, CLIENT_DYN_TX_ROWS):
+                tx = client.start_transaction()
+                client.insert_rows("//bench/acc",
+                                   acc_rows[lo:lo + CLIENT_DYN_TX_ROWS],
+                                   tx=tx)
+                client.commit_transaction(tx)
+        stage("insert", insert, host_only=True)
+        rec = out["paths"]["client_insert"]
+        rec["rows_per_s"] = CLIENT_DYN_ROWS / rec["host_s"]
+        _log(f"client insert: {rec['rows_per_s']:.0f} rows/s in "
+             f"{CLIENT_DYN_ROWS // CLIENT_DYN_TX_ROWS} transactions")
+        gateway = client.cluster.gateway
+        before = dict(gateway.snapshot()["lookup"])
+        stage("lookup", lambda: _client_lookups(client, d), host_only=True)
+        after = gateway.snapshot()["lookup"]
+        coalesced = {k: after[k] - before.get(k, 0) for k in after}
+        out["stages"]["lookup_gateway"] = coalesced
+        _log(f"client gateway lookup: {json.dumps(coalesced)}")
+        if coalesced["requests"] != CLIENT_LOOKUPS // CLIENT_LOOKUP_BATCH or \
+                not 0 < coalesced["batches"] < coalesced["requests"]:
+            raise AssertionError(f"CLIENT: the gateway did not coalesce the "
+                                 f"lookups: {coalesced}")
+        acc_oracle = (np.bincount(d["acc_g"], weights=d["acc_v"],
+                                  minlength=1000),
+                      np.bincount(d["acc_g"], minlength=1000))
+        rows = stage("select_acc", lambda: client.select_rows(
+            CLIENT_ACC_GROUP))
+        _client_check_groups("CLIENT select_acc", rows, "g", *acc_oracle)
+        stage("unmount", lambda: client.unmount_table("//bench/acc"))
+        if client.get("//bench/acc/@tablet_state") != "unmounted":
+            raise AssertionError("CLIENT: //bench/acc is still mounted")
+
+        # Restart: a new cluster object recovers the master from the
+        # snapshot and the changelog.
+        del client, holder["client"]
+
+        def restart():
+            c = connect(root, fresh=True, device="cuda")
+            holder["client"] = c
+            c.mount_table("//bench/acc")
+            return c
+        client = stage("restart", restart, host_only=True)
+        for path, want in ((CLIENT_T, SELECT_ROWS),
+                           ("//bench/t_sorted", SELECT_ROWS),
+                           ("//bench/dim", CLIENT_DIM_ROWS),
+                           ("//bench/dim2", 0)):
+            if client.get(path + "/@row_count") != want:
+                raise AssertionError(f"CLIENT restart: {path} lost rows")
+        stage("lookup_restarted", lambda: _client_lookups(client, d))
+        rows = stage("select_8_restarted",
+                     lambda: client.select_rows(CLIENT_QUERY))
+        check_select("CLIENT SELECT_8 after the restart", rows)
+        rows = stage("select_acc_restarted", lambda: client.select_rows(
+            CLIENT_ACC_GROUP))
+        _client_check_groups("CLIENT select_acc after the restart", rows,
+                             "g", *acc_oracle)
+        rows = stage("readback", lambda: client.select_rows(
+            "k, g, v FROM [//bench/acc]"))
+        got = sorted((r["k"], r["g"], r["v"]) for r in rows)
+        if got != sorted(zip(d["acc_k"].tolist(), d["acc_g"].tolist(),
+                             d["acc_v"].tolist())):
+            raise AssertionError("CLIENT: an acknowledged write was not "
+                                 "read back after the restart")
+        out["stages"]["readback_rows"] = len(got)
+        del got, rows, acc_rows
+
+        # nearest_rows through the vector batcher.
+        vec_schema = port.TableSchema.make(
+            [("k", "int64", "ascending"),
+             ("emb", f"vector<float, {CLIENT_VEC_DIM}>")], unique_keys=True)
+        client.create("table", "//bench/vec", attributes={
+            "schema": vec_schema, "dynamic": True})
+        client.mount_table("//bench/vec")
+        vectors = d["vectors"]
+
+        def write_vectors():
+            for lo in range(0, CLIENT_VEC_ROWS, CLIENT_VEC_TX_ROWS):
+                part = vectors[lo:lo + CLIENT_VEC_TX_ROWS].tolist()
+                tx = client.start_transaction()
+                client.insert_rows("//bench/vec", [
+                    {"k": lo + i, "emb": e} for i, e in enumerate(part)],
+                    tx=tx)
+                client.commit_transaction(tx)
+            client.unmount_table("//bench/vec")
+            client.mount_table("//bench/vec")
+        stage("write_vectors", write_vectors)
+        queries = d["queries"].tolist()
+        hits = stage("nearest", lambda: _client_threads(
+            lambda i: client.nearest_rows("//bench/vec", "emb", queries[i],
+                                          CLIENT_VEC_K), CLIENT_THREADS))
+        batcher = client.cluster.gateway.snapshot()["nearest"]
+        out["stages"]["nearest_batcher"] = batcher
+        _log(f"client nearest batcher: {json.dumps(batcher)}")
+        if batcher["requests"] != CLIENT_THREADS or \
+                not 0 < batcher["batches"] < batcher["requests"]:
+            raise AssertionError(f"CLIENT: the vector batcher did not "
+                                 f"coalesce the NEAREST callers: {batcher}")
+        snap = client._mounted_tablets("//bench/vec")[0].read_snapshot(
+            port.MAX_TIMESTAMP)
+        ref = batched_nearest(snap, "emb", queries, CLIENT_VEC_K,
+                              device="cuda")
+        keys = snap.to_numpy()["planes"]["k"][0]
+        for i, (got_rows, want) in enumerate(zip(hits, ref)):
+            if [r["k"] for r in got_rows] != [int(keys[j]) for j, _ in want] \
+                    or not np.allclose([r["$distance"] for r in got_rows],
+                                       [m for _, m in want], rtol=1e-5,
+                                       atol=0):
+                raise AssertionError(f"CLIENT nearest_rows {i} differs from "
+                                     "batched_nearest")
+        del snap, ref, hits, vectors
+        holder.clear()
+        del client
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    _log(f"client: {out['seconds']:.1f} s in all")
+    return out
+
+
 # --- SELECT: multi-chunk selects through the host coordinator ---------------
 
 SELECT_ROWS = 64_000_000     # bench.py's select table at the q1 bench size
@@ -2974,7 +3544,7 @@ def _mesh_rank(seed: str, store: str, rank: str) -> int:
         for k, p in sort_shards])
     all_k = np.concatenate([k for k, _ in sort_shards])
     all_p = np.concatenate([p for _, p in sort_shards])
-    order = np.argsort(all_k, kind="stable")
+    order = _stable_argsort(all_k)
 
     def check_sort(out) -> int:
         lo = sum(out.row_counts[:rank])
@@ -3363,36 +3933,53 @@ def main() -> int:
         _log(info["log"].strip())
 
     # 3. kernels against their plain versions, and the argsort
+    phase_s: dict = {}
+
+    def timed(name, fn, *fn_args):
+        """fn(*fn_args), its host seconds logged and recorded: the phases'
+        share of chip_smoke's time limit."""
+        t = time.perf_counter()
+        result = fn(*fn_args)
+        phase_s[name] = time.perf_counter() - t
+        _log(f"phase {name}: {phase_s[name]:.1f} s")
+        return result
+
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    errors = {"hist_rank": phase_hist_rank(hr, gen),
-              **phase_radix_kernels(rx, gen)}
-    argsort = phase_argsort(rx, gen)
+    errors = {"hist_rank": timed("hist_rank", phase_hist_rank, hr, gen),
+              **timed("radix_kernels", phase_radix_kernels, rx, gen)}
+    argsort = timed("argsort", phase_argsort, rx, gen)
 
     # 4. the slice: the queries, then the Sort operation and MVCC reads,
     # the mesh paths, and the spill sort
     keep: dict = {"seed": args.seed}
-    paths = phase_slice(args.seed, hr, rx, tpch, select_rows, keep)
-    paths.update(phase_strings(args.seed, hr, rx, synthetic, select_rows))
-    vec = phase_vector(hr, rx, synthetic, vector, select_rows)
+    paths = timed("slice", phase_slice, args.seed, hr, rx, tpch, select_rows,
+                  keep)
+    paths.update(timed("strings", phase_strings, args.seed, hr, rx,
+                       synthetic, select_rows))
+    vec = timed("vector", phase_vector, hr, rx, synthetic, vector,
+                select_rows)
     paths.update(vec.pop("paths"))
     port = _port_entry_points()
-    paths["sort"] = phase_sort(args.seed, hr, rx, port, keep)
-    paths["tablet"] = phase_tablet(args.seed, hr, rx, port)
-    dyntable = phase_dyntable(args.seed, hr, rx, port)
+    paths["sort"] = timed("sort", phase_sort, args.seed, hr, rx, port, keep)
+    paths["tablet"] = timed("tablet", phase_tablet, args.seed, hr, rx, port)
+    dyntable = timed("dyntable", phase_dyntable, args.seed, hr, rx, port)
     paths.update(dyntable.pop("paths"))
-    durable = phase_durable(args.seed, hr, rx, port)
+    durable = timed("durable", phase_durable, args.seed, hr, rx, port)
     paths.update(durable.pop("paths"))
-    queue = phase_queue(args.seed, hr, rx, port)
+    queue = timed("queue", phase_queue, args.seed, hr, rx, port)
     paths.update(queue.pop("paths"))
-    paths.update(phase_select(args.seed, hr, rx, tpch, port, keep))
-    paths.update(phase_mesh(hr, rx, tpch, keep))
+    client = timed("client", phase_client, args.seed, hr, rx, port)
+    paths.update(client.pop("paths"))
+    paths.update(timed("select", phase_select, args.seed, hr, rx, tpch, port,
+                       keep))
+    paths.update(timed("mesh", phase_mesh, hr, rx, tpch, keep))
     keep.clear()
     with tempfile.TemporaryDirectory() as tmp:
-        mesh_ranks = phase_mesh_ranks(args.seed, tmp)
-    paths["extsort"] = phase_extsort(hr, rx, port)
+        mesh_ranks = timed("mesh_ranks", phase_mesh_ranks, args.seed, tmp)
+    paths["extsort"] = timed("extsort", phase_extsort, hr, rx, port)
 
     # 5. the kernels line
-    times = phase_kernel_times(hr, rx, args.seed)
+    times = timed("kernel_times", phase_kernel_times, hr, rx, args.seed)
     kernels = []
     for name in TRACE_NAMES:
         per_path = {q: r["launches"][name] for q, r in paths.items()}
@@ -3416,11 +4003,12 @@ def main() -> int:
               "cuda": torch.version.cuda, "rows": ROWS, "orders": ORDERS,
               "window_rows": WINDOW_ROWS, "sort_rows": SORT_ROWS,
               "tablet_versions": TABLET_VERSIONS, "dyntable": dyntable,
-              "durable": durable, "queue": queue,
+              "durable": durable, "queue": queue, "client": client,
               "extsort_rows": paths["extsort"]["rows_in"],
               "strings_rows": STRINGS_ROWS, "vector_rows": VECTOR_ROWS,
               "vector": vec, "mesh_ranks": mesh_ranks,
               "seed": args.seed, "argsort": argsort,
+              "phase_seconds": phase_s,
               "paths": paths, "kernels": kernels,
               "ptxas": {name: _build.build_info[name]["log"]
                         for name in TRACE_NAMES}}

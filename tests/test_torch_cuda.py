@@ -806,3 +806,78 @@ def test_ordered_tablet_on_the_card_matches_the_cpu(cuda_device, tmp_path):
                            device=cuda_device).to_rows() == \
             select_rows(query, {"//q": cpu.snapshot(ts)},
                         device="cpu").to_rows()
+
+
+def test_client_without_a_card_raises(tmp_path):
+    """`connect` runs on the card unless asked for the CPU: without one it
+    raises, it never carries on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card")
+    from ytsaurus_tpu_torch.client import connect
+    from ytsaurus_tpu_torch.errors import YtError
+    with pytest.raises(YtError, match="no CUDA device"):
+        connect(str(tmp_path))
+    assert connect(str(tmp_path), device="cpu").cluster.device.type == "cpu"
+
+
+def _client_script(client):
+    from ytsaurus_tpu_torch.schema import TableSchema
+    rng = np.random.default_rng(5)
+    rows = [{"k": int(k), "g": int(g), "v": int(v)} for k, g, v in zip(
+        rng.permutation(3000), rng.integers(0, 50, 3000),
+        rng.integers(0, 1000, 3000))]
+    for lo in range(0, 3000, 1000):
+        client.write_table("//t", rows[lo:lo + 1000], append=lo > 0)
+    client.write_table("//dim", [{"g": g, "name": f"n{g % 7}"}
+                                 for g in range(50)])
+    out = {"group": client.select_rows(
+        "g, sum(v) AS s, count(*) AS c FROM [//t] WHERE v < 900 GROUP BY g "
+        "ORDER BY g LIMIT 100"),
+        "join": client.select_rows(
+            "name, sum(v) AS s FROM [//t] JOIN [//dim] USING g "
+            "GROUP BY name ORDER BY name LIMIT 10"),
+        "range": client.select_rows("k, v FROM [//t] WHERE k >= 1000 AND "
+                                    "k < 1010 ORDER BY k LIMIT 10"),
+        "pruned": client.last_query_statistics.shards_pruned}
+    op = client.run_sort("//t", "//s", sort_by=["g", "k"])
+    out["sort"] = (op.state, client.read_table("//s"),
+                   client.get("//s/@sorted_by"))
+    schema = TableSchema.make([("k", "int64", "ascending"), ("v", "int64"),
+                               ("e", "vector<float, 4>")], unique_keys=True)
+    client.create("table", "//d", attributes={"schema": schema,
+                                              "dynamic": True})
+    client.mount_table("//d")
+    client.insert_rows("//d", [{"k": i, "v": i * 3,
+                                "e": [float(i % 5), 1.0, -1.0, float(i)]}
+                               for i in range(200)])
+    out["lookup"] = client.lookup_rows("//d", [(4,), (500,), (7,)])
+    out["nearest"] = [(r["k"], r["$distance"]) for r in client.nearest_rows(
+        "//d", "e", [1.0, 1.0, -1.0, 10.0], 4)]
+    client.unmount_table("//d")
+    client.mount_table("//d")
+    out["after_flush"] = client.select_rows(
+        "sum(v) AS s FROM [//d] GROUP BY 1 AS one")
+    return out
+
+
+def test_client_on_the_card_matches_the_cpu(cuda_device, tmp_path):
+    """`connect()` with no device puts the cluster on the card; its
+    selects, join, sort, lookups and NEAREST answer as the CPU's."""
+    from ytsaurus_tpu_torch.client import connect
+    gpu = connect(str(tmp_path / "gpu"))
+    assert gpu.cluster.device.type == "cuda"
+    assert gpu.cluster.evaluator.device.type == "cuda"
+    assert gpu.cluster.chunk_cache.device.type == "cuda"
+    before = dict(rx.launches)
+    got = _client_script(gpu)
+    assert rx.launches["radix_upsweep"] > before["radix_upsweep"]
+    want = _client_script(connect(str(tmp_path / "cpu"), device="cpu"))
+    assert got.keys() == want.keys()
+    for key in got:
+        if key == "nearest":
+            assert [k for k, _ in got[key]] == [k for k, _ in want[key]]
+            np.testing.assert_allclose([d for _, d in got[key]],
+                                       [d for _, d in want[key]],
+                                       rtol=1e-5)
+        else:
+            assert got[key] == want[key], key

@@ -322,7 +322,9 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
     (tests/test_torch_distributed.py runs the mesh and the ladder on ranks
     with both blocked); the storage path (YSON, the chunk wire format, the
     chunk store, `Tablet` and `TransactionManager`) writes a table through
-    a transaction, flushes, compacts and reads it back."""
+    a transaction, flushes, compacts and reads it back; and the client
+    (`connect`, with Cypress, the gateway and the scheduler under it)
+    writes a static table, selects from it and sorts it."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -452,6 +454,18 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
             tab.compact(retention_timestamp=txm.timestamps.generate())
             assert tab.lookup_rows([(2,), (3,)]) == [{"k": 2, "v": 4}, None]
             assert tab.read_snapshot().row_count == 49
+        from ytsaurus_tpu_torch.client import connect
+        from ytsaurus_tpu_torch.query import (  # noqa: F401
+            accounting, profile, pruning, workload)
+        with tempfile.TemporaryDirectory() as root:
+            client = connect(root, device="cpu")
+            client.write_table("//t", [{"k": 5 - i, "g": i % 2}
+                                       for i in range(5)])
+            got = client.select_rows("g, count(*) AS c FROM [//t] GROUP BY g")
+            assert sorted((r["g"], r["c"]) for r in got) == [(0, 3), (1, 2)]
+            op = client.run_sort("//t", "//s", sort_by="k")
+            assert op.state == "completed", op.error
+            assert [r["k"] for r in client.read_table("//s")] == [1, 2, 3, 4, 5]
         assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                              if v is not None}
         print("ok", len(rows))

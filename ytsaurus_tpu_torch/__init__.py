@@ -39,7 +39,13 @@ It runs QL queries over columnar chunks on one device:
     read), chunks/replicated.py (`ReplicatedChunkStore`), `any` columns,
     tablet/ordered.py (`OrderedTablet`, queue tables), formats.py (yson,
     json, dsv, schemaful_dsv, skiff) and arrow.py;
-  - bench/chip_phases.py — chip_smoke's storage phases alone on the card;
+  - client.py — `connect(root, device=)`: a local-mode cluster in one
+    process over all of the above (the Cypress master of cypress/, the
+    serving gateway of query/serving.py, EXPLAIN ANALYZE of
+    query/profile.py, the operation scheduler of operations/), with
+    query/{pruning,accounting,workload}.py;
+  - bench/chip_phases.py — chip_smoke's storage and client phases alone
+    on the card;
   - config.py, utils/ — the knobs, failpoints, trace spans, sensors,
     invariant checks and varints those read.
 

@@ -20,6 +20,13 @@ counterpart):
   TabletConfig       the tablet's read-path knobs: the host-plane LRU's
                      size, the snapshot cache, and the version count at
                      which the MVCC merge goes columnar
+  TracingConfig      the query flight recorder: sampling, the slow-query
+                     threshold and the bounded logs (utils/tracing.py,
+                     query/profile.py)
+  WorkloadConfig     the workload recorder (query/workload.py)
+  ServingConfig      the serving gateway (query/serving.py): admission
+                     slots and pools, the brown-out ladder, deadlines and
+                     lookup micro-batching
 
 The reference's CompileConfig knobs for compile caches, AOT artifacts and
 buffer donation have no counterpart: nothing here is compiled.
@@ -28,7 +35,7 @@ buffer donation have no counterpart: nothing here is compiled.
 from __future__ import annotations
 
 import random as _random
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 from ytsaurus_tpu_torch.errors import EErrorCode, YtError
@@ -197,3 +204,224 @@ def set_tablet_config(config: Optional[TabletConfig]) -> None:
     """Install a process-wide tablet config (None restores defaults)."""
     global _TABLET_CONFIG
     _TABLET_CONFIG = config
+
+
+@dataclass
+class TracingConfig:
+    """Query flight recorder knobs (utils/tracing.py + query/profile.py):
+
+    - `enabled`: master switch; False turns every span site into the
+      NULL fast path.
+    - `sample_rate`: probability a new ROOT trace records its spans
+      (entry points: gateway select/lookup, scheduler operations).
+      explain_analyze always samples.
+    - `slow_query_threshold`: queries at/above this wall time (seconds)
+      are ALWAYS retained in the flight recorder's slow-query log;
+      faster queries are retained at `sample_rate`.
+    - `slow_log_capacity` / `recent_log_capacity`: bounded profile logs.
+    - `ring_capacity`: finished-span ring buffer size."""
+
+    enabled: bool = True
+    sample_rate: float = 1.0
+    slow_query_threshold: float = 0.5
+    slow_log_capacity: int = 128
+    recent_log_capacity: int = 128
+    ring_capacity: int = 4096
+
+    def __post_init__(self):
+        _check("sample_rate", self.sample_rate, ge=0.0, le=1.0)
+        _check("slow_query_threshold", self.slow_query_threshold, ge=0.0)
+        _check("slow_log_capacity", self.slow_log_capacity, ge=1)
+        _check("recent_log_capacity", self.recent_log_capacity, ge=1)
+        _check("ring_capacity", self.ring_capacity, ge=1)
+
+
+_TRACING_CONFIG: Optional[TracingConfig] = None
+
+
+def tracing_config() -> TracingConfig:
+    global _TRACING_CONFIG
+    if _TRACING_CONFIG is None:
+        _TRACING_CONFIG = TracingConfig()
+    return _TRACING_CONFIG
+
+
+def set_tracing_config(config: Optional[TracingConfig]) -> None:
+    """Install a process-wide tracing config (None restores defaults);
+    pushes the fast-path mirrors into utils/tracing."""
+    global _TRACING_CONFIG
+    _TRACING_CONFIG = config
+    from ytsaurus_tpu_torch.utils import tracing
+    tracing.configure(config)
+
+
+@dataclass
+class WorkloadConfig:
+    """Workload recorder knobs (query/workload.py):
+
+    - `enabled`: master switch; False turns every observe site into one
+      config read.
+    - `sample_rate`: probability an admitted query folds a record into
+      the workload log.
+    - `capacity`: bounded in-memory record ring.
+    - `fingerprint_capacity`: bounded per-fingerprint roll-up map; new
+      fingerprints past the cap count as dropped.
+    - `log_dir`: when set, sampled records ALSO append to a rotated
+      on-disk JSONL log (`workload.jsonl`, header line carries the
+      schema version) bounded by `rotate_bytes` x `max_files`.
+    - `lookup_keys_per_record`: lookup records retain at most this many
+      key tuples.
+
+    The reference's compilation-observatory knobs (artifact capture,
+    the compile cache's bound) have no counterpart: nothing is
+    compiled."""
+
+    enabled: bool = True
+    sample_rate: float = 1.0
+    capacity: int = 4096
+    fingerprint_capacity: int = 1024
+    log_dir: Optional[str] = None
+    rotate_bytes: int = 4 << 20
+    max_files: int = 4
+    lookup_keys_per_record: int = 16
+
+    def __post_init__(self):
+        _check("sample_rate", self.sample_rate, ge=0.0, le=1.0)
+        _check("capacity", self.capacity, ge=1)
+        _check("fingerprint_capacity", self.fingerprint_capacity, ge=1)
+        _check("rotate_bytes", self.rotate_bytes, ge=4096)
+        _check("max_files", self.max_files, ge=1)
+        _check("lookup_keys_per_record", self.lookup_keys_per_record, ge=0)
+
+
+_WORKLOAD_CONFIG: Optional[WorkloadConfig] = None
+
+
+def workload_config() -> WorkloadConfig:
+    global _WORKLOAD_CONFIG
+    if _WORKLOAD_CONFIG is None:
+        _WORKLOAD_CONFIG = WorkloadConfig()
+    return _WORKLOAD_CONFIG
+
+
+def set_workload_config(config: Optional[WorkloadConfig]) -> None:
+    """Install a process-wide workload config (None restores defaults);
+    rebinds the global workload log to the new shape."""
+    global _WORKLOAD_CONFIG
+    _WORKLOAD_CONFIG = config
+    from ytsaurus_tpu_torch.query import workload
+    workload.configure(config)
+
+
+def _str_keys(mapping) -> dict:
+    """YSON-loaded maps may carry bytes keys; pool names are strings."""
+    return {(k.decode("utf-8") if isinstance(k, bytes) else k): v
+            for k, v in (mapping or {}).items()}
+
+
+def _invalid(message: str) -> YtError:
+    return YtError(message, code=EErrorCode.InvalidConfig)
+
+
+@dataclass
+class ServingConfig:
+    """Query serving plane knobs (query/serving.py QueryGateway):
+    admission control (weighted per-pool concurrency slots over a
+    bounded wait queue), deadline propagation, and continuous
+    micro-batching of lookups.
+
+    - `slots`: total concurrent query slots, shared by every pool under
+      fair-share admission (min shares first, then weight-proportional
+      water filling capped by live demand).
+    - `pools`: pool name -> weight; unknown pools use `default_pool`.
+    - `min_shares`: pool -> guaranteed share of `slots` in [0, 1].
+    - `pool_limits`: pool -> hard cap on concurrently running queries.
+    - Brown-out ladder: rung 0 full execution, rung 1 bounded-staleness
+      snapshot-cache reads, rung 2 reject-with-retry_after, driven by
+      the estimated queue drain time (total_waiting * hold_ewma /
+      slots); rungs step up at once and down one at a time after
+      `brownout_min_dwell_seconds` below `threshold *
+      brownout_hysteresis`.
+    - `staleness_bounds`: pool -> max staleness (seconds) a rung-1 read
+      may serve; `default_staleness_seconds` otherwise; 0 opts out.
+    - `max_queue`: admitted-but-waiting requests per pool; overflow
+      raises ThrottledError.
+    - `default_timeout`: deadline when the caller passes none (0 = none).
+    - `flush_window_ms` / `max_batch_size`: lookup micro-batching.
+    - `min_bucket`: pow2 floor for the batched probe's needle arrays.
+    - `max_tablet_fanout`: parallel per-tablet fan-out width."""
+
+    enabled: bool = True
+    slots: int = 16
+    pools: dict = field(default_factory=lambda: {"default": 1.0})
+    default_pool: str = "default"
+    min_shares: dict = field(default_factory=dict)
+    pool_limits: dict = field(default_factory=dict)
+    brownout_enabled: bool = True
+    brownout_rung1_seconds: float = 0.5
+    brownout_rung2_seconds: float = 2.0
+    brownout_hysteresis: float = 0.5
+    brownout_min_dwell_seconds: float = 1.0
+    staleness_bounds: dict = field(default_factory=dict)
+    default_staleness_seconds: float = 5.0
+    max_queue: int = 128
+    default_timeout: float = 30.0
+    flush_window_ms: float = 2.0
+    max_batch_size: int = 1024
+    min_bucket: int = 8
+    max_tablet_fanout: int = 8
+
+    def __post_init__(self):
+        _check("slots", self.slots, ge=1)
+        for name in ("brownout_rung1_seconds", "brownout_rung2_seconds",
+                     "brownout_min_dwell_seconds",
+                     "default_staleness_seconds", "default_timeout",
+                     "flush_window_ms"):
+            _check(name, getattr(self, name), ge=0.0)
+        _check("brownout_hysteresis", self.brownout_hysteresis, ge=0.0,
+               le=1.0)
+        _check("max_queue", self.max_queue, ge=0)
+        _check("max_batch_size", self.max_batch_size, ge=1)
+        _check("min_bucket", self.min_bucket, ge=1)
+        _check("max_tablet_fanout", self.max_tablet_fanout, ge=1)
+        self.pools = _str_keys(self.pools)
+        for name, weight in self.pools.items():
+            if isinstance(weight, bool) or \
+                    not isinstance(weight, (int, float)) or weight < 0:
+                raise _invalid(
+                    f"Serving pool {name!r}: weight must be a "
+                    f"non-negative number, got {weight!r}")
+        if self.default_pool not in self.pools:
+            raise _invalid(
+                f"Serving default_pool {self.default_pool!r} is not in "
+                f"pools {sorted(self.pools)!r}")
+        self.min_shares = _str_keys(self.min_shares)
+        for name, ratio in self.min_shares.items():
+            if isinstance(ratio, bool) or \
+                    not isinstance(ratio, (int, float)) or \
+                    not 0.0 <= ratio <= 1.0:
+                raise _invalid(
+                    f"Serving pool {name!r}: min_share must be in "
+                    f"[0, 1], got {ratio!r}")
+        if sum(self.min_shares.values()) > 1.0 + 1e-9:
+            raise _invalid(
+                f"Serving min_shares sum to "
+                f"{sum(self.min_shares.values()):.3f} > 1.0 — the "
+                f"guarantees are not satisfiable")
+        self.pool_limits = _str_keys(self.pool_limits)
+        for name, limit in self.pool_limits.items():
+            if isinstance(limit, bool) or not isinstance(limit, int) \
+                    or limit < 1:
+                raise _invalid(
+                    f"Serving pool {name!r}: pool_limit must be a "
+                    f"positive int, got {limit!r}")
+        self.staleness_bounds = _str_keys(self.staleness_bounds)
+        for name, bound in self.staleness_bounds.items():
+            if isinstance(bound, bool) or \
+                    not isinstance(bound, (int, float)) or bound < 0:
+                raise _invalid(
+                    f"Serving pool {name!r}: staleness bound must be a "
+                    f"non-negative number, got {bound!r}")
+        if self.brownout_rung2_seconds < self.brownout_rung1_seconds:
+            raise _invalid("Serving brownout_rung2_seconds must be >= "
+                           "brownout_rung1_seconds")

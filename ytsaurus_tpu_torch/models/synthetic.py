@@ -121,14 +121,17 @@ def vector_measures(plane: np.ndarray, queries: np.ndarray, metric: str,
                     rows: "np.ndarray | None" = None,
                     block: int = 1 << 17) -> np.ndarray:
     """Every row's measure against each query in float64, one pass over
-    the rows in blocks: the l2 or cosine distance, or the dot product.
-    `queries` is (B, dim); `rows` limits the rows (all when None). Returns
-    (B, rows)."""
+    the rows in blocks, the blocks on threads (numpy releases the GIL in
+    the conversion, the product and the epilogue): the l2 or cosine
+    distance, or the dot product. `queries` is (B, dim); `rows` limits
+    the rows (all when None). Returns (B, rows)."""
+    from concurrent.futures import ThreadPoolExecutor
     q = np.atleast_2d(queries).astype(np.float64)
     q_norm2 = (q * q).sum(axis=1)
     n = plane.shape[0] if rows is None else len(rows)
     out = np.empty((len(q), n), dtype=np.float64)
-    for lo in range(0, n, block):
+
+    def fill(lo: int) -> None:
         hi = min(lo + block, n)
         x = (plane[lo:hi] if rows is None else plane[rows[lo:hi]]
              ).astype(np.float64)
@@ -143,6 +146,10 @@ def vector_measures(plane: np.ndarray, queries: np.ndarray, metric: str,
         else:
             out[:, lo:hi] = np.sqrt(np.maximum(
                 q_norm2[:, None] - 2.0 * dot + x_norm2, 0.0))
+
+    starts = range(0, n, block)
+    with ThreadPoolExecutor(max(1, min(8, len(starts)))) as pool:
+        list(pool.map(fill, starts))
     return out
 
 

@@ -24,6 +24,7 @@ second time as the grand-total plan, and the totals row comes last.
 
 from __future__ import annotations
 
+import time
 from dataclasses import replace as dc_replace
 from typing import Mapping, Optional, Sequence
 
@@ -36,7 +37,9 @@ from ytsaurus_tpu_torch.query import ir, planner
 from ytsaurus_tpu_torch.query.builder import build_query
 from ytsaurus_tpu_torch.query.engine.joins import execute_join
 from ytsaurus_tpu_torch.query.engine.lowering import prepare
+from ytsaurus_tpu_torch.query.parameterize import plan_fingerprint
 from ytsaurus_tpu_torch.schema import EValueType, TableSchema
+from ytsaurus_tpu_torch.utils.tracing import child_span
 
 
 _count_reads_n = 0
@@ -57,13 +60,15 @@ class _PendingResult:
     `finish()` reads the count (one device → host read) and wraps the
     chunk; given `host_count` (read by `finish_all`), it reads nothing."""
 
-    __slots__ = ("planes", "count", "output", "_chunk")
+    __slots__ = ("planes", "count", "output", "_chunk", "stats", "_t0")
 
-    def __init__(self, planes, count, output):
+    def __init__(self, planes, count, output, stats=None, t0=None):
         self.planes = planes
         self.count = count
         self.output = output
         self._chunk: Optional[ColumnarChunk] = None
+        self.stats = stats
+        self._t0 = t0
 
     def finish(self, host_count: Optional[int] = None) -> ColumnarChunk:
         if self._chunk is None:
@@ -82,6 +87,9 @@ class _PendingResult:
             self._chunk = ColumnarChunk(
                 schema=TableSchema.make(out_schema_cols), row_count=n,
                 columns=out_columns)
+            if self.stats is not None and self._t0 is not None:
+                # Dispatch to the count read: the device sync included.
+                self.stats.execute_time += time.perf_counter() - self._t0
         return self._chunk
 
 
@@ -127,8 +135,9 @@ class Evaluator:
         """Execute a plan over one input chunk (and the foreign chunks of
         its joins, by table path), all on this evaluator's device.
         `token` (query/serving.CancellationToken) is checked first;
-        `stats` is accepted for the coordinator's call sites (the
-        evaluator itself writes no statistics)."""
+        `stats` (query/statistics.QueryStatistics) gains the binding
+        seconds as `compile_time` and the seconds from dispatch to the
+        row count's read as `execute_time`."""
         return self.run_plan_async(plan, chunk, foreign_chunks, stats=stats,
                                    token=token).finish()
 
@@ -163,11 +172,26 @@ class Evaluator:
             chunk = current
         elif isinstance(plan, ir.Query):
             chunk = _project_chunk(chunk, plan.schema)
-        if plan.group is not None and plan.group.totals:
-            result = self._execute(plan, chunk).finish()
-            totals = self._execute(_make_totals_plan(plan), chunk).finish()
-            return _ReadyResult(concat_chunks([result, totals]))
-        return self._execute(plan, chunk)
+        # Span per plan execution, tagged with the plan's shape
+        # fingerprint; an interior site, so untraced use stays on the
+        # null fast path and never computes the fingerprint.
+        span = child_span("evaluator.run_plan", rows=chunk.row_count)
+        with span:
+            if span.sampled:
+                span.add_tag("fingerprint", plan_fingerprint(plan))
+            bind0 = stats.compile_time if stats is not None else 0.0
+            if plan.group is not None and plan.group.totals:
+                result = self._execute(plan, chunk, stats).finish()
+                totals = self._execute(_make_totals_plan(plan), chunk,
+                                       stats).finish()
+                pending = _ReadyResult(concat_chunks([result, totals]))
+            else:
+                pending = self._execute(plan, chunk, stats)
+            if stats is not None:
+                span.add_tag("compile_seconds",
+                             round(stats.compile_time - bind0, 6))
+            span.add_tag("execution_tier", "eager")
+            return pending
 
     def _check_device(self, chunk: ColumnarChunk) -> None:
         if chunk.columns and not same_device(chunk.device, self.device):
@@ -175,13 +199,22 @@ class Evaluator:
                           f"on {self.device}",
                           code=EErrorCode.QueryExecutionError)
 
-    def _execute(self, plan, chunk: ColumnarChunk) -> _PendingResult:
+    def cache_size(self) -> int:
+        """Entries of the program cache: none, nothing is compiled."""
+        return 0
+
+    def _execute(self, plan, chunk: ColumnarChunk,
+                 stats=None) -> _PendingResult:
+        t0 = time.perf_counter()
         prepared = prepare(plan, chunk)
+        t1 = time.perf_counter()
+        if stats is not None:
+            stats.compile_time += t1 - t0
         columns = {c.name: (chunk.columns[c.name].data,
                             chunk.columns[c.name].valid)
                    for c in plan.schema}
         planes, count = prepared.run(columns, chunk.row_valid)
-        return _PendingResult(planes, count, prepared.output)
+        return _PendingResult(planes, count, prepared.output, stats, t1)
 
 
 def _initial_namespace(plan: ir.Query) -> list[tuple[str, str]]:

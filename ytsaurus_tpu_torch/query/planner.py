@@ -16,7 +16,8 @@ decides the row order of a LIMIT without ORDER BY):
                    whole-plan rung's strategy; the single-device
                    evaluator runs every join the same way).
   semi-join ranges the [min, max] of a selective INNER side's key, pushed
-                   toward the scan (recorded for parity as well).
+                   toward the scan (`pushdown_intervals`: the client
+                   prunes the shards whose key range cannot join).
 
 The broadcast threshold is `CompileConfig.broadcast_join_rows` (the
 port's `config.py`), at the reference's default. The reference's
@@ -258,6 +259,24 @@ def plan_for_chunks(plan: ir.Query, self_rows: int,
         stats[join.foreign_table] = \
             stats_for_chunk(chunk) if chunk is not None else None
     return plan_joins(plan, self_rows, stats)
+
+
+def pushdown_intervals(plan: ir.Query,
+                       foreign_stats: Mapping[str, Optional[dict]]
+                       ) -> dict:
+    """Scan-stage shard-pruning intervals implied by selective INNER
+    join sides: {self_column: pruning.Interval}. The client intersects
+    these with the WHERE-derived intervals, so shards whose key range
+    cannot join anything are never staged."""
+    from ytsaurus_tpu_torch.query.pruning import Interval
+    base = _base_columns(plan)
+    out: dict = {}
+    for join in plan.joins:
+        for name, lo, hi in _pushdown_for(
+                join, foreign_stats.get(join.foreign_table), base):
+            iv = out.get(name, Interval())
+            out[name] = iv.narrow(Interval(lo=lo, hi=hi))
+    return out
 
 
 def est_drift(est_rows, actual_rows) -> float:

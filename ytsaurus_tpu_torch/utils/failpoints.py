@@ -17,7 +17,8 @@ that to its staging file and then fails without publishing it). Knobs: `p` (trig
 per-site RNG seeded by (seed, site)), `1in` (every n-th eligible hit),
 `times` (at most this many triggers), `after` (skip the first n hits),
 `ms` (delay length). Activation is `active(spec, seed)` (a context
-manager) or `activate`. The reference's crash-once mode (process death), its
+manager) or `activate`; `counters()` reads the per-site hits and
+triggers. The reference's crash-once mode (process death), its
 environment activation and its sensors are not ported.
 
 On a mesh every rank holds its own schedule: give every rank the same
@@ -234,3 +235,17 @@ def active(spec: str, seed: int = 0):
     finally:
         with _LOCK:
             _STATE = prev
+
+
+def counters() -> "dict[str, dict]":
+    """Cumulative per-site counters (survive activation cycles)."""
+    with _LOCK:
+        return {name: {"hits": s.hits, "triggers": s.triggers}
+                for name, s in sorted(_SITES.items())}
+
+
+def reset_counters() -> None:
+    with _LOCK:
+        for site in _SITES.values():
+            site.hits = 0
+            site.triggers = 0

@@ -1,10 +1,10 @@
 """Named locks.
 
 Own copy of the JAX package's `utils/sanitizers.py::register_lock` and
-`register_rlock` as far as they name a lock: the reference's concurrency
+`register_rlock` / `register_condition` as far as they name a lock: the reference's concurrency
 sanitizer (lock-order edges, hold budgets, sync-under-lock checks) has no
-counterpart, so the calls return a plain `threading.Lock` / `RLock` and
-record its name.
+counterpart, so the calls return a plain `threading.Lock` / `RLock` /
+`Condition` and record its name.
 """
 
 from __future__ import annotations
@@ -27,3 +27,11 @@ def register_rlock(name: str, lock=None, *, hot: bool = True):
     effect."""
     _names.add(name)
     return lock if lock is not None else threading.RLock()
+
+
+def register_condition(name: str, cond=None, *, hot: bool = True):
+    """A condition variable registered under `name` (`cond` if one is
+    given). `hot` is accepted for the reference's call sites and has no
+    effect."""
+    _names.add(name)
+    return cond if cond is not None else threading.Condition()

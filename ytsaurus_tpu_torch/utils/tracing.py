@@ -1,17 +1,27 @@
-"""Trace spans with an ambient context and a bounded collector.
+"""Distributed trace contexts with sampling, baggage, and a flight
+recorder.
 
-Own copy of the JAX package's `utils/tracing.py` as far as the
-coordinator, the degradation ladder and the mesh telemetry call it:
+Own copy of the JAX package's `utils/tracing.py` (ref
+core/tracing/trace_context.h:75): a `contextvars`-based ambient context,
+finished sampled spans in a bounded ring with a drain cursor. The
+reference's wire encoding (`to_wire` / `from_wire`) waits for the port's
+`rpc/` slice.
 
-  start_span(name)   child of the ambient span, or a fresh sampled root
-  child_span(name)   interior site: child of the ambient span, NULL_SPAN
-                     when there is none (one contextvar read)
-  current_trace()    the ambient span, or None
+Span-site discipline (what keeps an untraced hot path ~free):
 
-A span is a context manager; on exit a sampled span goes to the collector
-(`get_collector().find(trace_id)`), tagged `error` when it ends by an
-exception. The reference's wire encoding, sampling configuration, query
-entry spans, span histograms and flight-recorder views are not ported.
+  start_span(name)        child of the ambient context, or a SAMPLED
+                          fresh root (rate from config.TracingConfig).
+  child_span(name)        INTERIOR site: child of the ambient context,
+                          NULL when there is none (or it is unsampled):
+                          one contextvar read + a singleton return.
+  start_query_span(name)  ENTRY point (gateway select/lookup, scheduler
+                          operation): continues the ambient trace when
+                          one exists, else roots a new trace subject to
+                          `enabled` + `sample_rate`; `force=True`
+                          (explain_analyze) always samples.
+
+`span_tree(trace_id)` nests one trace's spans, `trace_summaries()` lists
+the retained traces.
 """
 
 from __future__ import annotations
@@ -19,11 +29,16 @@ from __future__ import annotations
 import contextvars
 import itertools
 import os
+import random
 import time
 from typing import Any, Optional
 
 from ytsaurus_tpu_torch.utils import sanitizers
 
+# Id generation: a per-process random prefix + an atomic counter (the
+# `itertools.count` step is GIL-atomic).  uuid4 costs ~16µs per call in
+# entropy-starved containers — two per span would dwarf every other cost
+# on the sampled path; ids only need uniqueness, not unpredictability.
 _ID_PREFIX = int.from_bytes(os.urandom(8), "big")
 _ID_COUNTER = itertools.count(int.from_bytes(os.urandom(6), "big"))
 _ID_MASK = (1 << 64) - 1
@@ -34,18 +49,40 @@ def _new_trace_id() -> str:
 
 
 def _new_span_id() -> str:
+    # Mixed with the process prefix so two processes sharing one trace
+    # cannot collide span ids at similar counter values.
     return f"{(_ID_PREFIX ^ (next(_ID_COUNTER) * 0x9E3779B97F4A7C15)) & _ID_MASK:016x}"
-
 
 _current: contextvars.ContextVar[Optional["TraceContext"]] = \
     contextvars.ContextVar("trace_context", default=None)
 
+# Fast-path mirrors of config.TracingConfig (one module-global read per
+# span site, same discipline as utils/failpoints._STATE).
+_ENABLED = True
+_SAMPLE_RATE = 1.0
+
+
+def configure(config) -> None:
+    """Apply a config.TracingConfig process-wide (None → defaults)."""
+    global _ENABLED, _SAMPLE_RATE
+    if config is None:
+        _ENABLED, _SAMPLE_RATE = True, 1.0
+        _collector.set_capacity(4096)
+        return
+    _ENABLED = bool(config.enabled)
+    _SAMPLE_RATE = float(config.sample_rate)
+    _collector.set_capacity(int(config.ring_capacity))
+
+
+def tracing_enabled() -> bool:
+    return _ENABLED
+
 
 class SpanRecord:
-    """One finished span."""
+    """One finished span (exporter unit)."""
 
     __slots__ = ("trace_id", "span_id", "parent_span_id", "name", "start",
-                 "duration", "tags")
+                 "duration", "tags", "baggage", "seq")
 
     def __init__(self, ctx: "TraceContext", duration: float):
         self.trace_id = ctx.trace_id
@@ -55,22 +92,72 @@ class SpanRecord:
         self.start = ctx.start_time
         self.duration = duration
         self.tags = dict(ctx.tags)
+        self.baggage = dict(ctx.baggage)
+        self.seq = 0                    # stamped by the collector
+
+    def to_dict(self) -> dict:
+        return {k: getattr(self, k) for k in self.__slots__ if k != "seq"}
 
 
 class SpanCollector:
-    """Bounded ring of finished sampled spans."""
+    """Bounded ring of finished sampled spans with a drain cursor.
+
+    `drain()` hands each span to the exporter exactly once; the ring
+    RETAINS everything up to `capacity` so `/traces` and `find()` keep
+    serving after an export cycle (the pre-flight-recorder destructive
+    drain made a daemon's trace views go empty between scrapes)."""
 
     def __init__(self, capacity: int = 4096):
         self.capacity = capacity
-        # guards: _spans
-        self._lock = sanitizers.register_lock("tracing.SpanCollector._lock")
+        # guards: _spans, _seq, _drained, _hists, capacity
+        self._lock = sanitizers.register_lock(
+            "tracing.SpanCollector._lock")
         self._spans: list[SpanRecord] = []
+        self._seq = 0                  # spans ever added
+        self._drained = 0              # seq consumed by drain()
+        self._hists: dict[str, Any] = {}
+
+    def set_capacity(self, capacity: int) -> None:
+        with self._lock:
+            self.capacity = max(int(capacity), 1)
+            if len(self._spans) > self.capacity:
+                del self._spans[:len(self._spans) - self.capacity]
 
     def add(self, span: SpanRecord) -> None:
         with self._lock:
+            self._seq += 1
+            span.seq = self._seq
             self._spans.append(span)
             if len(self._spans) > self.capacity:
                 del self._spans[:len(self._spans) - self.capacity]
+        self._record_duration(span)
+
+    def _record_duration(self, span: SpanRecord) -> None:
+        # Span-duration histograms on /metrics (tracing_span_seconds
+        # {name=...}); per-name sensor cached — the registry lookup is
+        # a lock + dict probe we don't want per span.
+        hist = self._hists.get(span.name)
+        if hist is None:
+            from ytsaurus_tpu_torch.utils.profiling import Profiler
+            hist = Profiler("/tracing").with_tags(
+                name=span.name).histogram(
+                    "span_seconds",
+                    bounds=(0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05,
+                            0.1, 0.5, 1.0, 5.0, 30.0))
+            # Install under the lock (the lock pass flagged the bare
+            # dict write): setdefault keeps the winner if two threads
+            # race the first span of a name — the registry already
+            # dedups the sensor, so both hists ARE the same object.
+            with self._lock:
+                hist = self._hists.setdefault(span.name, hist)
+        hist.record(span.duration)
+
+    def drain(self) -> list[SpanRecord]:
+        """Spans added since the previous drain (cursor advance)."""
+        with self._lock:
+            fresh = [s for s in self._spans if s.seq > self._drained]
+            self._drained = self._seq
+            return fresh
 
     def snapshot(self) -> list[SpanRecord]:
         with self._lock:
@@ -88,26 +175,35 @@ def get_collector() -> SpanCollector:
 
 
 class TraceContext:
-    """One span; use as a context manager to time and activate it."""
+    """One span; use as a context manager to time + activate it."""
 
     def __init__(self, name: str, *, trace_id: Optional[str] = None,
-                 parent_span_id: Optional[str] = None, sampled: bool = True):
+                 parent_span_id: Optional[str] = None, sampled: bool = True,
+                 baggage: Optional[dict] = None):
         self.name = name
         self.trace_id = trace_id or _new_trace_id()
         self.span_id = _new_span_id()
         self.parent_span_id = parent_span_id
         self.sampled = sampled
+        self.baggage: dict[str, Any] = dict(baggage or {})
         self.tags: dict[str, Any] = {}
         self.start_time = 0.0
         self._token = None
 
+    # -- structure -------------------------------------------------------------
+
     def create_child(self, name: str) -> "TraceContext":
         return TraceContext(name, trace_id=self.trace_id,
                             parent_span_id=self.span_id,
-                            sampled=self.sampled)
+                            sampled=self.sampled, baggage=self.baggage)
 
     def add_tag(self, key: str, value: Any) -> None:
         self.tags[key] = value
+
+    def set_baggage(self, key: str, value: Any) -> None:
+        self.baggage[key] = value
+
+    # -- activation ------------------------------------------------------------
 
     def __enter__(self) -> "TraceContext":
         self.start_time = time.time()
@@ -123,10 +219,10 @@ class TraceContext:
             _collector.add(SpanRecord(self, time.perf_counter() - self._t0))
         return False
 
-
 class _NullSpan:
-    """The no-op span of an untraced site. Activation touches nothing, so
-    nesting under it still sees the real ambient context (or None)."""
+    """The no-op span: what an untraced (or sampled-out) site gets.
+    Activation touches NOTHING — not even the contextvar — so nesting
+    under it still sees the real ambient context (or None)."""
 
     __slots__ = ()
     trace_id = None
@@ -135,6 +231,7 @@ class _NullSpan:
     name = "<null>"
     sampled = False
     tags: dict = {}
+    baggage: dict = {}
 
     def __enter__(self) -> "_NullSpan":
         return self
@@ -143,6 +240,9 @@ class _NullSpan:
         return False
 
     def add_tag(self, key, value) -> None:
+        pass
+
+    def set_baggage(self, key, value) -> None:
         pass
 
     def create_child(self, name) -> "_NullSpan":
@@ -157,20 +257,25 @@ def current_trace() -> Optional[TraceContext]:
 
 
 def start_span(name: str, **tags) -> "TraceContext | _NullSpan":
-    """Child of the ambient span, or a sampled fresh root."""
+    """Child of the ambient context, or a (sampled) fresh root."""
     parent = _current.get()
     if parent is not None:
         if not parent.sampled:
             return NULL_SPAN
         ctx = parent.create_child(name)
-    else:
-        ctx = TraceContext(name)
+        ctx.tags.update(tags)
+        return ctx
+    if not _ENABLED or (_SAMPLE_RATE < 1.0 and
+                        random.random() >= _SAMPLE_RATE):
+        return NULL_SPAN
+    ctx = TraceContext(name)
     ctx.tags.update(tags)
     return ctx
 
 
 def child_span(name: str, **tags) -> "TraceContext | _NullSpan":
-    """Interior span site: records only under a live sampled trace."""
+    """INTERIOR span site: records only under a live sampled trace.
+    The no-trace fast path is one contextvar read + a singleton return."""
     parent = _current.get()
     if parent is None or not parent.sampled:
         return NULL_SPAN
@@ -178,3 +283,82 @@ def child_span(name: str, **tags) -> "TraceContext | _NullSpan":
     if tags:
         ctx.tags.update(tags)
     return ctx
+
+
+def start_query_span(name: str, force: bool = False,
+                     trace_id: Optional[str] = None,
+                     **tags) -> "TraceContext | _NullSpan":
+    """ENTRY-point span: continue the ambient trace when one exists
+    (an RPC handler running under the caller's propagated context),
+    else root a new trace subject to `enabled` + `sample_rate`.
+    `force=True` (explain_analyze, explicit X-YT-Trace-Id) always
+    samples; `trace_id` pins the root's trace id."""
+    parent = _current.get()
+    if parent is not None:
+        if not (parent.sampled or force):
+            return NULL_SPAN
+        ctx = TraceContext(name, trace_id=parent.trace_id,
+                           parent_span_id=parent.span_id,
+                           sampled=True, baggage=parent.baggage)
+        ctx.tags.update(tags)
+        return ctx
+    if not force and (not _ENABLED or (_SAMPLE_RATE < 1.0 and
+                                       random.random() >= _SAMPLE_RATE)):
+        return NULL_SPAN
+    ctx = TraceContext(name, trace_id=trace_id)
+    ctx.tags.update(tags)
+    return ctx
+
+
+# -- flight-recorder views -----------------------------------------------------
+
+
+def trace_summaries(limit: int = 64) -> list[dict]:
+    """Recent traces, newest first: one row per trace id with its root
+    span name, start time, total span count, and root duration (the
+    monitoring `/traces` listing)."""
+    spans = _collector.snapshot()
+    by_trace: dict[str, list[SpanRecord]] = {}
+    for span in spans:
+        by_trace.setdefault(span.trace_id, []).append(span)
+    out = []
+    for trace_id, group in by_trace.items():
+        span_ids = {s.span_id for s in group}
+        roots = [s for s in group
+                 if s.parent_span_id is None or
+                 s.parent_span_id not in span_ids]
+        root = max(roots, key=lambda s: s.duration) if roots else group[0]
+        out.append({"trace_id": trace_id, "root": root.name,
+                    "start": root.start, "duration": root.duration,
+                    "spans": len(group),
+                    "last_seq": max(s.seq for s in group)})
+    out.sort(key=lambda r: r["last_seq"], reverse=True)
+    for row in out:
+        del row["last_seq"]
+    return out[:limit]
+
+
+def _build_tree(spans: "list[SpanRecord]") -> list[dict]:
+    nodes = {s.span_id: {**s.to_dict(), "children": []} for s in spans}
+    roots = []
+    for span in spans:
+        node = nodes[span.span_id]
+        parent = nodes.get(span.parent_span_id) \
+            if span.parent_span_id else None
+        if parent is not None:
+            parent["children"].append(node)
+        else:
+            roots.append(node)
+    def _sort(items):
+        items.sort(key=lambda n: n["start"])
+        for item in items:
+            _sort(item["children"])
+    _sort(roots)
+    return roots
+
+
+def span_tree(trace_id: str) -> list[dict]:
+    """Nested span tree of one trace (children under `children`, sorted
+    by start time); [] when the trace is unknown/evicted."""
+    spans = _collector.find(trace_id)
+    return _build_tree(spans) if spans else []
