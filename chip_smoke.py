@@ -128,7 +128,7 @@ Phases (any failure exits non-zero and prints no result line):
      device ms), each queried on the card by a GROUP BY producer under
      WHERE $row_index >= 2000000 (counts exact, sums to rtol 1e-9) and
      an ORDER BY seq DESC, producer LIMIT 100 (rows and order exact);
-     the 640,000 consumed rows through dumps_rows / loads_rows in yson,
+     the first 320,000 consumed rows through dumps_rows / loads_rows in yson,
      json, dsv and schemaful_dsv and dumps_skiff / loads_skiff, each
      giving back the same rows (host seconds and bytes per format);
      CLIENT: the slice through ytsaurus_tpu_torch.client.connect(tmp,
@@ -149,13 +149,44 @@ Phases (any failure exits non-zero and prints no result line):
      a GROUP BY g, unmount; a restart (connect(..., fresh=True) in this
      process: the master recovers from its snapshot and changelog), then
      mount, the same lookups and selects, and every acknowledged write
-     read back; 262,144 vectors at dim 256 written, flushed and remounted,
+     read back; 131,072 vectors at dim 256 written, flushed and remounted,
      then nearest_rows from 16 threads through the vector batcher (fewer
      batches than callers), each held to batched_nearest's. Each stage
      runs once under the profiler, after 1,000 tiny kernels: host
      seconds, device ms, idle share, peak memory, the chunk cache's hits
      and misses, radix launches; a stage that is not host-only must put
      work on the device;
+     OPS: the operations plane through connect(tmp, device="cuda") alone:
+     a 4,194,304-row table from --seed + 23 (k unique, g over 65,536
+     values spread below 2^40 as g0 * 2654435761 mod 2^40, v < 1000) in 4
+     chunks, run_sort'ed by (g, k); run_reduce of a Python reducer (sum
+     and count of v per g) in 16 key-aligned jobs: every group exact and
+     reduced once; run_map_reduce of a Python mapper (g, 2v) and reducer
+     over the first 1,048,576 rows, unsorted, in 8 partitions: every sum
+     exact; over the first 131,072 rows in json, run_map of a python3
+     filter command, run_reduce of a command reducer, and run_map_reduce
+     of map and reduce commands under scheduler.publish=crash-once (at
+     the output's publish): the operation's @state stays running, the
+     live operation is forgotten and revive_operations completes it from
+     its snapshot (revived_jobs > 0) with the oracle's output;
+     run_vanilla of a gang of 2 tasks x 2 jobs, and of a task that its
+     memory_limit kills, whose failure carries its probable_cause. The
+     sorting stages must launch both radix kernels;
+     DERIVED: replication and the derived tables through connect alone:
+     a sorted dynamic table (k key, v, s) in 2 tablets with a sync
+     replica on its root and an async one on a second root, 50,000 rows
+     (from --seed + 29) in transactions of 1,000, replicated; a select
+     and 4,096 lookups on each replica equal to the oracle; the async
+     replica disabled, written past, enabled and caught up; one chaos era
+     switch with rows committed on both sides of it, looked up on each
+     replica; a secondary index on v serving 64 selects (each through
+     fetch_via_index, each equal to the scan's oracle); a 262,144-row
+     queue appended in 16 batches of 16,384 with a GROUP BY view
+     refreshed after each (both radix kernels must launch), equal to the
+     full GROUP BY, and a consumer's 64 pulls and advances; backup_table
+     at a timestamp, 10,000 more rows, restore_table_backup equal to the
+     table at that timestamp; the upstream unmounted and looked up through
+     its replicas. Each stage of OPS and DERIVED runs as CLIENT's do;
      SELECT (query/coordinator.py::coordinate_and_execute, the host rung
      behind select_rows, one evaluator on the card): SELECT_8 (bench.py's
      select over 8 chunks of 8,000,000 rows: k the row number, g uniform
@@ -207,9 +238,10 @@ Phases (any failure exits non-zero and prints no result line):
      gloo does not take CUDA tensors, part (b) is left out and the log
      says why;
      EXTSORT: bench.py::_bench_sort_spill as written (BASELINE config 5):
-     1,000,000,000 rows in 16,000,000-row blocks, each made lazily in
+     512,000,000 rows (cut from its 1,000,000,000) in 16,000,000-row
+     blocks, each made lazily in
      its supplier by np.random.default_rng(1000 + i), through
-     external_sort at the default 8 GiB budget (10 ranges, 9 pivots);
+     external_sort at the default 8 GiB budget (10 ranges at 1B rows);
      one run (under the profiler), timed from the call to the last chunk
      yielded, with the suppliers' seconds, the output checks' seconds and
      each pass's host seconds. Every chunk sorted, each chunk's first key
@@ -253,7 +285,8 @@ ORDERS = 16_000_000          # orders rows: Q3's n_orders at ROWS lines
 ORDERS_SEED = 1              # the reference generator's default seed
 WINDOW_ROWS = 64_000_000     # rows of the window query
 SORT_ROWS = 64_000_000       # rows of the sort table: bench.py's sort size
-EXT_ROWS = 1_000_000_000     # rows of the spill sort (BASELINE config 5)
+EXT_ROWS = 512_000_000       # rows of the spill sort: BASELINE config 5's
+                             # 1,000,000,000 cut to fit the new phases
 EXT_BLOCK = 16_000_000       # rows per input block, as bench.py makes them
 TABLET_VERSIONS = 64_000_000  # versions of the dynamic table read by MVCC
 TABLET_BASE = 48_000_000     # keys, each with one base version
@@ -1179,6 +1212,16 @@ def _check_sorted(name: str, out, want_k, want_p) -> int:
     return n
 
 
+def _gather(arrays: dict, idx) -> dict:
+    """{name: a[idx]} with the gathers on HASH_THREADS threads (numpy
+    releases the GIL in them): the same arrays in a third of the time
+    for TABLET's seven 64M-row columns."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(HASH_THREADS) as pool:
+        return dict(zip(arrays, pool.map(lambda a: a[idx],
+                                         arrays.values())))
+
+
 def _tablet_data(seed: int) -> dict:
     """TABLET's versions, in a shuffled order: one base version per key
     (writing g and v), then later versions on random keys (99% partial
@@ -1199,9 +1242,8 @@ def _tablet_data(seed: int) -> dict:
     g[:base] = rng.integers(0, TABLET_GROUPS, base)
     v = np.where(wv, rng.integers(0, 1000, n), 0)
     perm = rng.permutation(n)
-    return {name: a[perm] for name, a in (
-        ("k", k), ("$timestamp", ts), ("$tombstone", tomb), ("g", g),
-        ("$w:g", wg), ("v", v), ("$w:v", wv))}
+    return _gather({"k": k, "$timestamp": ts, "$tombstone": tomb, "g": g,
+                    "$w:g": wg, "v": v, "$w:v": wv}, perm)
 
 
 def _tablet_oracle(d: dict, read_points) -> dict:
@@ -1213,7 +1255,7 @@ def _tablet_oracle(d: dict, read_points) -> dict:
     import numpy as np
     n = len(d["k"])
     order = _newest_first_order(d["k"], d["$timestamp"])
-    s = {name: a[order] for name, a in d.items()}
+    s = _gather(d, order)
     starts = np.ones(n, dtype=bool)
     starts[1:] = s["k"][1:] != s["k"][:-1]
     seg_start = np.flatnonzero(starts)
@@ -2088,6 +2130,8 @@ QUEUE_PRODUCERS = 64
 QUEUE_PAYLOADS = 65_536        # distinct 24-byte payloads
 QUEUE_CONSUMERS = 64
 QUEUE_READ = 10_000            # rows per consumer read
+QUEUE_FORMAT_ROWS = 320_000    # consumed rows through the formats (cut from
+                               # all 640,000 to fit the new phases)
 QUEUE_TRIM = 1_500_000
 QUEUE_SNAPSHOT_ROW = 3_000_000  # snapshot(ts) at this row's timestamp
 QUEUE_GROUP_FROM = 2_000_000   # the GROUP BY's least $row_index
@@ -2335,7 +2379,7 @@ def phase_queue(seed: int, hr, rx, port) -> dict:
                     check, snap.row_count, hr, rx)
         del snaps, snap
         # The consumers' rows through the row formats.
-        out["formats"] = _queue_formats(consumed, port)
+        out["formats"] = _queue_formats(consumed[:QUEUE_FORMAT_ROWS], port)
         _dyntable_log("queue formats", out["formats"])
         del consumed, tablet
     torch.cuda.empty_cache()
@@ -2358,7 +2402,8 @@ CLIENT_DYN_KEYS = 4_000_000    # keys drawn without repeats from [0, this)
 CLIENT_LOOKUPS = 4_096
 CLIENT_THREADS = 16            # lookup and NEAREST caller threads
 CLIENT_LOOKUP_BATCH = 16       # keys per lookup_rows call
-CLIENT_VEC_ROWS = 262_144      # 256 MB of float32 vectors at dim 256
+CLIENT_VEC_ROWS = 131_072      # 128 MB of float32 vectors at dim 256 (cut
+                               # from 262,144 to fit the new phases)
 CLIENT_VEC_DIM = 256           # VECTOR's headline width
 CLIENT_VEC_TX_ROWS = 16_384
 CLIENT_VEC_K = 8
@@ -2821,6 +2866,599 @@ def phase_client(seed: int, hr, rx, port) -> dict:
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     _log(f"client: {out['seconds']:.1f} s in all")
+    return out
+
+
+# --- OPS: reduce, map-reduce, command and vanilla operations ----------------
+
+OPS_ROWS = 4_194_304          # the operations' input table
+OPS_CHUNKS = 4
+OPS_GROUPS = 65_536           # distinct g, spread below 2^40
+OPS_SPREAD = 2_654_435_761    # g = g0 * OPS_SPREAD mod 2^40 (odd: a bijection)
+OPS_REDUCE_JOBS = 16
+OPS_MR_ROWS = 1_048_576       # run_map_reduce's input: the first rows, unsorted
+OPS_MR_PARTITIONS = 8
+OPS_CMD_ROWS = 131_072        # rows of the command jobs, in json
+OPS_CMD_ROWS_PER_JOB = 32_768
+OPS_CMD_PARTITIONS = 4
+OPS_MEMORY_LIMIT = 64 << 20   # the vanilla task that its limit kills
+OPS_T = "//ops/in"
+
+# stdin -> stdout filters of the command jobs (python3, json lines): the
+# map keeps even v and adds 1 to it; the reduce sums v and counts the rows
+# of each run of equal g (key-contiguous input, the streaming-reduce
+# contract).
+OPS_MAP_CMD = ("python3 -c 'import sys, json\n"
+               "for line in sys.stdin:\n"
+               "    r = json.loads(line)\n"
+               "    if r[\"v\"] % 2 == 0:\n"
+               "        print(json.dumps({\"g\": r[\"g\"], \"v\": r[\"v\"] + 1}))'")
+OPS_REDUCE_CMD = ("python3 -c 'import sys, json\n"
+                  "key = None\n"
+                  "for line in sys.stdin:\n"
+                  "    r = json.loads(line)\n"
+                  "    if r[\"g\"] != key:\n"
+                  "        if key is not None:\n"
+                  "            print(json.dumps({\"g\": key, \"s\": s, \"c\": c}))\n"
+                  "        key, s, c = r[\"g\"], 0, 0\n"
+                  "    s += r[\"v\"]\n"
+                  "    c += 1\n"
+                  "if key is not None:\n"
+                  "    print(json.dumps({\"g\": key, \"s\": s, \"c\": c}))'")
+OPS_IDENTITY_CMD = "cat"
+
+
+def _ops_data(seed: int) -> dict:
+    """OPS's table from --seed: k a permutation, g0 uniform below
+    OPS_GROUPS, g = g0 spread below 2^40 (so GROUP BY and the reduce key
+    leave the dense path), v uniform below 1000."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 23)
+    g0 = rng.integers(0, OPS_GROUPS, OPS_ROWS)
+    return {"k": rng.permutation(OPS_ROWS).astype(np.int64),
+            "g0": g0, "g": (g0 * OPS_SPREAD) % (1 << 40),
+            "v": rng.integers(0, 1000, OPS_ROWS)}
+
+
+def _ops_groups(g0, v) -> dict:
+    """{g: (sum of v, rows)} by numpy bincounts over g0."""
+    import numpy as np
+    sums = np.bincount(g0, weights=v, minlength=OPS_GROUPS)
+    counts = np.bincount(g0, minlength=OPS_GROUPS)
+    present = np.flatnonzero(counts)
+    g = (present * OPS_SPREAD) % (1 << 40)
+    return dict(zip(g.tolist(), zip(sums[present].astype(np.int64).tolist(),
+                                    counts[present].tolist())))
+
+
+def _ops_check(name: str, rows: list, want: dict, count: bool = True) -> int:
+    """Reduced rows ({g, s[, c]}) against the oracle exactly; each g once
+    (the key guarantee: no group was split across jobs)."""
+    got = {}
+    for r in rows:
+        if r["g"] in got:
+            raise AssertionError(f"{name}: g={r['g']} was reduced twice")
+        got[r["g"]] = (r["s"], r["c"]) if count else r["s"]
+    if not count:
+        want = {g: s for g, (s, _) in want.items()}
+    if got != want:
+        bad = sorted(set(got.items()) ^ set(want.items()))[:3]
+        raise AssertionError(f"{name}: groups differ from the oracle: {bad}")
+    return len(rows)
+
+
+def phase_ops(seed: int, hr, rx, port) -> dict:
+    """OPS: the operations plane through `connect(tmp, device="cuda")`
+    alone. A 4,194,304-row table (k unique, g over 65,536 values spread
+    below 2^40, v < 1000; 4 chunks) run_sort'ed by (g, k); run_reduce of
+    a Python reducer (sum and count of v per g) in 16 key-aligned jobs;
+    run_map_reduce of a Python mapper and reducer over the first 1,048,576
+    rows, unsorted, in 8 partitions (each sorted on the card); over
+    131,072 rows in json, run_map of a python3 filter command, run_reduce
+    of a command reducer, and run_map_reduce of map and reduce commands
+    under `scheduler.publish=crash-once`, then revived; run_vanilla of a
+    gang (2 tasks x 2 jobs) and of a task that its memory_limit kills.
+    Every answer is held to numpy; the sorting stages must launch both
+    radix kernels."""
+    import numpy as np
+    import torch
+    from ytsaurus_tpu_torch.chunks.columnar import ColumnarChunk
+    from ytsaurus_tpu_torch.client import connect, publish_table_chunks
+    from ytsaurus_tpu_torch.utils import failpoints
+    t_phase = time.perf_counter()
+    d = _ops_data(seed)
+    out: dict = {"paths": {}, "stages": {}}
+    holder: dict = {}
+
+    def cache():
+        client = holder.get("client")
+        return client.cluster.chunk_cache if client is not None else None
+
+    def stage(name, run, radix=False, host_only=False, extra=None):
+        result, rec = _client_stage(f"ops {name}", run, hr, rx, cache,
+                                    radix=radix, host_only=host_only,
+                                    extra=extra)
+        out["paths"][f"ops_{name}"] = rec
+        return result
+
+    def publish(client, path, n, chunks):
+        schema = port.TableSchema.make([("k", "int64"), ("g", "int64"),
+                                        ("v", "int64")])
+        client.create("table", path, recursive=True,
+                      attributes={"schema": schema})
+        per = n // chunks
+        parts = [ColumnarChunk.from_arrays(
+            schema, {c: d[c][i * per:(i + 1) * per] for c in "kgv"},
+            device="cuda") for i in range(chunks)]
+        publish_table_chunks(client, client.cluster.chunk_store, path,
+                             parts, schema=schema)
+
+    all_groups = _ops_groups(d["g0"], d["v"])
+    with tempfile.TemporaryDirectory() as root:
+        client = connect(root, device="cuda")
+        holder["client"] = client
+        if client.cluster.device.type != "cuda":
+            raise AssertionError("OPS: the cluster is not on the card")
+        stage("publish", lambda: publish(client, OPS_T, OPS_ROWS,
+                                         OPS_CHUNKS))
+        op = stage("sort", lambda: client.run_sort(
+            OPS_T, "//ops/sorted", sort_by=["g", "k"]), radix=True)
+        if op.state != "completed" or op.result["rows"] != OPS_ROWS:
+            raise AssertionError(f"OPS run_sort: {op.state} {op.result}")
+
+        def reducer(key, group):
+            yield {"g": key["g"], "s": sum(r["v"] for r in group),
+                   "c": len(group)}
+
+        op = stage("reduce", lambda: client.run_reduce(
+            reducer, "//ops/sorted", "//ops/reduced", reduce_by="g",
+            job_count=OPS_REDUCE_JOBS), radix=True)
+        if op.state != "completed":
+            raise AssertionError(f"OPS run_reduce: {op.state} {op.error}")
+        out["stages"]["reduce"] = dict(op.result)
+        out["stages"]["reduce_groups"] = _ops_check(
+            "OPS run_reduce", client.read_table("//ops/reduced"), all_groups)
+        if not 1 < op.result["jobs"] <= OPS_REDUCE_JOBS:
+            raise AssertionError(f"OPS run_reduce ran {op.result['jobs']} "
+                                 "jobs")
+
+        stage("publish_mr", lambda: publish(client, "//ops/mr_in",
+                                            OPS_MR_ROWS, 1))
+
+        def mapper(rows):
+            return [{"g": r["g"], "v2": r["v"] * 2} for r in rows]
+
+        def sum_reducer(key, group):
+            yield {"g": key["g"], "s": sum(r["v2"] for r in group)}
+
+        op = stage("map_reduce", lambda: client.run_map_reduce(
+            mapper, sum_reducer, "//ops/mr_in", "//ops/mr_out",
+            reduce_by="g", partition_count=OPS_MR_PARTITIONS), radix=True)
+        if op.state != "completed" or \
+                op.result["partitions"] != OPS_MR_PARTITIONS:
+            raise AssertionError(f"OPS run_map_reduce: {op.state} "
+                                 f"{op.result} {op.error}")
+        out["stages"]["map_reduce"] = dict(op.result)
+        mr_groups = _ops_groups(d["g0"][:OPS_MR_ROWS],
+                                2 * d["v"][:OPS_MR_ROWS])
+        out["stages"]["map_reduce_groups"] = _ops_check(
+            "OPS run_map_reduce", client.read_table("//ops/mr_out"),
+            mr_groups, count=False)
+
+        # Command jobs over the first OPS_CMD_ROWS rows, in json.
+        n = OPS_CMD_ROWS
+        stage("publish_cmd", lambda: publish(client, "//ops/cmd_in", n, 1))
+        op = stage("map_cmd", lambda: client.run_map(
+            OPS_MAP_CMD, "//ops/cmd_in", "//ops/cmd_mapped", format="json",
+            rows_per_job=OPS_CMD_ROWS_PER_JOB), host_only=True)
+        even = d["v"][:n] % 2 == 0
+        want = sorted(zip(d["g"][:n][even].tolist(),
+                          (d["v"][:n][even] + 1).tolist()))
+        got = sorted((r["g"], r["v"]) for r in
+                     client.read_table("//ops/cmd_mapped"))
+        if op.state != "completed" or got != want:
+            raise AssertionError(f"OPS run_map (command): {op.state}, "
+                                 f"{len(got)} rows, {len(want)} wanted")
+        out["stages"]["map_cmd"] = dict(op.result)
+        client.run_sort("//ops/cmd_in", "//ops/cmd_sorted", sort_by=["g"])
+        cmd_groups = _ops_groups(d["g0"][:n], d["v"][:n])
+        op = stage("reduce_cmd", lambda: client.run_reduce(
+            OPS_REDUCE_CMD, "//ops/cmd_sorted", "//ops/cmd_reduced",
+            reduce_by="g", format="json",
+            rows_per_job=OPS_CMD_ROWS_PER_JOB), radix=True)
+        if op.state != "completed":
+            raise AssertionError(f"OPS run_reduce (command): {op.error}")
+        out["stages"]["reduce_cmd"] = dict(op.result)
+        _ops_check("OPS run_reduce (command)",
+                   client.read_table("//ops/cmd_reduced"), cmd_groups)
+
+        def crash():
+            # The map phase passes `scheduler.publish` first (its own
+            # fan-out of jobs, outside the snapshot): `after=1` crashes at
+            # the second hit, once every partition's reduce is recorded
+            # and before the output is published.
+            try:
+                with failpoints.active(
+                        "scheduler.publish=crash-once:after=1"):
+                    client.run_map_reduce(
+                        OPS_IDENTITY_CMD, OPS_REDUCE_CMD, "//ops/cmd_in",
+                        "//ops/cmd_mr", reduce_by="g", format="json",
+                        partition_count=OPS_CMD_PARTITIONS)
+            except failpoints.InjectedCrash:
+                return True
+            return False
+
+        if not stage("map_reduce_cmd_crash", crash, radix=True):
+            raise AssertionError("OPS: scheduler.publish=crash-once did not "
+                                 "fire")
+        running = [o for o in client.list("//sys/operations")
+                   if client.get(f"//sys/operations/{o}/@state") ==
+                   "running"]
+        if len(running) != 1:
+            raise AssertionError(f"OPS: {len(running)} operations left "
+                                 "running by the crash")
+        # Snapshot records land from the job threads' on_done observers,
+        # which may still be running when the crash unwinds.
+        doc = f"//sys/operations/{running[0]}/@snapshot"
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and not (
+                client.exists(doc) and len(client.get(doc).get(
+                    "completed") or {}) == OPS_CMD_PARTITIONS):
+            time.sleep(0.05)
+        client.scheduler._operations.clear()
+        revived = stage("revive", client.scheduler.revive_operations,
+                        host_only=True)
+        if [o.id for o in revived] != running or \
+                revived[0].state != "completed" or \
+                not revived[0].result.get("revived_jobs", 0) > 0:
+            raise AssertionError(f"OPS revival: {[(o.id, o.state, o.result) for o in revived]}")
+        out["stages"]["revived"] = dict(revived[0].result)
+        _ops_check("OPS revived run_map_reduce (commands)",
+                   client.read_table("//ops/cmd_mr"), cmd_groups)
+
+        # Vanilla: a gang, then a task that its memory limit kills.
+        op = stage("vanilla", lambda: client.run_vanilla({
+            "a": {"job_count": 2, "command": "true"},
+            "b": {"job_count": 2, "command": "true"}}), host_only=True)
+        if op.state != "completed" or op.result["jobs"] != 4:
+            raise AssertionError(f"OPS run_vanilla: {op.state} {op.result}")
+        op = stage("vanilla_limit", lambda: client.run_vanilla(
+            {"hog": {"job_count": 1, "memory_limit": OPS_MEMORY_LIMIT,
+                     "command": "python3 -c 'x = bytearray(1 << 30)'"}},
+            max_gang_restarts=0, raise_on_failure=False), host_only=True)
+        text = json.dumps(op.error, default=str)
+        if op.state != "failed" or "probable_cause" not in text or \
+                "memory limit exceeded" not in text:
+            raise AssertionError(f"OPS: the memory limit's failure lacks "
+                                 f"its probable cause: {text[:300]}")
+        out["stages"]["vanilla_limit_failed"] = True
+        holder.clear()
+        del client
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    _log(f"ops: {out['seconds']:.1f} s in all")
+    return out
+
+
+# --- DERIVED: replicas, chaos, a secondary index, a view, a backup ----------
+
+DER_ROWS = 50_000             # rows of the replicated table (cut from
+                              # 100,000 to fit DERIVED in its 50 s)
+DER_TX_ROWS = 1_000
+DER_PIVOT = 1 << 29           # the table's 2 tablets split k here
+DER_LOOKUPS = 4_096
+DER_INDEX_SELECTS = 64
+DER_QUEUE_ROWS = 262_144     # cut from 1,048,576 (16 batches of 65,536)
+DER_QUEUE_BATCH = 16_384
+DER_PULLS = 64
+DER_BACKUP_LATE = 10_000
+DER_VIEW = "g, sum(v) AS s, count(*) AS c FROM [//der/q] GROUP BY g"
+
+
+def _der_rows(rng, n: int, key_base: int) -> dict:
+    """n rows of the replicated table: distinct k (a random sample below
+    2^30, offset by key_base), v below 1000, s over 16 strings."""
+    import numpy as np
+    k = key_base + rng.choice(1 << 30, n, replace=False)
+    return {"k": k.astype(np.int64), "v": rng.integers(0, 1000, n),
+            "s": rng.integers(0, 16, n)}
+
+
+def _der_dicts(part: dict, lo: int, hi: int) -> list:
+    return [{"k": k, "v": v, "s": f"s{s:02d}"} for k, v, s in zip(
+        part["k"][lo:hi].tolist(), part["v"][lo:hi].tolist(),
+        part["s"][lo:hi].tolist())]
+
+
+def _der_state(parts: list) -> dict:
+    """{k: (v, s)} of every row written so far."""
+    out: dict = {}
+    for part in parts:
+        out.update(zip(part["k"].tolist(), zip(
+            part["v"].tolist(), (f"s{s:02d}".encode()
+                                 for s in part["s"].tolist()))))
+    return out
+
+
+def _der_check(name: str, rows: list, state: dict) -> int:
+    got = {r["k"]: (r["v"], r["s"]) for r in rows}
+    if len(got) != len(rows) or got != state:
+        raise AssertionError(f"{name}: {len(rows)} rows, {len(state)} "
+                             "wanted, or values differ")
+    return len(rows)
+
+
+def _next_second() -> None:
+    """Wait for the wall clock's next second: a replica on a second root
+    reads at its own cluster's clock, and a replicated timestamp is folded
+    into the process-wide provider only (both packages), so in the second
+    of the upstream's commits it can read below them."""
+    time.sleep(1.02 - time.time() % 1)
+
+
+def phase_derived(seed: int, hr, rx, port) -> dict:
+    """DERIVED: replication and the derived tables through `connect(tmp,
+    device="cuda")` alone. A sorted dynamic table (k key, v, s) in 2
+    tablets with a sync replica on its root and an async one on a second
+    root (connect(tmp2, device="cuda")): 50,000 rows in transactions of
+    1,000, replicated; a select and 4,096 lookups on each replica equal
+    the upstream's; the async replica disabled, written past, enabled and
+    caught up; one chaos era switch (the async replica becomes the sync
+    one) with rows committed across it read back from each replica; a
+    secondary index on v serving 64 selects (fetch_via_index must run;
+    each equal to the scan's oracle); a 262,144-row queue appended in 16
+    batches of 16,384 with a GROUP BY view refreshed after each (both
+    radix kernels must launch) and equal to the full GROUP BY, and a
+    consumer's 64 pulls and advances; backup_table at a timestamp, 10,000
+    more rows, restore_table_backup equal to the table at that timestamp;
+    the upstream unmounted and looked up through its replicas. Every
+    answer is held to numpy."""
+    import numpy as np
+    import torch
+    from ytsaurus_tpu_torch.client import connect
+    from ytsaurus_tpu_torch.tablet import chaos, secondary_index
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 29)
+    base = _der_rows(rng, DER_ROWS, 0)
+    out: dict = {"paths": {}, "stages": {}}
+    holder: dict = {}
+
+    def cache():
+        client = holder.get("client")
+        return client.cluster.chunk_cache if client is not None else None
+
+    def stage(name, run, radix=False, host_only=False, extra=None):
+        result, rec = _client_stage(f"derived {name}", run, hr, rx, cache,
+                                    radix=radix, host_only=host_only,
+                                    extra=extra)
+        out["paths"][f"derived_{name}"] = rec
+        return result
+
+    def write(client, part, lo, hi):
+        for a in range(lo, hi, DER_TX_ROWS):
+            tx = client.start_transaction()
+            client.insert_rows("//der/t", _der_dicts(part, a, a + DER_TX_ROWS),
+                               tx=tx)
+            client.commit_transaction(tx)
+
+    with tempfile.TemporaryDirectory() as root, \
+            tempfile.TemporaryDirectory() as root2:
+        client = connect(root, device="cuda")
+        holder["client"] = client
+        down = client.table_replicator.replica_client(root2)
+        if {client.cluster.device.type, down.cluster.device.type} != \
+                {"cuda"}:
+            raise AssertionError("DERIVED: a cluster is not on the card")
+        schema = port.TableSchema.make(
+            [("k", "int64", "ascending"), ("v", "int64"), ("s", "string")],
+            unique_keys=True)
+        for c, path in ((client, "//der/t"), (client, "//der/r_sync"),
+                        (down, "//der/r_async")):
+            c.create("table", path, recursive=True,
+                     attributes={"schema": schema, "dynamic": True})
+            if path == "//der/t":
+                c.reshard_table(path, [(DER_PIVOT,)])
+            c.mount_table(path)
+        r_sync = client.create_table_replica("//der/t", "//der/r_sync",
+                                             mode="sync")
+        r_async = client.create_table_replica(
+            "//der/t", "//der/r_async", cluster_root=root2, mode="async")
+        replicas = ((client, "//der/t"), (client, "//der/r_sync"),
+                    (down, "//der/r_async"))
+
+        stage("write", lambda: write(client, base, 0, DER_ROWS),
+              host_only=True)
+        rec = out["paths"]["derived_write"]
+        rec["rows_per_s"] = DER_ROWS / rec["host_s"]
+        applied = stage("replicate", lambda: client.table_replicator
+                        .replicate_step("//der/t"), host_only=True)
+        lag = client.table_replicator.lag("//der/t", r_async)
+        if applied.get(r_async) != DER_ROWS or lag != 0:
+            raise AssertionError(f"DERIVED replicate: {applied}, lag {lag}")
+        out["stages"]["replicated_events"] = applied[r_async]
+        state = _der_state([base])
+        keys = [(k,) for k in rng.choice(base["k"], DER_LOOKUPS,
+                                         replace=False).tolist()]
+        want_lookup = [{"k": k, "v": state[k][0], "s": state[k][1]}
+                       for (k,) in keys]
+        _next_second()
+
+        def read_replicas(label):
+            for c, path in replicas:
+                _der_check(f"DERIVED {label} select of {path}",
+                           c.select_rows(f"k, v, s FROM [{path}]"), state)
+                if c.lookup_rows(path, keys) != want_lookup:
+                    raise AssertionError(f"DERIVED {label} lookup of {path} "
+                                         "differs")
+        stage("read_replicas", lambda: read_replicas("replicas"))
+
+        # Disable the async replica, write past it, enable, catch up.
+        late = _der_rows(rng, DER_TX_ROWS, 1 << 30)
+        client.alter_table_replica("//der/t", r_async, enabled=False)
+        write(client, late, 0, DER_TX_ROWS)
+        skipped = client.table_replicator.replicate_step("//der/t")
+        if client.table_replicator.lag("//der/t", r_async) != DER_TX_ROWS \
+                or skipped.get(r_async):
+            raise AssertionError(f"DERIVED: a disabled replica was written: "
+                                 f"{skipped}")
+        client.alter_table_replica("//der/t", r_async, enabled=True)
+        caught = stage("catch_up", lambda: client.table_replicator
+                       .replicate_step("//der/t"), host_only=True)
+        if caught.get(r_async) != DER_TX_ROWS:
+            raise AssertionError(f"DERIVED catch-up: {caught}")
+
+        # One chaos era switch, rows committed on both sides of it.
+        coord = chaos.ChaosCoordinator(client)
+        pre, post = (_der_rows(rng, DER_TX_ROWS, (2 + i) << 30)
+                     for i in range(2))
+        write(client, pre, 0, DER_TX_ROWS)
+        era0 = chaos.current_era(client, "//der/t")
+        era = stage("chaos_switch", lambda: coord.switch_sync(
+            "//der/t", r_async), host_only=True)
+        write(client, post, 0, DER_TX_ROWS)
+        client.table_replicator.replicate_step("//der/t")
+        descr = client.get_table_replicas("//der/t")
+        if era <= era0 or descr[r_async]["mode"] != "sync" or \
+                descr[r_sync]["mode"] != "async":
+            raise AssertionError(f"DERIVED chaos: era {era0} -> {era}, "
+                                 f"{descr}")
+        out["stages"]["era"] = [era0, era]
+        state = _der_state([base, late, pre, post])
+        since = [(k,) for part in (late, pre, post)
+                 for k in part["k"].tolist()]
+        want_since = [{"k": k, "v": state[k][0], "s": state[k][1]}
+                      for (k,) in since]
+
+        def read_since():
+            # Lookups read at MAX_TIMESTAMP: no wait for the clock.
+            for c, path in replicas:
+                if c.lookup_rows(path, since) != want_since:
+                    raise AssertionError(f"DERIVED: the rows written across "
+                                         f"the switch differ on {path}")
+        stage("read_after_switch", read_since, host_only=True)
+
+        # A secondary index on v: 64 selects served through it.
+        stage("index_create", lambda: client.create_secondary_index(
+            "//der/t", "//der/t_by_v", ["v"]))
+        fetch = secondary_index.fetch_via_index
+        fetched = []
+
+        def counted(*args, **kwargs):
+            fetched.append(args[1])
+            return fetch(*args, **kwargs)
+
+        by_v: dict = {}
+        for k, (v, s) in state.items():
+            by_v.setdefault(v, []).append(k)
+        values = rng.choice(1000, DER_INDEX_SELECTS, replace=False).tolist()
+
+        def index_selects():
+            n_rows = 0
+            for x in values:
+                rows = client.select_rows(
+                    f"k, v FROM [//der/t] WHERE v = {x}")
+                if sorted(r["k"] for r in rows) != sorted(by_v.get(x, [])) \
+                        or any(r["v"] != x for r in rows):
+                    raise AssertionError(f"DERIVED index select v = {x} "
+                                         "differs from the scan's oracle")
+                n_rows += len(rows)
+            return n_rows
+
+        secondary_index.fetch_via_index = counted
+        try:
+            out["stages"]["index_rows"] = stage("index_selects",
+                                                index_selects)
+        finally:
+            secondary_index.fetch_via_index = fetch
+        if len(fetched) != DER_INDEX_SELECTS:
+            raise AssertionError(f"DERIVED: {len(fetched)} of "
+                                 f"{DER_INDEX_SELECTS} selects went through "
+                                 "the index")
+
+        # A queue, its view refreshed per batch, and a consumer.
+        q_schema = port.TableSchema.make([("g", "int64"), ("v", "int64")])
+        client.create("table", "//der/q", recursive=True,
+                      attributes={"schema": q_schema, "dynamic": True})
+        client.mount_table("//der/q")
+        client.create_materialized_view("agg", DER_VIEW,
+                                        batch_rows=DER_QUEUE_BATCH)
+        client.register_queue_consumer("//der/q", "//der/consumer")
+        qrng = np.random.default_rng(seed + 31)
+        g0 = qrng.integers(0, OPS_GROUPS, DER_QUEUE_ROWS)
+        qg = ((g0 * OPS_SPREAD) % (1 << 40)).tolist()
+        qv_np = qrng.integers(0, 1000, DER_QUEUE_ROWS)
+        qv = qv_np.tolist()
+        refreshes = []
+
+        def queue_view():
+            for lo in range(0, DER_QUEUE_ROWS, DER_QUEUE_BATCH):
+                client.push_queue("//der/q", [
+                    {"g": g, "v": v} for g, v in zip(
+                        qg[lo:lo + DER_QUEUE_BATCH],
+                        qv[lo:lo + DER_QUEUE_BATCH])])
+                refreshes.append(client.refresh_view("agg"))
+        stage("queue_view", queue_view, radix=True)
+        if [r["rows_in"] for r in refreshes] != \
+                [DER_QUEUE_BATCH] * (DER_QUEUE_ROWS // DER_QUEUE_BATCH) or \
+                refreshes[-1]["lag_rows"] != 0:
+            raise AssertionError(f"DERIVED view refreshes: {refreshes[-1]}")
+        view = client.get_view("agg")
+        rows = stage("view_read", lambda: client.select_rows(
+            f"g, s, c FROM [{view['target']}]"))
+        out["stages"]["view_groups"] = _ops_check(
+            "DERIVED view", rows, _ops_groups(g0, qv_np))
+        per = DER_QUEUE_ROWS // DER_PULLS
+
+        def consume():
+            offsets = []
+            for i in range(DER_PULLS):
+                got, nxt = client.pull_consumer("//der/consumer", "//der/q",
+                                                limit=per)
+                if [r["$row_index"] for r in got] != \
+                        list(range(i * per, (i + 1) * per)) or \
+                        [r["v"] for r in got] != qv[i * per:(i + 1) * per]:
+                    raise AssertionError(f"DERIVED consumer pull {i} differs")
+                client.advance_consumer("//der/consumer", "//der/q", nxt)
+                offsets.append(nxt)
+            return offsets
+        offsets = stage("consume", consume, host_only=True)
+        if offsets != [(i + 1) * per for i in range(DER_PULLS)]:
+            raise AssertionError(f"DERIVED consumer offsets: {offsets[:4]}")
+
+        # A backup at a timestamp, more rows, then the restore.
+        cutoff = client.cluster.transactions.timestamps.generate()
+        cut_state = dict(state)
+        stage("backup", lambda: client.backup_table(
+            "//der/t", "//der/backup", timestamp=cutoff), host_only=True)
+        extra_rows = _der_rows(rng, DER_BACKUP_LATE, 5 << 30)
+        write(client, extra_rows, 0, DER_BACKUP_LATE)
+        state = _der_state([base, late, pre, post, extra_rows])
+
+        def restore():
+            client.restore_table_backup("//der/backup", "//der/restored")
+            client.mount_table("//der/restored")
+            return client.select_rows("k, v, s FROM [//der/restored]")
+        rows = stage("restore", restore)
+        out["stages"]["restored_rows"] = _der_check(
+            "DERIVED restored backup", rows, cut_state)
+        if len(cut_state) + DER_BACKUP_LATE != len(state):
+            raise AssertionError("DERIVED: the later rows overlap the backup")
+
+        # The upstream goes away; lookups fall back to its replicas.
+        client.table_replicator.replicate_step("//der/t")
+        client.unmount_table("//der/t")
+        probe = [(k,) for k in rng.choice(list(state), DER_LOOKUPS,
+                                          replace=False).tolist()]
+        got = stage("fallback", lambda: client.lookup_rows(
+            "//der/t", probe, replica_fallback=True), host_only=True)
+        if got != [{"k": k, "v": state[k][0], "s": state[k][1]}
+                   for (k,) in probe]:
+            raise AssertionError("DERIVED replica fallback lookup differs")
+        holder.clear()
+        del client, down
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    _log(f"derived: {out['seconds']:.1f} s in all")
     return out
 
 
@@ -3970,6 +4608,10 @@ def main() -> int:
     paths.update(queue.pop("paths"))
     client = timed("client", phase_client, args.seed, hr, rx, port)
     paths.update(client.pop("paths"))
+    ops = timed("ops", phase_ops, args.seed, hr, rx, port)
+    paths.update(ops.pop("paths"))
+    derived = timed("derived", phase_derived, args.seed, hr, rx, port)
+    paths.update(derived.pop("paths"))
     paths.update(timed("select", phase_select, args.seed, hr, rx, tpch, port,
                        keep))
     paths.update(timed("mesh", phase_mesh, hr, rx, tpch, keep))
@@ -4004,6 +4646,7 @@ def main() -> int:
               "window_rows": WINDOW_ROWS, "sort_rows": SORT_ROWS,
               "tablet_versions": TABLET_VERSIONS, "dyntable": dyntable,
               "durable": durable, "queue": queue, "client": client,
+              "ops": ops, "derived": derived,
               "extsort_rows": paths["extsort"]["rows_in"],
               "strings_rows": STRINGS_ROWS, "vector_rows": VECTOR_ROWS,
               "vector": vec, "mesh_ranks": mesh_ranks,

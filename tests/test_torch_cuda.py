@@ -881,3 +881,77 @@ def test_client_on_the_card_matches_the_cpu(cuda_device, tmp_path):
                                        rtol=1e-5)
         else:
             assert got[key] == want[key], key
+
+
+def _ops_derived_script(client, root2):
+    """Reduce, map-reduce and a command map; a replicated table with an
+    async replica on a second root; an index; a view over a queue."""
+    from ytsaurus_tpu_torch.schema import TableSchema
+    rng = np.random.default_rng(11)
+    rows = [{"k": int(k), "g": int(g) * 2654435761 % (1 << 40),
+             "v": int(v)} for k, g, v in zip(
+        rng.permutation(4000), rng.integers(0, 300, 4000),
+        rng.integers(0, 1000, 4000))]
+    client.write_table("//in", rows)
+    client.run_sort("//in", "//sorted", sort_by=["g", "k"])
+    out = {}
+    op = client.run_reduce(
+        lambda key, rs: [{"g": key["g"], "s": sum(r["v"] for r in rs),
+                          "c": len(rs)}],
+        "//sorted", "//red", reduce_by="g", job_count=5)
+    out["reduce"] = (op.result, sorted(client.read_table("//red"),
+                                       key=lambda r: r["g"]))
+    op = client.run_map_reduce(
+        lambda rs: [{"g": r["g"], "v2": 2 * r["v"]} for r in rs],
+        lambda key, rs: [{"g": key["g"], "s": sum(r["v2"] for r in rs)}],
+        "//in", "//mr", reduce_by="g", partition_count=4)
+    out["map_reduce"] = (op.result, sorted(client.read_table("//mr"),
+                                           key=lambda r: r["g"]))
+    op = client.run_map("cat", "//in", "//cat", format="json")
+    out["map_cmd"] = sorted(r["k"] for r in client.read_table("//cat"))
+    schema = TableSchema.make([("k", "int64", "ascending"), ("v", "int64")],
+                              unique_keys=True)
+    down = client.table_replicator.replica_client(root2)
+    for c, path in ((client, "//t"), (down, "//r")):
+        c.create("table", path, attributes={"schema": schema,
+                                            "dynamic": True})
+        c.mount_table(path)
+    client.create_table_replica("//t", "//r", cluster_root=root2,
+                                mode="async")
+    client.insert_rows("//t", [{"k": r["k"], "v": r["v"]}
+                               for r in rows[:500]])
+    out["replicated"] = client.table_replicator.replicate_step("//t")
+    client.create_secondary_index("//t", "//t_by_v", ["v"])
+    out["index"] = sorted(r["k"] for r in client.select_rows(
+        f"k FROM [//t] WHERE v = {rows[0]['v']}"))
+    qs = TableSchema.make([("g", "int64"), ("v", "int64")])
+    client.create("table", "//q", attributes={"schema": qs,
+                                              "dynamic": True})
+    client.mount_table("//q")
+    client.create_materialized_view(
+        "m", "g, sum(v) AS s, count(*) AS c FROM [//q] GROUP BY g",
+        batch_rows=700)
+    for lo in range(0, 4000, 1000):
+        client.push_queue("//q", [{"g": r["g"], "v": r["v"]}
+                                  for r in rows[lo:lo + 1000]])
+        client.refresh_view("m")
+    view = client.get_view("m")
+    out["view"] = sorted((r["g"], r["s"], r["c"]) for r in
+                         client.select_rows(f"g, s, c FROM "
+                                            f"[{view['target']}]"))
+    return out
+
+
+def test_operations_and_derived_tables_on_the_card_match_the_cpu(
+        cuda_device, tmp_path):
+    """Reduce, map-reduce, a command map, replication, a secondary index
+    and a view through `connect()` on the card answer as on the CPU, and
+    the sorts under them launch the radix kernels."""
+    from ytsaurus_tpu_torch.client import connect
+    before = dict(rx.launches)
+    got = _ops_derived_script(connect(str(tmp_path / "gpu")),
+                              str(tmp_path / "gpu2"))
+    assert rx.launches["radix_onesweep"] > before["radix_onesweep"]
+    want = _ops_derived_script(connect(str(tmp_path / "cpu"), device="cpu"),
+                               str(tmp_path / "cpu2"))
+    assert got == want

@@ -1,13 +1,9 @@
 """The port's operations plane against the JAX package's: chunk pools, fair
 share and the job manager (the reference's tests/test_jobs.py run on the
-port, less the user-command jobs), and the sort, merge, erase and map
-operations driven alike through both clients, compared by rows, table
-attributes, operation results, states and error codes. The port runs
-with device="cpu".
-
-Left out of the twins: `run_command_job` and the jobs built on it
-(command pipes, the speculative twin and preemption of command jobs, the
-shell-command maps), which wait for the exec-plane slice."""
+port, every case, the user-command jobs included), and the sort, merge,
+erase and map operations driven alike through both clients, compared by
+rows, table attributes, operation results, states and error codes. The
+port runs with device="cpu"."""
 
 import numpy as np
 import pytest
@@ -27,14 +23,8 @@ from ytsaurus_tpu_torch.operations.jobs import Job, JobManager
 
 torch.set_num_threads(1)
 
-_TWIN = port_twin("test_jobs", edits={
-    "import Job, JobManager, run_command_job": "import Job, JobManager"})
-_CASES = twin_cases(_TWIN, exclude={
-    "test_command_job_pipes_and_stderr",
-    "test_speculative_twin_rescues_straggler",
-    "test_preemption_requeues_over_share_job",
-    "test_map_shell_command", "test_map_command_failure_reports_stderr",
-    "test_map_command_jq_style_transform"})
+_TWIN = port_twin("test_jobs")
+_CASES = twin_cases(_TWIN)
 
 
 @pytest.mark.parametrize("name", _CASES)

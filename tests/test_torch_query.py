@@ -324,7 +324,10 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
     chunk store, `Tablet` and `TransactionManager`) writes a table through
     a transaction, flushes, compacts and reads it back; and the client
     (`connect`, with Cypress, the gateway and the scheduler under it)
-    writes a static table, selects from it and sorts it."""
+    writes a static table, selects from it, sorts, reduces, map-reduces
+    it through shell commands and runs a vanilla command; the replication,
+    chaos, secondary-index, queue-agent, view and view-daemon modules
+    import."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -466,6 +469,23 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
             op = client.run_sort("//t", "//s", sort_by="k")
             assert op.state == "completed", op.error
             assert [r["k"] for r in client.read_table("//s")] == [1, 2, 3, 4, 5]
+            op = client.run_reduce(
+                lambda key, rs: [{"k": key["k"], "c": len(rs)}], "//s",
+                "//red", reduce_by="k")
+            assert op.state == "completed", op.error
+            op = client.run_map_reduce("cat", "cat", "//t", "//mr",
+                                       reduce_by="g", format="json")
+            assert len(client.read_table("//mr")) == 5, op.error
+            op = client.run_vanilla({"t": {"job_count": 1,
+                                           "command": "true"}})
+            assert op.state == "completed", op.error
+        from ytsaurus_tpu_torch.operations import (  # noqa: F401
+            job_environment, reduce_op)
+        from ytsaurus_tpu_torch.tablet import (  # noqa: F401
+            chaos, replication, secondary_index)
+        from ytsaurus_tpu_torch.server import (  # noqa: F401
+            queue_agent, view_daemon)
+        from ytsaurus_tpu_torch.query import views  # noqa: F401
         assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                              if v is not None}
         print("ok", len(rows))

@@ -44,8 +44,15 @@ It runs QL queries over columnar chunks on one device:
     serving gateway of query/serving.py, EXPLAIN ANALYZE of
     query/profile.py, the operation scheduler of operations/), with
     query/{pruning,accounting,workload}.py;
-  - bench/chip_phases.py — chip_smoke's storage and client phases alone
-    on the card;
+  - the operations plane: operations/reduce_op.py, job_environment.py,
+    the reduce, map-reduce and vanilla controllers of scheduler.py and
+    command jobs (jobs.py::run_command_job), with revival after a crash;
+  - replication and the derived tables: tablet/replication.py,
+    tablet/chaos.py, tablet/secondary_index.py, query/views.py,
+    server/queue_agent.py, server/view_daemon.py and the client's
+    backups;
+  - bench/chip_phases.py — chip_smoke's storage, client, operations and
+    derived-table phases alone on the card;
   - config.py, utils/ — the knobs, failpoints, trace spans, sensors,
     invariant checks and varints those read.
 

@@ -137,29 +137,32 @@ class Column:
         return int(self.data.shape[0])
 
     def decode(self, row_count: int) -> list:
-        """Materialize host values for the first `row_count` rows."""
+        """Materialize host values for the first `row_count` rows (None
+        where invalid): one copy of the planes, then whole-array
+        conversions."""
         data = self.data[:row_count].cpu().numpy()
         valid = self.valid[:row_count].cpu().numpy()
         if self.type is EValueType.uint64:
             data = data.view(np.uint64)
-        out: list = []
-        for i in range(row_count):
-            if not valid[i]:
-                out.append(None)
-            elif isinstance(self.type, VectorType):
-                out.append([float(x) for x in data[i]])
-            elif self.type is EValueType.string:
-                out.append(bytes(self.dictionary[int(data[i])]))
-            elif self.type is EValueType.any:
-                out.append(self.host_values[i])
-            elif self.type is EValueType.boolean:
-                out.append(bool(data[i]))
-            elif self.type is EValueType.double:
-                out.append(float(data[i]))
-            elif self.type is EValueType.null:
-                out.append(None)
-            else:
-                out.append(int(data[i]))
+        if self.type is EValueType.null:
+            return [None] * row_count
+        if self.type is EValueType.any:
+            out = list(self.host_values[:row_count])
+        elif self.type is EValueType.string:
+            if self.dictionary is None or not len(self.dictionary):
+                return [None] * row_count     # every row is null
+            vocab = [bytes(v) for v in self.dictionary]
+            out = [vocab[c] for c in np.where(valid, data, 0).tolist()]
+        elif self.type is EValueType.boolean:
+            out = data.astype(bool).tolist()
+        elif isinstance(self.type, VectorType) or \
+                self.type is EValueType.double:
+            out = data.astype(np.float64).tolist()
+        else:
+            out = data.tolist()
+        if not valid.all():
+            for i in np.flatnonzero(~valid).tolist():
+                out[i] = None
         return out
 
 
@@ -249,16 +252,23 @@ class ColumnarChunk:
 
     @staticmethod
     def from_arrays(schema: TableSchema, arrays: Mapping[str, np.ndarray],
+                    row_count: Optional[int] = None,
+                    valids: Optional[Mapping[str, np.ndarray]] = None,
                     dictionaries: Optional[Mapping[str, np.ndarray]] = None,
+                    capacity: Optional[int] = None, *,
                     device: "str | torch.device" = DEFAULT_DEVICE
                     ) -> "ColumnarChunk":
-        """Build from numpy arrays, one per column, every row valid (no
-        per-value loop). String columns arrive as int32 codes into their
-        sorted vocabulary in `dictionaries`."""
+        """Build from numpy arrays, one per column (no per-value loop).
+        `valids` marks null rows (every row valid by default). A string
+        column arrives either as int32 codes into its sorted vocabulary in
+        `dictionaries`, or raw (`S`, `U` or object arrays, None as null),
+        which one `np.unique` dictionary-encodes."""
         dev = resolve_device(device)
-        n = len(next(iter(arrays.values())))
-        cap = pad_capacity(max(n, 1))
+        n = row_count if row_count is not None else \
+            len(next(iter(arrays.values())))
+        cap = capacity or pad_capacity(max(n, 1))
         dictionaries = dict(dictionaries or {})
+        valids = dict(valids or {})
         columns: dict[str, Column] = {}
         for col_schema in schema:
             name = col_schema.name
@@ -270,21 +280,27 @@ class ColumnarChunk:
             if len(arr) != n:
                 raise YtError(f"Column {name!r} length {len(arr)} != {n}")
             if isinstance(ty, VectorType):
-                columns[name] = _vector_column_from_array(ty, name, arr, cap,
-                                                          dev)
+                col = _vector_column_from_array(ty, name, arr, cap, dev)
+                if name in valids:
+                    col.valid[:n] = torch.from_numpy(
+                        np.asarray(valids[name], dtype=bool)).to(dev)
+                columns[name] = col
                 continue
             vocab = None
             if ty is EValueType.string:
-                if name not in dictionaries:
-                    raise YtError(f"String column {name!r} needs its "
-                                  "dictionary")
-                vocab = np.asarray(dictionaries[name], dtype=object)
+                if name in dictionaries:
+                    vocab = np.asarray(dictionaries[name], dtype=object)
+                else:
+                    arr, vocab, nulls = _encode_raw_strings(name, arr)
+                    if nulls is not None and name not in valids:
+                        valids[name] = ~nulls
             if ty is EValueType.uint64:
                 arr = arr.astype(np.uint64).view(np.int64)
             data = np.zeros(cap, dtype=_np_plane_dtype(ty))
             data[:n] = arr.astype(data.dtype)
             valid = np.zeros(cap, dtype=bool)
-            valid[:n] = True
+            valid[:n] = np.asarray(valids[name], dtype=bool) \
+                if name in valids else True
             columns[name] = Column(
                 type=ty, data=torch.from_numpy(data).to(dev),
                 valid=torch.from_numpy(valid).to(dev), dictionary=vocab)
@@ -293,11 +309,12 @@ class ColumnarChunk:
     # --- materialization ------------------------------------------------------
 
     def to_rows(self) -> list[dict[str, Any]]:
-        decoded = {name: col.decode(self.row_count)
-                   for name, col in self.columns.items()}
         names = self.schema.column_names
-        return [{name: decoded[name][i] for name in names}
-                for i in range(self.row_count)]
+        decoded = [self.columns[name].decode(self.row_count)
+                   for name in names]
+        if not names:
+            return [{} for _ in range(self.row_count)]
+        return [dict(zip(names, values)) for values in zip(*decoded)]
 
     def to_tuples(self) -> list[tuple]:
         decoded = [self.columns[name].decode(self.row_count)
@@ -350,6 +367,32 @@ class ColumnarChunk:
         return {"schema_spec": _schema_spec(self.schema),
                 "row_count": self.row_count, "planes": planes,
                 "dictionaries": dictionaries, "sorted_by": self.sorted_by}
+
+
+def _encode_raw_strings(name: str, arr: np.ndarray
+                        ) -> "tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]":
+    """A raw string array as (int32 codes, sorted bytes vocabulary, null
+    mask or None), through one `np.unique`. `S` and `U` arrays are
+    fixed-width already; object arrays compare losslessly over arbitrary
+    bytes, with None as null (encoded as b"" and masked)."""
+    raw = arr
+    if raw.dtype.kind == "U":
+        raw = np.char.encode(raw, "utf-8")
+    nulls = None
+    if raw.dtype.kind == "O":
+        nulls = np.array([v is None for v in raw], dtype=bool)
+        if nulls.any():
+            raw = raw.copy()
+            raw[nulls] = b""
+        else:
+            nulls = None
+    if raw.dtype.kind not in ("S", "O"):
+        raise YtError(f"String column {name!r} needs a dictionary or a "
+                      "string-typed array")
+    vocab_s, codes = np.unique(raw, return_inverse=True)
+    vocab = np.empty(len(vocab_s), dtype=object)
+    vocab[:] = [bytes(v) for v in vocab_s]
+    return codes.astype(np.int32), vocab, nulls
 
 
 def _repadded(col: Column, start: int, n: int, capacity: int) -> Column:

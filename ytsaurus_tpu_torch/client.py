@@ -10,18 +10,21 @@ Cypress commands: create/get/set/list/exists/remove/copy/move/link/lock
 and master transactions. Static tables: write_table/read_table (columnar
 chunks in the chunk store, chunk ids recorded as table attributes).
 Dynamic tables: mount/unmount/reshard/freeze/compact, insert/delete/
-lookup/select, tablet transactions, queues. Operations: run_sort/
-run_merge/run_map/run_erase via the scheduler.
+lookup/select, tablet transactions, queues. Operations: run_sort/run_merge/run_map (a Python mapper or a shell
+command)/run_reduce/run_map_reduce/run_vanilla/run_erase via the
+scheduler, with revival of command operations after a crash. Replicated
+tables (sync and async replicas, replica fallback reads hedged across
+replicas) and chaos replication cards; secondary indexes maintained in
+the writing transaction and used by selects; queue consumers; incremental
+materialized views over queues; backups of dynamic tables.
 
 A cluster directory is the reference's: the master's changelog and
 snapshot, the chunk files and the attributes are written in the same
 formats, so a directory written by either package opens in the other.
 
 Not ported yet, each raising a YtError that names the missing module:
-replicas and chaos (tablet/replication.py, tablet/chaos.py), secondary
-indexes (tablet/secondary_index.py), materialized views
-(query/views.py), queue consumers (server/queue_agent.py), backups,
-exec-node dispatch, and the query tracker (server/query_tracker.py).
+exec-node dispatch and remote copy (rpc/, remote_client.py), and the
+query tracker (server/query_tracker.py).
 """
 
 from __future__ import annotations
@@ -134,17 +137,99 @@ def _not_ported(what: str, module: str) -> YtError:
                    code=EErrorCode.QueryUnsupported)
 
 
-def _reject_unported_attributes(node, path: str) -> None:
-    """A table carrying replicas, a replication card or secondary
-    indexes (a cluster directory the JAX package wrote) is refused
-    rather than written without its fan-out."""
-    attrs = node.attributes
-    if attrs.get("replicas") or attrs.get("replication_card"):
-        raise _not_ported(f"Writing the replicated table {path!r}",
-                          "tablet/replication.py and tablet/chaos.py")
-    if attrs.get("secondary_indexes"):
-        raise _not_ported(f"Writing {path!r} with its secondary indexes",
-                          "tablet/secondary_index.py")
+# Own copy of the JAX package's rpc/channel.py::hedged_race (the rpc/
+# slice is not ported).
+# Cluster-wide cap on in-flight hedge threads: losing (slow) attempts
+# park a daemon thread until they finish, so the cap must cover
+# request_rate x slow_latency.  Past it, hedged_race degrades to running
+# attempts sequentially in the caller's thread — safe, just unhedged.
+_HEDGE_SLOTS = threading.BoundedSemaphore(64)
+
+
+def hedged_race(attempts: "list", delay: float):
+    """First-success race with staggered arming (ref
+    core/rpc/hedging_channel.h generalized to N attempts): attempt 0
+    starts immediately; attempt i+1 is armed after `delay` with no
+    answer, or IMMEDIATELY when attempt i fails.  Raises the last
+    YtError when every attempt fails; a NON-YtError from any attempt
+    propagates immediately (a programming error must never be swallowed
+    into a silent hang).  Losing attempts run on abandoned daemon
+    threads — a wedged loser cannot block the caller or interpreter
+    exit."""
+    import queue as _queue
+
+    if not attempts:
+        raise YtError("hedged race with no attempts",
+                      code=EErrorCode.PeerUnavailable)
+    results: "_queue.SimpleQueue" = _queue.SimpleQueue()
+
+    def run(fn):
+        try:
+            try:
+                results.put(("ok", fn()))
+            except BaseException as err:  # noqa: BLE001 — relayed below
+                results.put(("err", err))
+        finally:
+            _HEDGE_SLOTS.release()
+
+    started = 0
+    pending = 0
+    last: YtError | None = None
+    while True:
+        if started < len(attempts):
+            fn = attempts[started]
+            if _HEDGE_SLOTS.acquire(blocking=False):
+                started += 1
+                try:
+                    threading.Thread(target=run, args=(fn,), daemon=True,
+                                     name=f"hedge-{started}").start()
+                except BaseException:
+                    # Thread spawn failed (fd/thread exhaustion): the
+                    # slot must not leak out of the global pool.
+                    _HEDGE_SLOTS.release()
+                    raise
+                pending += 1
+            elif pending == 0:
+                # Saturated with nothing in flight: run inline
+                # (sequential fallback) rather than spawning unboundedly.
+                started += 1
+                try:
+                    return fn()
+                except YtError as err:
+                    last = err
+                    continue
+            # Saturated with attempts in flight: fall through and wait
+            # on their results (a fast success must win over blocking
+            # inline on the next attempt); arming retries next loop.
+        if pending == 0 and started >= len(attempts):
+            raise last
+        try:
+            kind, value = results.get(
+                timeout=delay if started < len(attempts) else None)
+        except _queue.Empty:
+            continue                # stagger elapsed: arm the next
+        pending -= 1
+        if kind == "ok":
+            return value
+        if not isinstance(value, YtError):
+            raise value             # programming error: surface, loudly
+        last = value                # failure: arm the next immediately
+
+
+
+def _hedged_race(attempts: "list[Callable]", delay: float,
+                 base_error: YtError):
+    """hedged_race with the replica-fallback error shape: base_error
+    (the primary-table failure) is always the root cause."""
+
+    if not attempts:
+        raise base_error
+    try:
+        return hedged_race(attempts, delay)
+    except YtError as err:
+        raise YtError("all hedged replica lookups failed",
+                      code=base_error.code,
+                      inner_errors=[base_error, err])
 
 
 class YtClient:
@@ -155,6 +240,9 @@ class YtClient:
         self.scheduler = OperationScheduler(self)
         self.last_query_statistics = QueryStatistics()
         self._computed_plans: dict = {}
+        self._table_replicator = None
+        # Stagger between hedged replica lookups (hedging_channel.h).
+        self.lookup_hedging_delay = 0.05
 
     def exec_node_addresses(self) -> dict:
         raise _not_ported("Exec-node dispatch", "the rpc/ and server/ "
@@ -162,7 +250,11 @@ class YtClient:
 
     @property
     def table_replicator(self):
-        raise _not_ported("Table replication", "tablet/replication.py")
+        """Lazy shared TableReplicator (caches remote-cluster clients)."""
+        if self._table_replicator is None:
+            from ytsaurus_tpu_torch.tablet.replication import TableReplicator
+            self._table_replicator = TableReplicator(self)
+        return self._table_replicator
 
     @property
     def query_tracker(self):
@@ -831,21 +923,26 @@ class YtClient:
 
     def register_queue_consumer(self, queue_path: str, consumer_path: str,
                                 vital: bool = True) -> None:
-        raise _not_ported("Queue consumers", "server/queue_agent.py")
+        from ytsaurus_tpu_torch.server.queue_agent import register_consumer
+        register_consumer(self, queue_path, consumer_path, vital=vital)
 
     def unregister_queue_consumer(self, queue_path: str,
                                   consumer_path: str) -> None:
-        raise _not_ported("Queue consumers", "server/queue_agent.py")
+        from ytsaurus_tpu_torch.server.queue_agent import unregister_consumer
+        unregister_consumer(self, queue_path, consumer_path)
 
     def advance_consumer(self, consumer_path: str, queue_path: str,
                          new_offset: int,
                          old_offset: Optional[int] = None) -> None:
-        raise _not_ported("Queue consumers", "server/queue_agent.py")
+        from ytsaurus_tpu_torch.server.queue_agent import advance_consumer
+        advance_consumer(self, consumer_path, queue_path, new_offset,
+                         old_offset=old_offset)
 
     def pull_consumer(self, consumer_path: str, queue_path: str,
                       limit: Optional[int] = None
                       ) -> "tuple[list[dict], int]":
-        raise _not_ported("Queue consumers", "server/queue_agent.py")
+        from ytsaurus_tpu_torch.server.queue_agent import pull_consumer
+        return pull_consumer(self, consumer_path, queue_path, limit=limit)
 
     # ------------------------------------------------- materialized views
 
@@ -854,25 +951,40 @@ class YtClient:
                                  target: Optional[str] = None,
                                  pool: str = "views",
                                  batch_rows: Optional[int] = None) -> dict:
-        raise _not_ported("Materialized views", "query/views.py")
+        """Register a continuous query: a daemon-tailed
+        incremental view over an ordered table, exactly-once into a
+        sorted target readable by normal selects (query/views.py)."""
+        from ytsaurus_tpu_torch.query.views import create_materialized_view
+        return create_materialized_view(
+            self, name, query, source=source, target=target, pool=pool,
+            batch_rows=batch_rows)
 
     def list_views(self) -> list[str]:
-        raise _not_ported("Materialized views", "query/views.py")
+        from ytsaurus_tpu_torch.query.views import list_views
+        return list_views(self)
 
     def get_view(self, name: str) -> dict:
-        raise _not_ported("Materialized views", "query/views.py")
+        from ytsaurus_tpu_torch.query.views import view_status
+        return view_status(self, name)
 
     def pause_view(self, name: str) -> dict:
-        raise _not_ported("Materialized views", "query/views.py")
+        from ytsaurus_tpu_torch.query.views import set_view_state
+        return set_view_state(self, name, "paused")
 
     def resume_view(self, name: str) -> dict:
-        raise _not_ported("Materialized views", "query/views.py")
+        from ytsaurus_tpu_torch.query.views import set_view_state
+        return set_view_state(self, name, "running")
 
     def remove_view(self, name: str, drop_target: bool = False) -> None:
-        raise _not_ported("Materialized views", "query/views.py")
+        from ytsaurus_tpu_torch.query.views import remove_view
+        remove_view(self, name, drop_target=drop_target)
 
     def refresh_view(self, name: str, max_batches: int = 0) -> dict:
-        raise _not_ported("Materialized views", "query/views.py")
+        """Drain one view's cursor inline (no daemon): the CLI/driver
+        verb behind `yt view refresh` and the test/bench loop."""
+        from ytsaurus_tpu_torch.query.views import ViewRefresher, load_view
+        refresher = ViewRefresher(self, load_view(self, name))
+        return refresher.refresh(max_batches=max_batches)
 
     @staticmethod
     def _require_ordered(tablet, path: str) -> None:
@@ -926,7 +1038,15 @@ class YtClient:
         return self.cluster.transactions.start()
 
     def commit_transaction(self, tx: TabletTransaction) -> int:
-        return self.cluster.transactions.commit(tx)
+        self._finalize_tx(tx)
+        commit_ts = self.cluster.transactions.commit(tx)
+        # Sync-replica checkpoints for writes staged under this caller-owned
+        # transaction (kept on the tx so an abort advances nothing).
+        for path, sync_targets, era0 in getattr(
+                tx, "pending_sync_advances", []):
+            self._advance_sync_checkpoints(path, sync_targets, commit_ts)
+            self._recheck_replication_era(path, era0, commit_ts)
+        return commit_ts
 
     def abort_transaction(self, tx: TabletTransaction) -> None:
         self.cluster.transactions.abort(tx)
@@ -947,14 +1067,35 @@ class YtClient:
                               code=EErrorCode.QueryUnsupported)
             self.push_queue(path, rows)
             return None
-        _reject_unported_attributes(self._table_node(path), path)
         txm = self.cluster.transactions
         own = tx is None
         tx = tx or txm.start()
+        # Secondary-index rows ride the same transaction; the net mutation
+        # set is computed at commit (finalize_index_mutations).
+        from ytsaurus_tpu_torch.tablet.secondary_index import record_index_intent
+        record_index_intent(self, tx, path, self._table_node(path),
+                            tablets[0].schema, list(rows), None, update)
         for idx, part in self._route_rows(path, tablets, list(rows)).items():
             txm.write_rows(tx, tablets[idx], part, update=update)
+        # Sync replicas join the SAME 2PC commit (ref transaction.cpp:737
+        # sync-replica fanout): their tablets are extra participants, so a
+        # broken sync replica fails the write before anything commits.
+        era0, sync_targets = self._replication_state(path)
+        for rid, rc, rpath in sync_targets:
+            rtablets = rc._mounted_tablets(rpath)
+            for idx, part in rc._route_rows(rpath, rtablets,
+                                            list(rows)).items():
+                txm.write_rows(tx, rtablets[idx], part, update=update)
         if own:
-            return txm.commit(tx)
+            self._finalize_tx(tx)
+            commit_ts = txm.commit(tx)
+            self._advance_sync_checkpoints(path, sync_targets, commit_ts)
+            self._recheck_replication_era(path, era0, commit_ts)
+            return commit_ts
+        if sync_targets or era0 is not None:
+            tx.pending_sync_advances = getattr(
+                tx, "pending_sync_advances", []) + \
+                [(path, sync_targets, era0)]
         return None
 
     def delete_rows(self, path: str, keys: Sequence[tuple],
@@ -963,15 +1104,30 @@ class YtClient:
         self._require_sorted(tablets[0], path)
         keys = self._fill_computed_keys(tablets[0].schema,
                                         [tuple(k) for k in keys])
-        _reject_unported_attributes(self._table_node(path), path)
         txm = self.cluster.transactions
         own = tx is None
         tx = tx or txm.start()
+        from ytsaurus_tpu_torch.tablet.secondary_index import record_index_intent
+        record_index_intent(self, tx, path, self._table_node(path),
+                            tablets[0].schema, None, keys, False)
         for idx, part in self._route_rows(
                 path, tablets, keys).items():
             txm.delete_rows(tx, tablets[idx], part)
+        era0, sync_targets = self._replication_state(path)
+        for rid, rc, rpath in sync_targets:
+            rtablets = rc._mounted_tablets(rpath)
+            for idx, part in rc._route_rows(rpath, rtablets, keys).items():
+                txm.delete_rows(tx, rtablets[idx], part)
         if own:
-            return txm.commit(tx)
+            self._finalize_tx(tx)
+            commit_ts = txm.commit(tx)
+            self._advance_sync_checkpoints(path, sync_targets, commit_ts)
+            self._recheck_replication_era(path, era0, commit_ts)
+            return commit_ts
+        if sync_targets or era0 is not None:
+            tx.pending_sync_advances = getattr(
+                tx, "pending_sync_advances", []) + \
+                [(path, sync_targets, era0)]
         return None
 
     # --------------------------------------------------------------- replication
@@ -980,15 +1136,104 @@ class YtClient:
                              cluster_root: Optional[str] = None,
                              mode: str = "async",
                              enabled: bool = True) -> str:
-        raise _not_ported("Table replicas", "tablet/replication.py")
+        """Register a replica of a replicated (dynamic) table.  The replica
+        table must exist (same schema) on the target cluster; cluster_root
+        None means this cluster.  Ref: CreateTableReplica
+        (client/api/client.h), table_replica objects (tablet_server)."""
+        from ytsaurus_tpu_torch.tablet import replication as repl
+        if mode not in ("sync", "async"):
+            raise YtError(f"Bad replica mode {mode!r}",
+                          code=EErrorCode.QueryTypeError)
+        self._table_node(table_path)
+        replicas = repl.replica_descriptors(self, table_path)
+        rid = f"replica-{len(replicas)}"
+        while rid in replicas:
+            rid = rid + "-1"
+        replicas[rid] = {"path": replica_path, "cluster_root": cluster_root,
+                         "mode": mode, "enabled": bool(enabled),
+                         "last_replicated_ts": 0, "error": None}
+        repl.set_replica_descriptors(self, table_path, replicas)
+        return rid
 
     def alter_table_replica(self, table_path: str, replica_id: str,
                             mode: Optional[str] = None,
                             enabled: Optional[bool] = None) -> None:
-        raise _not_ported("Table replicas", "tablet/replication.py")
+        from ytsaurus_tpu_torch.tablet import replication as repl
+        replicas = repl.replica_descriptors(self, table_path)
+        if replica_id not in replicas:
+            raise YtError(f"No such replica {replica_id!r}",
+                          code=EErrorCode.ResolveError)
+        if mode is not None:
+            if mode not in ("sync", "async"):
+                raise YtError(f"Bad replica mode {mode!r}",
+                              code=EErrorCode.QueryTypeError)
+            replicas[replica_id]["mode"] = mode
+        if enabled is not None:
+            replicas[replica_id]["enabled"] = bool(enabled)
+        repl.set_replica_descriptors(self, table_path, replicas)
 
     def get_table_replicas(self, table_path: str) -> dict:
-        raise _not_ported("Table replicas", "tablet/replication.py")
+        from ytsaurus_tpu_torch.tablet import replication as repl
+        return repl.replica_descriptors(self, table_path)
+
+    def _finalize_tx(self, tx) -> None:
+        """Pre-commit hook: stage net secondary-index mutations recorded
+        under this transaction."""
+        from ytsaurus_tpu_torch.tablet.secondary_index import (
+            finalize_index_mutations,
+        )
+        finalize_index_mutations(self, self.cluster.transactions, tx)
+
+    def _sync_replica_targets(self, path: str):
+        """(replica_id, replica_client, replica_path) for each enabled
+        sync replica of `path` (empty for non-replicated tables)."""
+        return self._replication_state(path)[1]
+
+    def _replication_state(self, path: str):
+        """(era, sync_targets) in one node read.  era is None for a
+        plain non-replicated table (the common case pays one attribute
+        probe and nothing else); otherwise it is the replication-card
+        era observed for this write, re-checked after commit so a commit
+        racing a chaos sync cutover re-delivers its events to the new
+        configuration (chaos_agent.h era semantics)."""
+        from ytsaurus_tpu_torch.tablet import replication as repl
+        node = self._table_node(path)
+        replicas = node.attributes.get(repl.REPLICAS_ATTR) or {}
+        card = node.attributes.get("replication_card")
+        if not replicas and not card:
+            return None, []
+        era = int(card["era"]) if card else 0
+        out = []
+        for rid, info in replicas.items():
+            if info.get("enabled") and info.get("mode") == "sync":
+                rc = self.table_replicator.replica_client(
+                    info.get("cluster_root"))
+                out.append((rid, rc, info["path"]))
+        return era, out
+
+
+    def _recheck_replication_era(self, path: str, era0,
+                                 commit_ts: int) -> None:
+        """Post-commit era check: a chaos sync cutover that raced this
+        commit may have enrolled a sync replica the fanout missed;
+        re-deliver the commit's events to the current configuration
+        (idempotent over preserved timestamps)."""
+        if era0 is None:
+            return
+        from ytsaurus_tpu_torch.tablet import chaos
+        if chaos.current_era(self, path) != era0:
+            chaos.redeliver_commit(self, path, commit_ts)
+
+    def _advance_sync_checkpoints(self, path: str, sync_targets,
+                                  commit_ts: int) -> None:
+        if not sync_targets:
+            return
+        from ytsaurus_tpu_torch.tablet import replication as repl
+        replicas = repl.replica_descriptors(self, path)
+        for rid, _rc, _rpath in sync_targets:
+            if rid in replicas:
+                replicas[rid]["last_replicated_ts"] = commit_ts
+        repl.set_replica_descriptors(self, path, replicas)
 
     def lookup_rows(self, path: str, keys: Sequence[tuple],
                     timestamp: int = MAX_TIMESTAMP,
@@ -1003,10 +1248,13 @@ class YtClient:
         under per-pool admission control and a deadline (`timeout`
         seconds, default ServingConfig.default_timeout).
 
-        replica_fallback=True: when the upstream table is unavailable,
-        the reference reads its replicas hedged; replicas are not ported
-        yet, so a table without replicas re-raises the primary failure
-        and one with replicas raises that the fallback is missing."""
+        replica_fallback=True: when the upstream table is
+        unavailable, read from the replicas — HEDGED, not sequential
+        (core/rpc/hedging_channel.h): the best replica (sync first, then
+        freshest) starts immediately and each further replica is armed
+        after `lookup_hedging_delay`, first success wins — so one slow
+        replica bounds tail latency at ~delay + healthy-replica latency
+        instead of the slow replica's timeout."""
         if replica_fallback:
             try:
                 return self.lookup_rows(path, keys, timestamp=timestamp,
@@ -1017,17 +1265,31 @@ class YtClient:
                                         EErrorCode.DeadlineExceeded):
                     # Serving-plane verdicts are NOT unavailability: a
                     # throttle means back off (retry_after), a lapsed
-                    # deadline is terminal.
+                    # deadline is terminal — hedging every replica here
+                    # would both bust the caller's deadline and multiply
+                    # load exactly when the cluster asked for less.
                     raise
-                node = self.cluster.master.tree.try_resolve(path)
-                if node is not None and node.attributes.get("replicas"):
-                    raise YtError(
-                        "Replica fallback is not ported yet (waits for "
-                        "tablet/replication.py)",
-                        code=primary_err.code,
-                        inner_errors=[primary_err])
-                # No replicas to hedge across: the primary failure stands.
-                raise
+                from ytsaurus_tpu_torch.tablet import replication as repl
+                replicas = repl.replica_descriptors(self, path)
+                ranked = [
+                    info for info in sorted(
+                        replicas.values(),
+                        key=lambda i: (i.get("mode") != "sync",
+                                       -int(i.get("last_replicated_ts",
+                                                  0))))
+                    if info.get("enabled")]
+
+                def from_replica(info):
+                    rc = self.table_replicator.replica_client(
+                        info.get("cluster_root"))
+                    return rc.lookup_rows(
+                        info["path"], keys, timestamp=timestamp,
+                        column_names=column_names)
+
+                return _hedged_race(
+                    [lambda info=info: from_replica(info)
+                     for info in ranked],
+                    self.lookup_hedging_delay, primary_err)
         gateway = self.cluster.gateway
         if gateway.enabled and keys:
             from ytsaurus_tpu_torch.utils.tracing import start_query_span
@@ -1323,34 +1585,88 @@ class YtClient:
         return out.to_rows()
 
     def _indexed_source_chunks(self, plan, intervals, timestamp):
-        """Serve the scan from a secondary index when one applies; None
-        falls back to the shard scan. Indexes are not ported yet: a
-        table that has them raises instead of scanning past them."""
+        """Serve the scan from a secondary index when one applies (WHERE
+        bounds the index prefix); None → fall back to the shard scan.
+        Ref: secondary-index predicate rewrite."""
+        from ytsaurus_tpu_torch.tablet.secondary_index import (
+            fetch_via_index,
+            pick_index,
+        )
         try:
             node = self._table_node(plan.source)
         except YtError:
             return None
-        if node.attributes.get("dynamic") and \
-                node.attributes.get("secondary_indexes"):
-            raise _not_ported(f"Reading {plan.source!r} through its "
-                              "secondary indexes",
-                              "tablet/secondary_index.py")
-        return None
+        if not node.attributes.get("dynamic"):
+            return None
+        desc = pick_index(node, intervals)
+        if desc is None:
+            return None
+        schema = self._node_schema(node)
+        try:
+            rows = fetch_via_index(self, plan.source, schema, desc,
+                                   intervals, timestamp)
+        except YtError:
+            return None
+        if rows is None:
+            return None
+        return [ColumnarChunk.from_rows(schema.to_unsorted(), rows,
+                                        device=self.cluster.device)]
 
     def backup_table(self, src_path: str, dst_path: str,
                      timestamp: Optional[int] = None) -> None:
-        raise _not_ported("Backups", "the backup path of client.py")
+        """Consistent backup of a dynamic table as of `timestamp` (default
+        now): versions newer than the cutoff are excluded, timestamps are
+        PRESERVED so a restored table serves the same MVCC reads.
+
+        Ref: backup_manager (tablet_node/backup_manager.h) — checkpoint
+        timestamp + per-tablet clipped stores; here the clip is a
+        vectorized filter over the versioned snapshot planes."""
+        from ytsaurus_tpu_torch.tablet.tablet import (
+            _versioned_sort_key,
+            versioned_schema,
+        )
+        tablets = self._mounted_tablets(src_path)
+        self._require_sorted(tablets[0], src_path)
+        schema = tablets[0].schema
+        cutoff = timestamp if timestamp is not None else \
+            self.cluster.transactions.timestamps.generate()
+        node = self._table_node(src_path)
+        pivots = [list(p) for p in node.attributes.get("pivot_keys", [])]
+        self.create("table", dst_path, recursive=True,
+                    attributes={"schema": schema, "dynamic": True,
+                                "pivot_keys": pivots,
+                                "backup_timestamp": cutoff})
+        per_tablet_chunks: list[list[str]] = []
+        vschema = versioned_schema(schema)
+        for tablet in tablets:
+            rows = [r for r in tablet.versioned_rows_snapshot()
+                    if r["$timestamp"] <= cutoff]
+            rows.sort(key=_versioned_sort_key(schema))
+            if rows:
+                chunk = ColumnarChunk.from_rows(vschema, rows,
+                                                device=self.cluster.device)
+                per_tablet_chunks.append(
+                    [self.cluster.chunk_store.write_chunk(chunk)])
+            else:
+                per_tablet_chunks.append([])
+        self.set(dst_path + "/@tablet_chunk_ids", per_tablet_chunks)
+        self.set(dst_path + "/@tablet_state", "unmounted")
 
     def restore_table_backup(self, backup_path: str, dst_path: str) -> None:
-        raise _not_ported("Backups", "the backup path of client.py")
+        """Materialize a backup as a fresh dynamic table (chunks COPY so
+        the restored table's lifecycle is independent of the backup's)."""
+        self.copy(backup_path, dst_path, recursive=True)
 
     def create_secondary_index(self, table_path: str, index_path: str,
                                columns: Sequence[str]) -> None:
-        raise _not_ported("Secondary indexes", "tablet/secondary_index.py")
+        from ytsaurus_tpu_torch.tablet.secondary_index import create_secondary_index
+        create_secondary_index(self, table_path, index_path, columns)
 
     def drop_secondary_index(self, table_path: str, index_path: str,
                              remove_table: bool = True) -> None:
-        raise _not_ported("Secondary indexes", "tablet/secondary_index.py")
+        from ytsaurus_tpu_torch.tablet.secondary_index import drop_secondary_index
+        drop_secondary_index(self, table_path, index_path,
+                             remove_table=remove_table)
 
     # ---------------------------------------------------------------- operations
 

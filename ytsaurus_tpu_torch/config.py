@@ -20,6 +20,10 @@ counterpart):
   TabletConfig       the tablet's read-path knobs: the host-plane LRU's
                      size, the snapshot cache, and the version count at
                      which the MVCC merge goes columnar
+  FailpointsConfig   a fault-injection schedule for
+                     `utils/failpoints.py::configure`
+  ViewsConfig        the materialized views' refresh loop
+                     (query/views.py, server/view_daemon.py)
   TracingConfig      the query flight recorder: sampling, the slow-query
                      threshold and the bounded logs (utils/tracing.py,
                      query/profile.py)
@@ -204,6 +208,63 @@ def set_tablet_config(config: Optional[TabletConfig]) -> None:
     """Install a process-wide tablet config (None restores defaults)."""
     global _TABLET_CONFIG
     _TABLET_CONFIG = config
+
+
+@dataclass
+class FailpointsConfig:
+    """A fault-injection schedule (utils/failpoints.py): `spec` in the
+    `site=mode[:k=v]...;...` syntax, `seed` fixing the p-based rolls.
+    Applied with `failpoints.configure(config)`."""
+
+    spec: str = ""
+    seed: int = 0
+
+
+@dataclass
+class ViewsConfig:
+    """Materialized-view knobs (query/views.py, server/view_daemon.py):
+
+    - `enable`: the view daemon's refresh loop runs; off pauses every
+      view (the committed offsets make resuming lossless).
+    - `poll_interval`: the daemon's sleep between passes once every view
+      is drained.
+    - `default_batch_rows`: the micro-batch of a view created without
+      one.
+    - `max_batches_per_pass`: batches one view drains in one daemon pass
+      (fairness across views; 0 drains to the head).
+    - `lag_slo_rows`: the freshness objective each refresh pass votes
+      into `/views/lag_ok` or `/views/lag_breach`.
+    - `paused`: view names paused by configuration (besides a view's own
+      paused state)."""
+
+    enable: bool = True
+    poll_interval: float = 0.05
+    default_batch_rows: int = 1024
+    max_batches_per_pass: int = 64
+    lag_slo_rows: int = 65536
+    paused: list = field(default_factory=list)
+
+    def __post_init__(self):
+        _check("poll_interval", self.poll_interval, ge=0.0)
+        _check("default_batch_rows", self.default_batch_rows, ge=1)
+        _check("max_batches_per_pass", self.max_batches_per_pass, ge=0)
+        _check("lag_slo_rows", self.lag_slo_rows, ge=0)
+
+
+_VIEWS_CONFIG: Optional[ViewsConfig] = None
+
+
+def views_config() -> ViewsConfig:
+    global _VIEWS_CONFIG
+    if _VIEWS_CONFIG is None:
+        _VIEWS_CONFIG = ViewsConfig()
+    return _VIEWS_CONFIG
+
+
+def set_views_config(config: Optional[ViewsConfig]) -> None:
+    """Install a process-wide views config (None restores defaults)."""
+    global _VIEWS_CONFIG
+    _VIEWS_CONFIG = config
 
 
 @dataclass

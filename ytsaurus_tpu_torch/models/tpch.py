@@ -287,6 +287,15 @@ def farm_hash_int64_np(values: np.ndarray) -> np.ndarray:
         return (seed ^ x) * seed + (seed << np.uint64(6))
 
 
+def _stable_argsort_small(key: np.ndarray) -> np.ndarray:
+    """np.argsort(key, kind="stable"), the same order: keys in [0, 2^16)
+    sort as uint16, which numpy's stable sort does by radix (several
+    times faster on 64M rows than the int64 merge sort)."""
+    if len(key) and 0 <= int(key.min()) and int(key.max()) < 1 << 16:
+        return np.argsort(key.astype(np.uint16), kind="stable")
+    return np.argsort(key, kind="stable")
+
+
 def funcs_oracle(arrays: dict[str, np.ndarray]) -> dict:
     """FUNCS's groups from the generator's arrays, computed with numpy's
     calendar and uint64 arithmetic: {(month, bucket): {column: value}}.
@@ -308,7 +317,7 @@ def funcs_oracle(arrays: dict[str, np.ndarray]) -> dict:
     counts = np.bincount(key, minlength=size)
     rev_sum = np.bincount(key, weights=rev, minlength=size)
     dd_sum = np.bincount(key, weights=dd, minlength=size)
-    order = np.argsort(key, kind="stable")
+    order = _stable_argsort_small(key)
     present = np.flatnonzero(counts)
     starts = np.concatenate([[0], np.cumsum(counts[present])[:-1]])
     mq_max = np.maximum.reduceat(mq[order], starts) if len(order) else []
@@ -329,7 +338,7 @@ def window_oracle(arrays: dict[str, np.ndarray]
     the running sum of v within each partition, and rank = position in
     the partition + 1 (k is unique, so no two rows tie)."""
     g = arrays["g"]
-    order = np.argsort(g, kind="stable")
+    order = _stable_argsort_small(g)
     g_sorted = g[order]
     total = np.cumsum(arrays["v"][order])
     starts = np.flatnonzero(np.r_[True, g_sorted[1:] != g_sorted[:-1]])

@@ -60,6 +60,29 @@ class Stripe:
                 parts.append(chunk.slice_rows(start, end))
         return concat_chunks(parts) if len(parts) > 1 else parts[0]
 
+def split_stripe(stripe: Stripe) -> "list[Stripe]":
+    """Halve a stripe by rows (ref job_splitter.h: an interrupted long job
+    hands its remaining input to smaller jobs).  Returns [stripe] when it
+    cannot be split (single row)."""
+    if stripe.row_count < 2:
+        return [stripe]
+    target = stripe.row_count // 2
+    first, second = Stripe(), Stripe()
+    taken = 0
+    for chunk, start, end in stripe.slices:
+        rows = end - start
+        if taken >= target:
+            second.add(chunk, start, end)
+        elif taken + rows <= target:
+            first.add(chunk, start, end)
+            taken += rows
+        else:
+            cut = start + (target - taken)
+            first.add(chunk, start, cut)
+            second.add(chunk, cut, end)
+            taken = target
+    return [s for s in (first, second) if s.slices]
+
 
 def _split_oversized(chunk: ColumnarChunk, max_rows: int):
     """Yield (start, end) ranges of at most max_rows."""

@@ -1,21 +1,25 @@
-"""Job execution plane: worker slots, speculation, preemption.
+"""Job execution plane: worker slots, user-job processes, speculation,
+preemption.
 
-Own copy of the JAX package's `operations/jobs.py` as far as in-process
-jobs need it (ref exec_node slot manager + job controller,
+Own copy of the JAX package's `operations/jobs.py` (ref exec_node slot
+manager + job controller, job_proxy/user_job.cpp,
 controllers/speculative_job_manager.h, the scheduler strategy's
-preemption): `Job`, and `JobManager`, whose slots are threads that run
-jobs under fair share (operations/fair_share.py), split oversized
-pending jobs, twin stragglers and preempt over-share pools. A job's
-compute is a device program or host code, so Python threads do not
-serialize the real work; each job names the cluster's device itself and
-never relies on a thread's current CUDA device.
+preemption): `Job`; `JobManager`, whose slots are threads that run jobs
+under fair share (operations/fair_share.py), split oversized pending
+jobs, twin stragglers and preempt over-share pools; and
+`run_command_job`, the user-job proxy: `/bin/sh -c <command>` in its own
+session with formatted rows on stdin, the `YT_JOB_*` environment, the
+stderr tail kept on the job, a timeout that kills the process group, and
+the rlimits of operations/job_environment.py applied in the child. A
+job's compute is a device program, host code or a child process, so
+Python threads do not serialize the real work; each job names the
+cluster's device itself and never relies on a thread's current CUDA
+device.
 
-Not ported yet: the user-job proxies (`run_command_job`, a command in
-its own process with formatted rows on stdin, and
-operations/job_environment.py) wait for the exec-plane slice, and the
-dispatch to remote exec nodes (`run_remote_command_job`) for the `rpc/`
-slice. Python-callable jobs cannot be killed, so they are neither
-preemptible nor speculated.
+Not ported yet: the dispatch to remote exec nodes
+(`run_remote_command_job`), which waits for the `rpc/` slice.
+Python-callable jobs cannot be killed, so they are neither preemptible
+nor speculated; command jobs are both.
 """
 
 from __future__ import annotations
@@ -37,6 +41,8 @@ from ytsaurus_tpu_torch.operations.fair_share import (
 from ytsaurus_tpu_torch.utils import failpoints
 from ytsaurus_tpu_torch.utils.logging import get_logger
 from ytsaurus_tpu_torch.utils.profiling import Profiler
+
+STDERR_TAIL_BYTES = 16 << 10
 
 logger = get_logger("Jobs")
 _profiler = Profiler("/jobs")
@@ -648,3 +654,65 @@ def _kill_job_process(job: Job) -> None:
                 proc.kill()
             except OSError:
                 pass
+
+
+def run_command_job(job: Job, command: str, input_blob: bytes,
+                    timeout: Optional[float] = None,
+                    env: Optional[dict] = None,
+                    limits: Optional[dict] = None) -> bytes:
+    """Run a user command with formatted rows on stdin; returns stdout.
+
+    Ref: job_proxy user_job.cpp — a separate process (own process group,
+    the slot-isolation analog), wire-format pipes, stderr tail kept on
+    the job, non-zero exit = job failure.  `limits` applies the job
+    environment's resource enforcement (rlimits) in the child — see
+    operations/job_environment.py.  The child runs /bin/sh in its own
+    session and never touches the device."""
+    import os
+
+    from ytsaurus_tpu_torch.operations.job_environment import (
+        classify_failure,
+        make_preexec,
+    )
+    if job._lost or job._preempted:
+        # Killed before the process spawned: don't start work that is
+        # already condemned.
+        raise YtError("job canceled before start", code=EErrorCode.Canceled)
+    proc = subprocess.Popen(
+        ["/bin/sh", "-c", command],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE,
+        start_new_session=True,
+        preexec_fn=make_preexec(limits),
+        env={**os.environ, **(env or {}),
+             "YT_JOB_ID": job.id, "YT_JOB_INDEX": str(job.index),
+             "YT_OPERATION_ID": job.op_id})
+    job._proc = proc
+    if job._lost or job._preempted:
+        # A kill issued between the check above and _proc assignment saw
+        # no process; finish the kill ourselves.
+        _kill_job_process(job)
+    try:
+        stdout, stderr = proc.communicate(input_blob, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        _kill_job_process(job)
+        proc.communicate()
+        raise YtError(f"User job {job.id} timed out",
+                      code=EErrorCode.Timeout)
+    finally:
+        job._proc = None
+    job.stderr_tail = stderr[-STDERR_TAIL_BYTES:]
+    if job._lost:
+        raise YtError("job preempted", code=EErrorCode.Canceled)
+    if proc.returncode != 0:
+        attributes = {"stderr": job.stderr_tail.decode("utf-8",
+                                                       "replace"),
+                      "exit_code": proc.returncode}
+        cause = classify_failure(proc.returncode, job.stderr_tail,
+                                 limits)
+        if cause:
+            attributes["probable_cause"] = cause
+        raise YtError(
+            f"User job {job.id} failed with exit code {proc.returncode}",
+            code=EErrorCode.OperationFailed, attributes=attributes)
+    return stdout

@@ -1,5 +1,5 @@
-"""Operations: the scheduler and the sort, merge, erase and map
-controllers.
+"""Operations: the scheduler and the sort, merge, erase, map, reduce,
+map-reduce and vanilla controllers.
 
 Own copy of the JAX package's `operations/scheduler.py` (ref
 server/scheduler/scheduler.cpp StartOperation, the controller agent's
@@ -16,14 +16,30 @@ prepare / materialize / commit lifecycle, operation records under
                        YT_TPU_HBM_BUDGET (8 GiB by default).
   _merge_controller    unordered concatenation or a sorted merge.
   _erase_controller    empties a table.
-  _map_controller      a Python `mapper` over sliced stripes on the
-                       shared JobManager (operations/jobs.py).
+  _map_controller      a Python `mapper` or a shell `command` over
+                       sliced stripes on the shared JobManager
+                       (operations/jobs.py); command jobs run in their
+                       own process, get speculative twins and split
+                       when they straggle.
+  _reduce_controller   sorted reduce: one device sort of the inputs
+                       (sort_chunks), jobs cut at the reduce key's
+                       change points (found on the device), a Python
+                       `reducer` per key group or a command over the
+                       sorted rows.
+  _map_reduce_controller  map jobs hash-route their output by reduce
+                       key (a CRC32 stable across processes), each
+                       partition is sorted on the device, then reduced.
+  _vanilla_controller  gangs of tasks × jobs with no input; any failure
+                       restarts the whole gang.
 
 A controller that fails records `op.error` and the state `failed`; a
-failed device sort never turns into a completed operation. Not ported
-yet: the reduce, map-reduce, vanilla and remote-copy controllers, and a
-map with a shell `command`; each raises a YtError that names what is
-missing.
+failed device sort never turns into a completed operation: only ragged
+rows that the columnar planes refuse fall back to a host sort, never a
+kernel that fails to build or launch. Command operations whose input has
+a stable chunk list record a per-job @snapshot, so
+`revive_operations` resumes them after a crash. Not ported yet: the
+remote-copy controller and the dispatch of command jobs to exec nodes,
+which raise or stay in-process.
 """
 
 from __future__ import annotations
@@ -419,27 +435,44 @@ def _merge_controller(client, spec: dict, op=None, job_manager=None) -> dict:
 
 
 def _map_controller(client, spec: dict, op=None, job_manager=None) -> dict:
-    """Ref: unordered_controller.cpp. spec["mapper"], a Python callable
-    rows -> rows, runs in-slot over stripes the chunk pool slices; jobs
-    run concurrently on the shared JobManager under spec["pool"] fair
-    share."""
-    from ytsaurus_tpu_torch.operations.chunk_pools import build_stripes
+    """Ref: unordered_controller.cpp + the user-process map job
+    (job_proxy/user_job.cpp).
+
+    Two user-code shapes:
+      spec["mapper"]  — a Python callable rows→rows, run in-slot;
+      spec["command"] — a shell command; rows stream through a job-proxy
+                        subprocess on stdin/stdout in spec["format"]
+                        (default json lines), stderr tail kept on errors.
+    Input slices into stripes via the chunk pool, jobs run concurrently
+    on the shared JobManager under spec["pool"] fair share; stragglers
+    get speculative twins and are split in halves (command jobs). Every
+    command job runs in this process's job slots: the dispatch to exec
+    nodes waits for the rpc/ slice."""
+    from ytsaurus_tpu_torch.formats import dumps_rows, loads_rows
+    from ytsaurus_tpu_torch.operations.chunk_pools import build_stripes, split_stripe
+    from ytsaurus_tpu_torch.operations.jobs import Job, run_command_job
 
     mapper: Optional[Callable] = spec.get("mapper")
     command: Optional[str] = spec.get("command")
     if (mapper is None) == (command is None):
         raise YtError("map spec requires exactly one of mapper/command")
-    if command is not None:
-        raise _not_ported("map with a shell command",
-                          "operations/job_environment.py and "
-                          "run_command_job")
     input_path = _one(spec, "input_table_path")
     output_path = _one(spec, "output_table_path")
+    fmt = spec.get("format", "json")
+    pool = spec.get("pool", "default")
     chunks = client._read_table_chunks(input_path)
-    try:
-        input_chunk_ids = list(client.get(f"{input_path}/@chunk_ids"))
-    except YtError:
-        input_chunk_ids = []
+
+    def attr(name, default):
+        try:
+            return client.get(f"{input_path}/@{name}")
+        except YtError:
+            return default
+
+    input_chunk_ids = list(attr("chunk_ids", []))
+    # Snapshots are plan-keyed by the input chunk list; dynamic tables
+    # have no stable chunk list, so their operations restart from scratch
+    # on revival rather than risk stale per-stripe outputs.
+    snapshot_ok = not attr("dynamic", False) and hasattr(client, "cluster")
     rows_per_job = spec.get("rows_per_job")
     if rows_per_job is None and spec.get("job_count"):
         total = sum(c.row_count for c in chunks)
@@ -453,16 +486,51 @@ def _map_controller(client, spec: dict, op=None, job_manager=None) -> dict:
                            schema=spec.get("output_schema"))
         return {"rows": 0, "jobs": 0}
 
-    def make_run(stripe):
-        def run_py(job):
-            return list(mapper(stripe.materialize().to_rows()))
-        return run_py, False
+    op_id = op.id if op is not None else uuid.uuid4().hex
 
+    def make_run(stripe):
+        if mapper is not None:
+            def run_py(job):
+                return list(mapper(stripe.materialize().to_rows()))
+            return run_py, False
+
+        def run_cmd(job):
+            from ytsaurus_tpu_torch.operations.job_environment import (
+                limits_from_spec,
+            )
+            blob = dumps_rows(stripe.materialize().to_rows(), fmt)
+            out = run_command_job(job, command, blob,
+                                  timeout=spec.get("job_time_limit"),
+                                  limits=limits_from_spec(spec))
+            return loads_rows(out, fmt)
+        return run_cmd, True
+
+    def make_splitter(stripe):
+        """Straggler split (ref job_splitter.h): halve the stripe, same
+        command, children settle the parent (command jobs only)."""
+        def split(parent):
+            halves = split_stripe(stripe)
+            if len(halves) < 2:
+                return []
+            children = []
+            for h, half in enumerate(halves):
+                run, _ = make_run(half)
+                children.append(Job(
+                    op_id=op_id, index=parent.index, run=run, pool=pool,
+                    preemptible=True, splitter=make_splitter(half)))
+            return children
+        return split
+
+    # Controller snapshot (ref fork+Phoenix operation snapshots,
+    # snapshot_builder.cpp): per-stripe outputs persist as chunks under
+    # @snapshot so a revived operation skips completed work.  Valid only
+    # while the deterministic stripe plan matches (input chunks + split).
     outputs, revived = _run_user_jobs(
         client, op, job_manager, spec, stripes, make_run,
         plan={"input_chunk_ids": input_chunk_ids,
               "stripe_count": len(stripes)},
-        is_command=False,
+        is_command=command is not None and snapshot_ok,
+        make_splitter=make_splitter if command is not None else None,
         publish=lambda outs: client.write_table(
             output_path, [row for part in outs for row in part],
             schema=spec.get("output_schema")))
@@ -474,6 +542,26 @@ def _erase_controller(client, spec: dict, op=None, job_manager=None) -> dict:
     path = _one(spec, "table_path")
     client._write_table_chunks(path, [])
     return {"rows": 0}
+
+
+def _spec_keys(spec: dict, name: str, default=None) -> list[str]:
+    value = spec.get(name)
+    if value is None:           # absent OR explicitly None → default
+        value = default
+    if value is None:
+        raise YtError(f"Operation spec requires {name!r}")
+    return [value] if isinstance(value, str) else list(value)
+
+
+def _reduce_keys(spec: dict) -> "tuple[list[str], list[str]]":
+    """(reduce_by, sort_by) with sort_by defaulting to reduce_by and
+    required to extend it (ref reduce sort_by semantics)."""
+    reduce_by = _spec_keys(spec, "reduce_by")
+    sort_by = _spec_keys(spec, "sort_by", default=reduce_by)
+    if sort_by[: len(reduce_by)] != reduce_by:
+        raise YtError(f"sort_by {sort_by} must start with reduce_by "
+                      f"{reduce_by}", code=EErrorCode.QueryTypeError)
+    return reduce_by, sort_by
 
 
 def _run_user_jobs(client, op, job_manager, spec, work_items, make_runner,
@@ -591,6 +679,405 @@ def _raise_if_aborted(op) -> None:
         raise YtError("operation aborted", code=EErrorCode.Canceled)
 
 
+def _make_reduce_runner(reducer, command, reduce_by, fmt, spec):
+    """Runner factory over a LAZY key-sorted row source (rows_fn runs on
+    the job slot, not the controller thread).  Python reducers get
+    yt.wrapper-style (key_dict, group_rows) per group; command reducers
+    stream the sorted rows through job-proxy pipes (contiguous key groups
+    on stdin — the classic streaming-reduce contract)."""
+    from ytsaurus_tpu_torch.formats import dumps_rows, loads_rows
+    from ytsaurus_tpu_torch.operations.jobs import run_command_job
+    from ytsaurus_tpu_torch.operations.reduce_op import iter_groups
+
+    def make(rows_fn):
+        if reducer is not None:
+            def run_py(job):
+                out: list[dict] = []
+                for key, group in iter_groups(rows_fn(), reduce_by):
+                    out.extend(reducer(key, group))
+                return out
+            return run_py, False
+
+        def run_cmd(job):
+            from ytsaurus_tpu_torch.operations.job_environment import (
+                limits_from_spec,
+            )
+            blob = dumps_rows(rows_fn(), fmt)
+            out = run_command_job(job, command, blob,
+                                  timeout=spec.get("job_time_limit"),
+                                  limits=limits_from_spec(spec))
+            return loads_rows(out, fmt)
+        return run_cmd, True
+    return make
+
+
+def _sort_rows_for_reduce(rows: list, sort_by: list, device) -> list:
+    """Sort intermediate rows by the reduce sort key.  A device sort on
+    `device` when the rows are schema-uniform (the partition_sort_job
+    analog); a host sort only for ragged user-job output that the
+    columnar planes reject (`infer_schema` / `from_rows` raise YtError,
+    TypeError, ValueError or OverflowError) — type-ranked so mixed-type columns still admit a total
+    order.  The device sort stays outside the fallback: a kernel that
+    fails to build or launch fails the job."""
+    if not rows:
+        return rows
+    from ytsaurus_tpu_torch.chunks.columnar import ColumnarChunk
+    from ytsaurus_tpu_torch.client import infer_schema
+    from ytsaurus_tpu_torch.operations.sort_op import sort_chunk
+    try:
+        chunk = ColumnarChunk.from_rows(infer_schema(rows), rows,
+                                        device=device)
+    except (YtError, TypeError, ValueError, OverflowError):
+        return _host_sort_rows(rows, sort_by)
+    return sort_chunk(chunk, sort_by, device=device).to_rows()
+
+
+def _host_sort_rows(rows: list, sort_by: list) -> list:
+    """Stable host sort of ragged rows: None first, then numbers, bytes,
+    str, and anything else by repr."""
+    def key(row):
+        out = []
+        for k in sort_by:
+            v = row.get(k)
+            if v is None:
+                out.append((0, 0))
+            elif isinstance(v, (bool, int, float)):
+                out.append((1, v))
+            elif isinstance(v, bytes):
+                out.append((2, v))
+            elif isinstance(v, str):
+                out.append((3, v))
+            else:
+                out.append((4, repr(v)))
+        return tuple(out)
+    return sorted(rows, key=key)
+
+
+def _reduce_controller(client, spec: dict, op=None, job_manager=None) -> dict:
+    """Sorted Reduce (ref sorted_controller.cpp:1451
+    CreateReduceController).
+
+    The reference merges sorted chunk readers and slices jobs at key
+    boundaries (the key guarantee).  Here the merge of already-sorted
+    inputs is one device lexsort over the concatenated columnar planes,
+    and stripes cut only where the reduce key changes — so every key
+    group lands in exactly one job."""
+    from ytsaurus_tpu_torch.operations.reduce_op import (
+        chunk_key_change_points,
+        ranges_from_change_points,
+        validate_sorted_input,
+    )
+    from ytsaurus_tpu_torch.operations.sort_op import sort_chunks
+
+    reducer = spec.get("reducer")
+    command = spec.get("command")
+    if (reducer is None) == (command is None):
+        raise YtError("reduce spec requires exactly one of reducer/command")
+    reduce_by, sort_by = _reduce_keys(spec)
+    input_paths = spec.get("input_table_paths") or \
+        [_one(spec, "input_table_path")]
+    output_path = _one(spec, "output_table_path")
+    fmt = spec.get("format", "json")
+
+    chunks = []
+    input_chunk_ids: list[str] = []
+    plan_stable = True          # chunk ids readable → snapshot plan keyed
+    for path in input_paths:
+        validate_sorted_input(client, path, reduce_by)
+        chunks.extend(client._read_table_chunks(path))
+        try:
+            input_chunk_ids.extend(client.get(path + "/@chunk_ids") or [])
+        except YtError:
+            plan_stable = False
+    chunks = [c for c in chunks if c.row_count > 0]
+    if not chunks:
+        client.write_table(output_path, [],
+                           schema=spec.get("output_schema"))
+        return {"rows": 0, "jobs": 0}
+    merged = sort_chunks(_align_schemas(chunks), sort_by,
+                         device=client.cluster.device)
+    n = merged.row_count
+    rows_per_job = spec.get("rows_per_job") or 4_000_000
+    if spec.get("job_count"):
+        rows_per_job = max(-(-n // max(int(spec["job_count"]), 1)), 1)
+    # The key change points on the device: the same ranges as the host
+    # scan key_aligned_ranges(decode_keys(merged, reduce_by), ...).
+    ranges = ranges_from_change_points(
+        chunk_key_change_points(merged, reduce_by), n, rows_per_job)
+
+    base = _make_reduce_runner(reducer, command, reduce_by, fmt, spec)
+
+    def make(rng):
+        start, end = rng
+        # Slice the merged columnar chunk lazily: rows decode on the job
+        # slot (the stripe.materialize() analog), not the controller.
+        return base(lambda: merged.slice_rows(start, end).to_rows())
+
+    outputs, revived = _run_user_jobs(
+        client, op, job_manager, spec, ranges, make,
+        plan={"kind": "reduce", "input_chunk_ids": input_chunk_ids,
+              "ranges": [list(r) for r in ranges], "command": command},
+        is_command=command is not None and plan_stable,
+        publish=lambda outs: client.write_table(
+            output_path, [row for part in outs for row in part],
+            schema=spec.get("output_schema")))
+    return {"rows": sum(len(part) for part in outputs),
+            "jobs": len(ranges) - revived, "revived_jobs": revived}
+
+
+def _map_reduce_controller(client, spec: dict, op=None,
+                           job_manager=None) -> dict:
+    """MapReduce (ref sort_controller.cpp:5029 CreateMapReduceController):
+    map+partition jobs → hash shuffle by reduce key → per-partition
+    sort + reduce jobs (partition_sort_job.cpp:43 semantics).
+
+    Redesign: the reference streams partition chunks through a partition
+    tree; here map jobs hash-route their output rows in-job (stable CRC,
+    revival-safe) and each reduce job device-sorts its partition before
+    grouping — the shuffle itself is row movement between job results,
+    not a cluster data plane, because operation intermediates are
+    operation-lifetime state."""
+    from ytsaurus_tpu_torch.formats import dumps_rows, loads_rows
+    from ytsaurus_tpu_torch.operations.chunk_pools import build_stripes
+    from ytsaurus_tpu_torch.operations.jobs import run_command_job
+    from ytsaurus_tpu_torch.operations.reduce_op import partition_rows
+
+    mapper = spec.get("mapper")
+    map_command = spec.get("map_command")
+    reducer = spec.get("reducer")
+    reduce_command = spec.get("reduce_command")
+    if (reducer is None) == (reduce_command is None):
+        raise YtError(
+            "map_reduce spec requires exactly one of reducer/reduce_command")
+    if mapper is not None and map_command is not None:
+        raise YtError("map_reduce spec allows at most one of "
+                      "mapper/map_command")
+    reduce_by, sort_by = _reduce_keys(spec)
+    input_path = _one(spec, "input_table_path")
+    output_path = _one(spec, "output_table_path")
+    fmt = spec.get("format", "json")
+    chunks = client._read_table_chunks(input_path)
+    chunks = [c for c in chunks if c.row_count > 0]
+    if not chunks:
+        client.write_table(output_path, [],
+                           schema=spec.get("output_schema"))
+        return {"rows": 0, "jobs": 0}
+    total_rows = sum(c.row_count for c in chunks)
+    rows_per_job = spec.get("rows_per_job") or 4_000_000
+    partition_count = int(spec.get("partition_count") or
+                          max(min(-(-total_rows // rows_per_job), 64), 1))
+    stripes = build_stripes(chunks, rows_per_job=rows_per_job,
+                            max_job_count=spec.get("max_job_count"))
+    # Snapshot revival is valid only when the whole pipeline is free of
+    # Python callables (commands re-run deterministically; closures don't
+    # survive a controller restart).  Dynamic tables have no stable chunk
+    # list (rows change while @chunk_ids stays fixed), so their snapshot
+    # plans would silently go stale — no revival for them, as in map.
+    def _attr(name, default):
+        try:
+            return client.get(f"{input_path}/@{name}")
+        except YtError:
+            return default
+
+    input_chunk_ids = list(_attr("chunk_ids", []) or [])
+    plan_stable = bool(input_chunk_ids) and not _attr("dynamic", False)
+    is_command = mapper is None and reducer is None and plan_stable
+
+    # -- phase 1: map + partition (each job hash-routes its own output) --------
+    def make_map(stripe):
+        def run_map(job):
+            rows = stripe.materialize().to_rows()
+            if mapper is not None:
+                rows = list(mapper(rows))
+            elif map_command is not None:
+                from ytsaurus_tpu_torch.operations.job_environment import (
+                    limits_from_spec,
+                )
+                blob = dumps_rows(rows, fmt)
+                out = run_command_job(job, map_command, blob,
+                                      timeout=spec.get("job_time_limit"),
+                                      limits=limits_from_spec(spec))
+                rows = loads_rows(out, fmt)
+            return partition_rows(rows, reduce_by, partition_count)
+        return run_map, map_command is not None
+
+    plan = {"kind": "map_reduce", "input_chunk_ids": input_chunk_ids,
+            "partition_count": partition_count,
+            "map_command": map_command, "reduce_command": reduce_command}
+
+    # Revival fast path: when every reduce partition is already recorded
+    # in the snapshot, skip the (deterministic) map phase entirely.
+    op_id = op.id if op is not None else uuid.uuid4().hex
+    snap_ok = is_command and hasattr(client, "cluster")
+    probe = _Snapshot(client, op_id, plan=plan) if snap_ok else None
+    pre_completed = probe.load() if probe is not None else {}
+    map_jobs_run = 0
+    if len(pre_completed) == partition_count:
+        partitions: "list[list[dict]]" = [[] for _ in range(partition_count)]
+    else:
+        buckets, _ = _run_user_jobs(
+            client, op, job_manager, spec, stripes, make_map,
+            plan={}, is_command=False)   # map phase re-runs on revival
+        map_jobs_run = len(stripes)
+        partitions = [[] for _ in range(partition_count)]
+        for job_buckets in buckets:
+            for p, rows in enumerate(job_buckets):
+                partitions[p].extend(rows)
+
+    # An abort that landed during the map phase must stop the reduce
+    # phase from running (and publishing) at all.
+    _raise_if_aborted(op)
+
+    # -- phase 2: per-partition device sort + reduce ---------------------------
+    make_reduce_base = _make_reduce_runner(
+        reducer, reduce_command, reduce_by, fmt, spec)
+
+    def make_reduce(rows):
+        # Sort runs INSIDE the job via the lazy rows_fn (the
+        # partition_sort_job analog): device lexsort on a job slot, not
+        # the controller thread.
+        return make_reduce_base(
+            lambda: _sort_rows_for_reduce(rows, sort_by,
+                                          client.cluster.device))
+
+    outputs, revived = _run_user_jobs(
+        client, op, job_manager, spec, partitions, make_reduce,
+        plan=plan, is_command=is_command,
+        publish=lambda outs: client.write_table(
+            output_path, [row for part in outs for row in part],
+            schema=spec.get("output_schema")))
+    return {"rows": sum(len(part) for part in outputs),
+            "jobs": map_jobs_run + partition_count - revived,
+            "partitions": partition_count, "revived_jobs": revived}
+
+
+def _vanilla_controller(client, spec: dict, op=None,
+                        job_manager=None) -> dict:
+    """Vanilla (gang) operations (ref vanilla_controller.cpp:130): named
+    tasks × job_count jobs with NO input tables — the hosting primitive
+    for CHYT cliques and everything strawberry-shaped.
+
+    Gang semantics: the whole gang must fit the slot pool (all-or-nothing
+    acquisition — a partial gang would deadlock the cluster), and ANY job
+    failure restarts the ENTIRE gang (ref vanilla_controller.cpp gang
+    rank restart), up to max_gang_restarts.  Long-lived commands (servers)
+    run until the operation is aborted."""
+    from ytsaurus_tpu_torch.formats import loads_rows
+    from ytsaurus_tpu_torch.operations.jobs import Job, run_command_job
+
+    tasks = spec.get("tasks")
+    if not tasks or not isinstance(tasks, dict):
+        raise YtError("vanilla spec requires tasks: {name: {...}}")
+    gang = bool(spec.get("gang", True))
+    max_restarts = int(spec.get("max_gang_restarts", 2))
+    fmt = spec.get("format", "json")
+    pool = spec.get("pool", "default")
+    op_id = op.id if op is not None else uuid.uuid4().hex
+
+    plans = []                       # (task_name, job_count, runner spec)
+    total = 0
+    for name in sorted(tasks):
+        task = tasks[name]
+        job_count = int(task.get("job_count", 1))
+        if job_count < 1:
+            raise YtError(f"vanilla task {name!r}: job_count must be >= 1")
+        command = task.get("command")
+        fn = task.get("callable")
+        if (command is None) == (fn is None):
+            raise YtError(f"vanilla task {name!r} requires exactly one "
+                          "of command/callable")
+        plans.append((name, job_count, command, fn, task))
+        total += job_count
+    if gang and total > job_manager.slots:
+        raise YtError(
+            f"vanilla gang of {total} jobs cannot acquire "
+            f"{job_manager.slots} slots (all-or-nothing scheduling)",
+            code=EErrorCode.OperationFailed)
+
+    attempt = 0
+    while True:
+        jobs: list = []
+        index = 0
+        for name, job_count, command, fn, task in plans:
+            for rank in range(job_count):
+                if command is not None:
+                    def run_cmd(job, _cmd=command, _name=name,
+                                _rank=rank, _task=task):
+                        from ytsaurus_tpu_torch.operations.job_environment \
+                            import limits_from_spec
+                        out = run_command_job(
+                            job, _cmd, b"",
+                            timeout=_task.get("job_time_limit") or
+                            spec.get("job_time_limit"),
+                            env={"YT_TASK_NAME": _name,
+                                 "YT_JOB_COOKIE": str(_rank),
+                                 **(_task.get("environment") or {})},
+                            # Per-KEY merge: a task overriding one limit
+                            # must not drop the operation-wide others.
+                            limits={**(limits_from_spec(spec) or {}),
+                                    **(limits_from_spec(_task) or {})}
+                            or None)
+                        return loads_rows(out, fmt) if out.strip() else []
+                    run, preemptible = run_cmd, True
+                else:
+                    def run_py(job, _fn=fn, _name=name, _rank=rank):
+                        return list(_fn(_name, _rank) or [])
+                    run, preemptible = run_py, False
+                jobs.append(Job(op_id=op_id, index=index, run=run,
+                                pool=pool, preemptible=preemptible))
+                index += 1
+        if op is not None:
+            op.progress = {"total": total, "completed": 0,
+                           "gang_attempt": attempt}
+        # Gang wait with FIRST-casualty short-circuit: a failing sibling
+        # must condemn still-running (possibly long-lived) rank mates
+        # immediately, not after they exit on their own.
+        wake = threading.Event()
+        for job in jobs:
+            job.on_done = lambda _job: wake.set()
+        job_manager.submit(jobs)
+        try:
+            while True:
+                states = [j.state for j in jobs]
+                if all(s == "completed" for s in states):
+                    break
+                if any(s in ("failed", "aborted") for s in states):
+                    break
+                if op is not None and op.state == "aborted":
+                    break
+                wake.wait(0.2)
+                wake.clear()
+        finally:
+            job_manager.finish_operation(op_id)
+        if all(j.state == "completed" for j in jobs):
+            break
+        # Gang discipline: one casualty condemns the whole rank set.
+        job_manager.abort_operation(op_id)
+        if op is not None and op.state == "aborted":
+            raise YtError("operation aborted", code=EErrorCode.Canceled)
+        attempt += 1
+        first_error = next((j.error for j in jobs if j.error is not None),
+                           None)
+        if attempt > max_restarts:
+            raise first_error or YtError(
+                "vanilla gang failed", code=EErrorCode.OperationFailed)
+
+    # Optional per-task output tables (ref vanilla output table specs).
+    outputs: dict = {}
+    cursor = 0
+    for name, job_count, _command, _fn, task in plans:
+        rows = [row for job in jobs[cursor: cursor + job_count]
+                for row in (job.result or [])]
+        cursor += job_count
+        outputs[name] = len(rows)
+        out_path = task.get("output_table_path")
+        if out_path:
+            client.write_table(out_path, rows,
+                               schema=task.get("output_schema"))
+    return {"jobs": total, "gang_restarts": attempt,
+            "task_output_rows": outputs}
+
+
 def _align_schemas(chunks):
     """Inputs from different tables may agree on columns but differ in order
     or sort annotations; align them onto one unsorted schema for merging."""
@@ -621,17 +1108,10 @@ def _one(spec: dict, key: str) -> str:
     return value
 
 
-def _not_ported(what: str, missing: str) -> YtError:
-    return YtError(f"{what} is not ported yet (waits for {missing})",
-                   code=EErrorCode.OperationFailed)
-
-
-def _controller_not_ported(op_type: str):
-    def controller(client, spec: dict, op=None, job_manager=None) -> dict:
-        raise _not_ported(f"The {op_type} operation",
-                          f"the {op_type} controller of "
-                          "operations/scheduler.py")
-    return controller
+def _remote_copy_controller(client, spec: dict, op=None,
+                            job_manager=None) -> dict:
+    raise YtError("The remote_copy operation is not ported yet (waits for "
+                  "remote_client.py)", code=EErrorCode.OperationFailed)
 
 
 _CONTROLLERS = {
@@ -639,8 +1119,8 @@ _CONTROLLERS = {
     "merge": _merge_controller,
     "map": _map_controller,
     "erase": _erase_controller,
-    "reduce": _controller_not_ported("reduce"),
-    "map_reduce": _controller_not_ported("map_reduce"),
-    "vanilla": _controller_not_ported("vanilla"),
-    "remote_copy": _controller_not_ported("remote_copy"),
+    "reduce": _reduce_controller,
+    "map_reduce": _map_reduce_controller,
+    "vanilla": _vanilla_controller,
+    "remote_copy": _remote_copy_controller,
 }

@@ -49,22 +49,13 @@ from ytsaurus_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from ytsaurus_tpu_torch.errors import EErrorCode, YtError
 from ytsaurus_tpu_torch.schema import EValueType, TableSchema
 from ytsaurus_tpu_torch.tablet.dynamic_store import OrderedDynamicStore
-from ytsaurus_tpu_torch.tablet.tablet import _normalize_value
+from ytsaurus_tpu_torch.tablet.tablet import _normalizer
 
 
 def ordered_chunk_schema(schema: TableSchema) -> TableSchema:
     cols = [("$row_index", "int64", "ascending"), ("$timestamp", "int64")]
     cols += [(c.name, c.type.value) for c in schema]
     return TableSchema.make(cols)
-
-
-def _normalizer(ty):
-    """`_normalize_value` for one column type, as one function."""
-    if ty in (EValueType.int64, EValueType.uint64):
-        return lambda v: None if v is None else int(v)
-    if ty is EValueType.double:
-        return lambda v: None if v is None else float(v)
-    return lambda v: _normalize_value(v, ty)
 
 
 class OrderedTablet:

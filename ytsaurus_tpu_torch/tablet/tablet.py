@@ -169,6 +169,11 @@ class Tablet:
         # Cached: schema.key_columns is a rebuilding property, and
         # normalize_key sits on the per-key serving hot path.
         self._key_columns = schema.key_columns
+        # `_normalize_value` per column as one function each: the write
+        # and lookup paths normalize every row and key several times.
+        self._normalizers = {c.name: _normalizer(c.type) for c in schema}
+        self._key_normalizers = [_normalizer(c.type)
+                                 for c in self._key_columns]
         self.tablet_id = tablet_id
         self.pivot_key = pivot_key
         self.chunk_store = chunk_store
@@ -210,21 +215,23 @@ class Tablet:
     def normalize_row(self, row: dict) -> dict:
         """Canonical host forms per column type (strings as bytes, matching
         what chunk decode produces)."""
+        normalizers = self._normalizers
         out = {}
         for name, value in row.items():
-            col = self.schema.find(name)
-            if col is None:
+            normalize = normalizers.get(name)
+            if normalize is None:
                 raise YtError(f"Unknown column {name!r}",
                               code=EErrorCode.QueryTypeError)
-            out[name] = _normalize_value(value, col.type)
+            out[name] = normalize(value)
         return out
 
     def normalize_key(self, key: tuple) -> tuple:
-        key_cols = self._key_columns
-        if len(key) != len(key_cols):
-            raise YtError(f"Key width {len(key)} != {len(key_cols)}")
-        return tuple(_normalize_value(v, c.type)
-                     for v, c in zip(key, key_cols))
+        normalizers = self._key_normalizers
+        if len(key) != len(normalizers):
+            raise YtError(f"Key width {len(key)} != {len(normalizers)}")
+        if len(key) == 1:
+            return (normalizers[0](key[0]),)
+        return tuple(f(v) for f, v in zip(normalizers, key))
 
     def validate_required(self, normalized_row: dict,
                           partial: bool = False) -> None:
@@ -705,6 +712,15 @@ class Tablet:
                     row = {name: row.get(name) for name in column_names}
                 out.append(row)
             return out
+
+
+def _normalizer(ty):
+    """`_normalize_value` for one column type, as one function."""
+    if ty in (EValueType.int64, EValueType.uint64):
+        return lambda v: None if v is None else int(v)
+    if ty is EValueType.double:
+        return lambda v: None if v is None else float(v)
+    return lambda v: _normalize_value(v, ty)
 
 
 def _normalize_value(value, ty):

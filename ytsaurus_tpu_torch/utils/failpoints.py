@@ -11,15 +11,21 @@ A spec is `site=mode[:k=v]...` entries joined by `;`:
     query.shard_execute=error:times=2;parallel.gather=delay:ms=5:1in=3
 
 Modes: `error` (raise the site's registered error), `delay` (sleep
-`ms` milliseconds) and `torn-write` (write sites only, through
-`write_hit`: the payload is cut to its first half, and the caller writes
-that to its staging file and then fails without publishing it). Knobs: `p` (trigger probability per hit, from a
-per-site RNG seeded by (seed, site)), `1in` (every n-th eligible hit),
-`times` (at most this many triggers), `after` (skip the first n hits),
-`ms` (delay length). Activation is `active(spec, seed)` (a context
-manager) or `activate`; `counters()` reads the per-site hits and
-triggers. The reference's crash-once mode (process death), its
-environment activation and its sensors are not ported.
+`ms` milliseconds), `crash-once` (raise `InjectedCrash`, a BaseException
+that pierces every `except Exception`, so the process behaves as if it
+died at the site: operation records stay `running`; disarms after one
+shot) and `torn-write` (write sites only, through `write_hit`: the
+payload is cut to its first half, and the caller writes that to its
+staging file and then fails without publishing it). Knobs: `p` (trigger
+probability per hit, from a per-site RNG seeded by (seed, site)), `1in`
+(every n-th eligible hit), `times` (at most this many triggers;
+crash-once defaults to 1), `after` (skip the first n hits), `ms` (delay
+length). Activation is `active(spec, seed)` (a context manager),
+`activate` / `deactivate`, or `configure(config.FailpointsConfig)`;
+`is_active()` and `active_spec()` read the schedule, `counters()` the
+per-site hits and triggers. The reference's environment activation
+(spawned daemons) and its sensors are not ported: the port spawns no
+daemon.
 
 On a mesh every rank holds its own schedule: give every rank the same
 spec, and the sites (hit before any collective of their step) trigger on
@@ -38,7 +44,13 @@ from typing import Callable, Optional
 from ytsaurus_tpu_torch.errors import EErrorCode, YtError
 from ytsaurus_tpu_torch.utils import sanitizers
 
-MODES = ("error", "delay", "torn-write")
+MODES = ("error", "delay", "crash-once", "torn-write")
+
+
+class InjectedCrash(BaseException):
+    """Simulated process death at a failpoint. A BaseException on
+    purpose: `except Exception` recovery code must not see it, as a real
+    crash runs no error handler either."""
 
 
 def _default_error(site_name: str) -> BaseException:
@@ -63,7 +75,8 @@ class _Rule:
         self.mode = mode
         self.p = p
         self.one_in = one_in
-        self.times = times
+        self.times = times if times is not None else \
+            (1 if mode == "crash-once" else None)
         self.after = after
         self.ms = ms
         self.hits = 0
@@ -130,7 +143,8 @@ class FailpointSite:
         return rule.mode, rule.ms
 
     def hit(self) -> None:
-        """The probe: may sleep (delay) or raise the site's error."""
+        """The probe: may sleep (delay), raise the site's error (error)
+        or raise InjectedCrash (crash-once)."""
         if _STATE is None:      # disabled fast path: one global read
             return
         act = self.fire()
@@ -139,8 +153,10 @@ class FailpointSite:
         mode, ms = act
         if mode == "delay":
             time.sleep(ms / 1000.0)
-        else:
+        elif mode == "error":
             raise self.error_factory(self.name)
+        elif mode == "crash-once":
+            raise InjectedCrash(f"injected crash at failpoint {self.name}")
 
     def write_hit(self, blob: bytes) -> "tuple[bytes, bool]":
         """The write-site probe: (payload, torn). With torn=True the
@@ -157,6 +173,8 @@ class FailpointSite:
             return blob, False
         if mode == "error":
             raise self.error_factory(self.name)
+        if mode == "crash-once":
+            raise InjectedCrash(f"injected crash at failpoint {self.name}")
         return blob[: max(len(blob) // 2, 1)], True
 
 
@@ -221,6 +239,28 @@ def activate(spec: str, seed: int = 0) -> None:
     state = _State(parse_spec(spec), seed=seed, spec=spec)
     with _LOCK:
         _STATE = state if state.rules else None
+
+
+def deactivate() -> None:
+    global _STATE
+    with _LOCK:
+        _STATE = None
+
+
+def is_active() -> bool:
+    return _STATE is not None
+
+
+def active_spec() -> Optional[str]:
+    state = _STATE
+    return state.spec if state is not None else None
+
+
+def configure(config) -> None:
+    """Apply a config.FailpointsConfig; an empty spec changes nothing."""
+    if config is None or not getattr(config, "spec", ""):
+        return
+    activate(config.spec, seed=int(getattr(config, "seed", 0)))
 
 
 @contextlib.contextmanager
