@@ -80,7 +80,7 @@ Phases (any failure exits non-zero and prints no result line):
      8,000,000 versions, each sorted by (k, -ts) with numpy and written
      through FsChunkStore.write_chunk at zlib_6 into a temporary
      directory, then mounted in a Tablet on the card by their chunk ids;
-     1,000,000 writes through TransactionManager in 1,000 transactions
+     500,000 writes through TransactionManager in 500 transactions
      (90% partial writes of v to existing keys, 9% new keys writing g and
      v, 1% deletes; writes/s on the host); flush() once under the
      profiler (the store's device sort and the serialize + write apart);
@@ -128,7 +128,7 @@ Phases (any failure exits non-zero and prints no result line):
      device ms), each queried on the card by a GROUP BY producer under
      WHERE $row_index >= 2000000 (counts exact, sums to rtol 1e-9) and
      an ORDER BY seq DESC, producer LIMIT 100 (rows and order exact);
-     the first 320,000 consumed rows through dumps_rows / loads_rows in yson,
+     the first 160,000 consumed rows through dumps_rows / loads_rows in yson,
      json, dsv and schemaful_dsv and dumps_skiff / loads_skiff, each
      giving back the same rows (host seconds and bytes per format);
      CLIENT: the slice through ytsaurus_tpu_torch.client.connect(tmp,
@@ -156,6 +156,29 @@ Phases (any failure exits non-zero and prints no result line):
      seconds, device ms, idle share, peak memory, the chunk cache's hits
      and misses, radix launches; a stage that is not host-only must put
      work on the device;
+     FRONT: the front doors over CLIENT's cluster as CLIENT leaves it
+     (its open client after the restart: the 64M-row table and the
+     dimension, no second table), on 127.0.0.1:0: an HttpProxy over
+     Driver(client), an RpcServer([DriverService(client)]) behind a
+     TcpProxy, and the client's QueryTracker. REST: /ping, /api/v4,
+     SELECT_8's query through POST /api/v4/select_rows (10,000 groups as
+     JSON; one counted run, 5 warm), the join grouped by name and the
+     join with explain_analyze (both radix kernels must launch), a PUT
+     write_table of 131,072 rows as a JSON body and its read_table back
+     in JSON. RPC through the TCP proxy: 16 threads x 16 driver
+     select_rows calls of a pruned 100-row k range through
+     RetryingChannels that know only the proxy's address; 100,000 rows into a dynamic table in
+     100 wire transactions of 1,000 (start_transaction, insert_rows_tx,
+     commit_transaction); 4,096 lookups from 16 threads; every
+     acknowledged write read back. The query tracker: 8 asynchronous QL
+     queries (the join grouped by name, whose launches are counted alone,
+     then 7 at once), 4 engine="chyt" queries (a JOIN with GROUP BY and
+     ORDER BY ... LIMIT, countIf / sumIf, a FROM-subquery whose inner
+     GROUP BY's 10,000 groups are materialized into a chunk on the card
+     (both radix kernels must launch), and toString, which must fail with
+     its code), list_queries and abort_query of a running query. Every
+     answer against numpy; each stage runs as CLIENT's do and also
+     records its requests and bytes on the wire;
      OPS: the operations plane through connect(tmp, device="cuda") alone:
      a 4,194,304-row table from --seed + 23 (k unique, g over 65,536
      values spread below 2^40 as g0 * 2654435761 mod 2^40, v < 1000) in 4
@@ -311,10 +334,24 @@ TRACE_NAMES = {"hist_rank": "hist_rank_kernel",
 PATH_KERNELS = ("radix_upsweep", "radix_onesweep")
 # The profiler range around the profiled run.
 RUN_RANGE = "chip_smoke.run"
-# torch.cuda._sleep's kernel, launched alone just before a profiled run:
-# where the run starts on the device's clock (_profile).
+# torch.cuda._sleep's kernel. A short one (MARK_CYCLES), launched alone
+# just before a profiled run, marks where the run starts on the device's
+# clock. Long ones (pads) open and close each profiler session: the
+# profiler drops every device event that its clock places outside the
+# session's host-clock window, and the two clocks can part by a hundred
+# milliseconds within one session (CLIENT's select_8_restarted), so a
+# run's first or last kernels would be lost (_profile). The opening pad
+# lasts PAD_MS; the closing one PAD_SHARE of the run's wall time, at
+# least PAD_MS and 3x the largest lag of the device's clock seen so far,
+# at most PAD_MAX_MS.
 MARK_KERNEL = "spin_kernel"
 MARK_CYCLES = 1_000
+PAD_MS = 20.0
+PAD_SHARE = 0.05
+PAD_MAX_MS = 250.0
+PAD_CYCLES_PER_MS = 1_980_000    # the H100 SXM's top SM clock: a pad lasts
+                                 # at least its ms at any clock
+_LAG = {"us": 0.0}               # the largest lag seen in this process
 # Profiler ranges of a join's phases (query/engine/joins.py).
 JOIN_RANGES = ("join.sort_foreign", "join.search", "join.materialize")
 # Profiler ranges of the external sort's passes (ops/bigsort.py).
@@ -511,16 +548,23 @@ def _profile(run, hr, rx, ranges=(), runs: int = 2, first=None,
     the run's host range (VECTOR, CLIENT's short stages), which gave them
     to the runs before it. `clock_lead_us` is the run range's host start
     less the marker's end (tens of microseconds, more where the host
-    stalls between the two). A trace can also drop device events, the
-    marker among them: the host clock then decides (`device_clock` is
-    false), and the count check still holds. A run that put no work on
-    the device raises, unless `host_only` (its idle share is then 1)."""
+    stalls between the two). The profiler drops device events that its
+    clock places outside the session, so a pad kernel opens the session
+    and one closes it (PAD_MS, PAD_SHARE; `closing_pad_ms`).
+    `clock_skew_us` is the closing pad's device start less its launch's
+    host time: how far the device's clock lags the host's (leads where
+    negative), give or take the few microseconds a launch takes. Where
+    the trace dropped the marker, the run starts at the run range's host
+    start plus that skew (`device_clock` is false), and the count check
+    still holds. A run that put no work on the device raises, unless
+    `host_only` (its idle share is then 1)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(int(PAD_MS * PAD_CYCLES_PER_MS))
         for _ in range(runs - 1):
             (first or run)()
         torch.cuda.synchronize()
@@ -532,28 +576,53 @@ def _profile(run, hr, rx, ranges=(), runs: int = 2, first=None,
             run()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t) * 1e6
+        pad_ms = min(PAD_MAX_MS, max(PAD_MS, PAD_SHARE * wall_us / 1e3,
+                                     3e-3 * _LAG["us"]))
+        torch.cuda._sleep(int(pad_ms * PAD_CYCLES_PER_MS))
+        torch.cuda.synchronize()
     launched = _launches(hr, rx)
     events = prof.events()
-    run_start = min(e.time_range.start for e in events
-                    if e.name == RUN_RANGE)
-    marks = [e.time_range.end for e in events
+    run_cpu = [e.time_range for e in events if e.name == RUN_RANGE and
+               e.device_type == DeviceType.CPU]
+    run_start = min(r.start for r in run_cpu)
+    run_end = max(r.end for r in run_cpu)
+    spins = [e.time_range for e in events
              if e.device_type == DeviceType.CUDA and MARK_KERNEL in e.name]
-    device_start = max(marks) if marks else run_start
+    marks = [r.end for r in spins if r.end - r.start < PAD_MS * 500]
+    closing = [r.start for r in spins if r.end - r.start >= PAD_MS * 500
+               and r.start > (max(marks) if marks else run_start)]
+    pad_launch = min((e.time_range.start for e in events
+                      if e.device_type == DeviceType.CPU and
+                      e.name.startswith("cudaLaunch") and
+                      e.time_range.start >= run_end), default=run_end)
+    skew_us = max(closing) - pad_launch if closing else None
+    _LAG["us"] = max(_LAG["us"], skew_us if closing else pad_ms * 1e3)
+    device_start = max(marks) if marks else run_start + (skew_us or 0.0)
     by_kernel: dict = {}
     spans = []
     traced = dict.fromkeys(TRACE_NAMES, 0)
+    anywhere = dict.fromkeys(TRACE_NAMES, 0)
     for e in events:
         if e.device_type != DeviceType.CUDA or \
                 getattr(e, "is_user_annotation", False) or \
-                e.time_range.start < device_start or MARK_KERNEL in e.name:
+                MARK_KERNEL in e.name:
+            continue
+        for kernel, trace_name in TRACE_NAMES.items():
+            anywhere[kernel] += trace_name in e.name
+        if e.time_range.start < device_start:
             continue
         by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total
         spans.append((e.time_range.start, e.time_range.end))
         for kernel, trace_name in TRACE_NAMES.items():
             traced[kernel] += trace_name in e.name
     if traced != launched:
-        raise AssertionError(f"the trace holds {traced} port kernels, the "
-                             f"run launched {launched}")
+        raise AssertionError(
+            f"the trace holds {traced} port kernels, the run launched "
+            f"{launched} (in the whole session, with the runs before it: "
+            f"{anywhere}; marker {'found' if marks else 'dropped'}, "
+            f"closing pad {'found' if closing else 'dropped'}, clock skew "
+            f"{skew_us} us, closing pad {pad_ms} ms, "
+            f"{len(spans)} device events in the run)")
     listed_us = sum(by_kernel.values())
     busy_us = _busy_us(spans)
     if busy_us <= 0 and not host_only:
@@ -561,7 +630,7 @@ def _profile(run, hr, rx, ranges=(), runs: int = 2, first=None,
     op_acc: dict = {}
     for e in prof.events():
         if e.device_type == DeviceType.CPU and \
-                e.time_range.start >= run_start and \
+                run_start <= e.time_range.start <= run_end and \
                 e.self_device_time_total > 0:
             acc = op_acc.setdefault(e.name, [0.0, 0])
             acc[0] += e.self_device_time_total
@@ -576,7 +645,7 @@ def _profile(run, hr, rx, ranges=(), runs: int = 2, first=None,
     host_range = {name: 0.0 for name in ranges}
     for e in prof.events():
         if e.device_type == DeviceType.CPU and e.name in in_range and \
-                e.time_range.start >= run_start:
+                run_start <= e.time_range.start <= run_end:
             in_range[e.name] += e.device_time_total
             host_range[e.name] += e.time_range.end - e.time_range.start
     if ranges and not any(in_range.values()):
@@ -590,6 +659,8 @@ def _profile(run, hr, rx, ranges=(), runs: int = 2, first=None,
         "wall_ms": wall_us / 1e3,
         "device_clock": bool(marks),
         "clock_lead_us": run_start - device_start,
+        "clock_skew_us": skew_us,
+        "closing_pad_ms": pad_ms,
         "launched": launched,
         "traced": traced,
         "port_kernels_ms": port_ms,
@@ -1442,7 +1513,9 @@ def phase_tablet(seed: int, hr, rx, port) -> dict:
 DYN_KEYS = 24_000_000        # keys, each with one base version (g and v)
 DYN_LATER = 8_000_000        # later versions on random keys
 DYN_CHUNK = 8_000_000        # versions per mounted chunk, cut by timestamp
-DYN_WRITES = 1_000_000       # max_dynamic_store_row_count's default
+# Writes into the store: half of max_dynamic_store_row_count's default
+# (1,000,000), cut to fit FRONT in the check's time (as CLIENT's were).
+DYN_WRITES = 500_000
 DYN_TX_ROWS = 1_000          # rows per transaction
 DYN_NEW_SHARE = 0.09         # writes that add a key (g and v)
 DYN_WRITE_DELETES = 0.01     # writes that delete a key; the rest write v
@@ -2130,8 +2203,9 @@ QUEUE_PRODUCERS = 64
 QUEUE_PAYLOADS = 65_536        # distinct 24-byte payloads
 QUEUE_CONSUMERS = 64
 QUEUE_READ = 10_000            # rows per consumer read
-QUEUE_FORMAT_ROWS = 320_000    # consumed rows through the formats (cut from
-                               # all 640,000 to fit the new phases)
+QUEUE_FORMAT_ROWS = 160_000    # consumed rows through the formats (cut from
+                               # all 640,000 to 320,000, then to 160,000, to
+                               # fit the new phases)
 QUEUE_TRIM = 1_500_000
 QUEUE_SNAPSHOT_ROW = 3_000_000  # snapshot(ts) at this row's timestamp
 QUEUE_GROUP_FROM = 2_000_000   # the GROUP BY's least $row_index
@@ -2439,9 +2513,9 @@ def _client_stage(name: str, run, hr, rx, cache, radix: bool = False,
     chunk cache's hits and misses during the stage (`cache()` gives the
     live client's cache, or None), radix launches, which the trace must
     hold one for one, and `overhead_s`, the stage's seconds outside its
-    run: warm-up, profiler start, stop and analysis). With `radix`, it
-    fails unless both radix kernels were launched; unless `host_only`, it
-    fails if the stage put no work on the device."""
+    run: warm-up, pads, profiler start, stop and analysis). With `radix`,
+    it fails unless both radix kernels were launched; unless `host_only`,
+    it fails if the stage put no work on the device."""
     import torch
     box = {}
 
@@ -2464,6 +2538,7 @@ def _client_stage(name: str, run, hr, rx, cache, radix: bool = False,
            "cache_misses": counts()[1] - misses,
            "launches": prof["launched"],
            "clock_lead_us": prof["clock_lead_us"],
+           "clock_skew_us": prof["clock_skew_us"],
            "overhead_s": time.perf_counter() - t - prof["wall_ms"] / 1e3,
            **(extra or {})}
     if radix:
@@ -2559,7 +2634,7 @@ def _client_lookups(client, d: dict) -> int:
     return sum(_client_threads(run, CLIENT_THREADS))
 
 
-def phase_client(seed: int, hr, rx, port) -> dict:
+def phase_client(seed: int, hr, rx, port, front: bool = False) -> dict:
     """CLIENT: the slice through `ytsaurus_tpu_torch.client.connect` and
     the client's methods alone: SELECT's 64M-row table published into
     Cypress as 8 chunks, a dimension table written from row dicts, four
@@ -2568,7 +2643,9 @@ def phase_client(seed: int, hr, rx, port) -> dict:
     run_erase, a dynamic table written through 500 tablet transactions,
     looked up from 16 threads and grouped, a restart that recovers the
     master from its snapshot and changelog, and nearest_rows from 16
-    threads through the vector batcher. Every answer is held to numpy."""
+    threads through the vector batcher. Every answer is held to numpy.
+    With `front`, FRONT then runs over the open client (its record under
+    "front", its seconds not CLIENT's)."""
     import numpy as np
     import torch
     from ytsaurus_tpu_torch.chunks.columnar import ColumnarChunk
@@ -2861,12 +2938,572 @@ def phase_client(seed: int, hr, rx, port) -> dict:
                 raise AssertionError(f"CLIENT nearest_rows {i} differs from "
                                      "batched_nearest")
         del snap, ref, hits, vectors
+        front_s = 0.0
+        if front:
+            out["front"] = phase_front(seed, hr, rx, port, client=client,
+                                       arrays=arrays)
+            front_s = out["front"]["seconds"]
         holder.clear()
         del client
     torch.cuda.empty_cache()
-    out["seconds"] = time.perf_counter() - t_phase
+    out["seconds"] = time.perf_counter() - t_phase - front_s
     _log(f"client: {out['seconds']:.1f} s in all")
     return out
+
+
+# --- FRONT: the front doors over CLIENT's cluster ---------------------------
+
+FRONT_WARM = 5                 # warm REST runs of SELECT_8 after the counted one
+FRONT_WRITE_ROWS = 131_072     # rows of the REST write_table, as a JSON body
+FRONT_THREADS = 16             # RPC caller threads
+FRONT_CALLS = 16               # select_rows calls per RPC thread
+# Rows per RPC select: at CLIENT's 1,000-row range the 256 calls took
+# 14.1 s on an H100's host (chip_phases front), most of it the wire's
+# YSON (pure Python; every reply decoded on the one client loop thread);
+# 100 rows keep the calls' count and their pruning.
+FRONT_RANGE_ROWS = 100
+FRONT_DYN_ROWS = 100_000       # rows written through the wire transactions
+FRONT_TX_ROWS = 1_000          # rows per wire transaction
+FRONT_DYN_KEYS = 1_000_000     # keys drawn without repeats from [0, this)
+FRONT_LOOKUPS = 4_096
+FRONT_LOOKUP_BATCH = 16        # keys per lookup_rows call
+FRONT_T = "//bench/t"          # CLIENT's tables, served as CLIENT left them
+FRONT_DIM = "//bench/dim"
+
+
+class _Wire:
+    """Requests and bytes on the wire of one FRONT stage: HTTP bodies
+    counted at the caller, RPC bytes as the TCP proxy spliced them."""
+
+    def __init__(self, tcp=None):
+        import threading
+        self.tcp = tcp
+        self.lock = threading.Lock()
+        self.requests = 0
+        self.http_bytes = 0
+        self.tcp0 = self._tcp_bytes()
+
+    def _tcp_bytes(self) -> int:
+        if self.tcp is None:
+            return 0
+        return self.tcp.stats["bytes_in"] + self.tcp.stats["bytes_out"]
+
+    def add(self, requests: int, nbytes: int = 0) -> None:
+        with self.lock:
+            self.requests += requests
+            self.http_bytes += nbytes
+
+    def record(self) -> dict:
+        return {"requests": self.requests,
+                "wire_bytes": self.http_bytes + self._tcp_bytes() - self.tcp0}
+
+
+def _front_http(wire, address: str, method: str, path: str, body=None,
+                headers=None) -> tuple:
+    """One HTTP request to the proxy: (status, headers, body bytes); the
+    request and reply bodies are counted on `wire`."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(f"http://{address}{path}", data=body,
+                                 headers=headers or {}, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            out = (resp.status, dict(resp.headers), resp.read())
+    except urllib.error.HTTPError as err:
+        out = (err.code, dict(err.headers), err.read())
+    wire.add(1, len(body or b"") + len(out[2]))
+    return out
+
+
+def _front_post(wire, address: str, command: str, params: dict):
+    """POST /api/v4/<command> with a JSON body; the reply's value."""
+    status, _, raw = _front_http(
+        wire, address, "POST", f"/api/v4/{command}",
+        json.dumps(params).encode(), {"Content-Type": "application/json"})
+    if status != 200:
+        raise AssertionError(f"FRONT REST {command}: {status} {raw[:300]!r}")
+    return json.loads(raw)["value"]
+
+
+def _front_context(arrays: list, seed: int) -> dict:
+    """FRONT's oracles over CLIENT's table and its dimension, and the
+    rows and keys of its own writes, from --seed."""
+    import numpy as np
+    k_all = np.concatenate([a["k"] for a in arrays])
+    g_all = np.concatenate([a["g"] for a in arrays])
+    v_all = np.concatenate([a["v"] for a in arrays])
+    if not np.array_equal(k_all, np.arange(SELECT_ROWS)):
+        raise AssertionError("FRONT: k is not the row number")
+    sel = v_all < 900
+    name_of_g = np.arange(SELECT_GROUPS) % CLIENT_NAMES
+    rng = np.random.default_rng(seed + 31)
+    dyn_k = rng.permutation(FRONT_DYN_KEYS)[:FRONT_DYN_ROWS]
+    present = rng.choice(FRONT_DYN_ROWS, FRONT_LOOKUPS * 3 // 4,
+                         replace=False)
+    absent = FRONT_DYN_KEYS + rng.choice(FRONT_DYN_KEYS, FRONT_LOOKUPS // 4,
+                                         replace=False)
+    keys = np.concatenate([dyn_k[present], absent])
+    rng.shuffle(keys)
+    return {
+        "g_all": g_all, "v_all": v_all,
+        "select": (np.bincount(g_all[sel], weights=v_all[sel],
+                               minlength=SELECT_GROUPS),
+                   np.bincount(g_all[sel], minlength=SELECT_GROUPS)),
+        "join": (np.bincount(name_of_g[g_all], weights=v_all,
+                             minlength=CLIENT_NAMES),
+                 np.bincount(name_of_g[g_all], minlength=CLIENT_NAMES)),
+        "totals": np.bincount(g_all, weights=v_all, minlength=SELECT_GROUPS),
+        "ranges": rng.integers(0, SELECT_ROWS - 1000,
+                               FRONT_THREADS * FRONT_CALLS),
+        "dyn": {"k": dyn_k, "g": rng.integers(0, 1000, FRONT_DYN_ROWS),
+                "v": rng.integers(0, 1000, FRONT_DYN_ROWS)},
+        "lookup_keys": keys.tolist(),
+        "write": {"k": np.arange(FRONT_WRITE_ROWS),
+                  "g": rng.integers(0, 1 << 40, FRONT_WRITE_ROWS),
+                  "x": rng.standard_normal(FRONT_WRITE_ROWS),
+                  "s": rng.integers(0, 997, FRONT_WRITE_ROWS)},
+    }
+
+
+def _front_named(rows: list) -> list:
+    """The join's rows with the name as its number (name07 -> 7)."""
+    return [{"name": int(r["name"][4:]), "s": r["s"], "c": r["c"]}
+            for r in rows]
+
+
+def _front_text(value) -> str:
+    return value.decode() if isinstance(value, bytes) else value
+
+
+def phase_front(seed: int, hr, rx, port, client=None, arrays=None) -> dict:
+    """FRONT: the front doors over CLIENT's cluster as CLIENT leaves it
+    (the 64M-row table in 8 chunks and its 10,000-row dimension; called
+    with CLIENT's open client after its restart, or, alone, on a cluster
+    that publishes the same two tables). On 127.0.0.1:0 it starts an
+    HttpProxy over Driver(client), an RpcServer([DriverService(client)])
+    with a TcpProxy in front of it, and uses the client's QueryTracker.
+    REST: /ping, /api/v4, SELECT_8's GROUP BY through POST select_rows
+    (10,000 groups back as JSON; one counted run, FRONT_WARM warm), the
+    join with the dimension grouped by name and the same join with
+    explain_analyze (one stage; both radix kernels must launch), a PUT
+    write_table of 131,072 JSON rows and its read_table back in JSON. RPC
+    through the TCP proxy: 16 threads x 16 driver select_rows calls of a
+    pruned k range of FRONT_RANGE_ROWS rows through RetryingChannels that
+    know only the proxy's address;
+    100,000 rows into a dynamic table through the wire transactions (100
+    transactions of 1,000); 4,096 lookups; every acknowledged write read
+    back. Query tracker: 8 asynchronous QL queries (the join grouped by
+    name first, alone, then 7 at once), each waited for and its result
+    held to numpy; 4 engine="chyt" queries (a JOIN with GROUP BY and
+    ORDER BY ... LIMIT, sumIf / countIf, a FROM-subquery whose inner
+    GROUP BY's 10,000 groups are materialized on the card, which must
+    launch both radix kernels, and a query that must fail with its
+    code); list_queries and abort_query of a running query. Every stage
+    runs as CLIENT's do and also records its requests and bytes on the
+    wire. Doubles to rtol 1e-9, the rest exact."""
+    import threading
+
+    import numpy as np
+    import torch
+    from ytsaurus_tpu_torch import rpc
+    from ytsaurus_tpu_torch.driver import COMMANDS
+    from ytsaurus_tpu_torch.errors import EErrorCode, YtError
+    from ytsaurus_tpu_torch.server.http_proxy import HttpProxy
+    from ytsaurus_tpu_torch.server.query_tracker import register_engine
+    from ytsaurus_tpu_torch.server.services import DriverService
+    from ytsaurus_tpu_torch.server.tcp_proxy import TcpProxy
+    t_phase = time.perf_counter()
+    if client is None:
+        with tempfile.TemporaryDirectory() as root:
+            return _front_alone(seed, hr, rx, port, root)
+    if client.cluster.device.type != "cuda":
+        raise AssertionError("FRONT: the cluster is not on the card")
+    ctx = _front_context(arrays, seed)
+    out: dict = {"paths": {}, "stages": {}}
+
+    def stage(name, run, wire, radix=False, host_only=False):
+        result, rec = _client_stage(
+            f"front {name}", run, hr, rx,
+            lambda: client.cluster.chunk_cache, radix=radix,
+            host_only=host_only, extra=None)
+        rec.update(wire.record())
+        _log(f"front {name} wire: {json.dumps(wire.record())}")
+        out["paths"][f"front_{name}"] = rec
+        return result
+
+    def check_select(name, rows):
+        return _client_check_groups(name, rows, "g", *ctx["select"])
+
+    def check_join(name, rows):
+        return _client_check_groups(name, _front_named(rows), "name",
+                                    *ctx["join"])
+
+    http = HttpProxy(lambda user: client)
+    http.start()
+    server = rpc.RpcServer([DriverService(client)])
+    server.start()
+    tcp = TcpProxy([server.address]).start()
+    try:
+        # --- REST -----------------------------------------------------------
+        a = http.address
+        wire = _Wire()
+        status, _, _ = _front_http(wire, a, "GET", "/ping")
+        _, _, raw = _front_http(wire, a, "GET", "/api/v4")
+        if status != 200 or json.loads(raw) != sorted(COMMANDS):
+            raise AssertionError("FRONT REST: /ping or /api/v4 differ")
+        rows = stage("rest_select_8", lambda: _front_post(
+            wire, a, "select_rows", {"query": CLIENT_QUERY}), wire)
+        out["stages"]["rest_select_8_groups"] = check_select(
+            "FRONT REST SELECT_8", rows)
+        warm = []
+        for _ in range(FRONT_WARM):
+            t = time.perf_counter()
+            check_select("FRONT REST SELECT_8 warm", _front_post(
+                wire, a, "select_rows", {"query": CLIENT_QUERY}))
+            warm.append(time.perf_counter() - t)
+        out["stages"]["rest_select_8_warm_s"] = warm
+        _log(f"front rest SELECT_8 warm: {[round(w, 4) for w in warm]} s")
+        wire = _Wire()
+        rows, profile = stage("rest_join", lambda: (_front_post(
+            wire, a, "select_rows", {"query": CLIENT_JOIN}), _front_post(
+            wire, a, "select_rows", {"query": CLIENT_JOIN,
+                                     "explain_analyze": True})), wire,
+            radix=True)
+        out["stages"]["rest_join_groups"] = check_join("FRONT REST join",
+                                                       rows)
+        check_join("FRONT REST EXPLAIN ANALYZE", profile["rows"])
+        (top,) = profile["span_tree"]
+        if top["name"] != "query.select" or profile["execute_time"] <= 0:
+            raise AssertionError("FRONT REST EXPLAIN ANALYZE: no profile")
+        out["stages"]["rest_explain"] = {
+            k: profile[k] for k in ("wall_time", "compile_time",
+                                    "execute_time")}
+        w = ctx["write"]
+        body = "".join(
+            f'{{"k": {k}, "g": {g}, "x": {x!r}, "s": "s{s}"}}\n'
+            for k, g, x, s in zip(w["k"].tolist(), w["g"].tolist(),
+                                  w["x"].tolist(), w["s"].tolist())).encode()
+        wire = _Wire()
+
+        def write_read():
+            status, _, raw = _front_http(
+                wire, a, "PUT", "/api/v4/write_table", body,
+                {"X-YT-Parameters": json.dumps({"path": "//front/w",
+                                                "format": "json"})})
+            if status != 200:
+                raise AssertionError(f"FRONT REST write_table: {raw[:300]}")
+            status, _, raw = _front_http(
+                wire, a, "GET", '/api/v4/read_table?path=%22//front/w%22'
+                                '&format=%22json%22')
+            if status != 200:
+                raise AssertionError(f"FRONT REST read_table: {raw[:300]}")
+            return raw
+        client.create("map_node", "//front", ignore_existing=True)
+        raw = stage("rest_write_read", write_read, wire)
+        back = [json.loads(line) for line in raw.splitlines()]
+        if [(r["k"], r["g"], r["x"], r["s"]) for r in back] != list(zip(
+                w["k"].tolist(), w["g"].tolist(), w["x"].tolist(),
+                [f"s{s}" for s in w["s"].tolist()])):
+            raise AssertionError("FRONT REST: read_table gives back other "
+                                 "rows than write_table took")
+        out["stages"]["rest_rows_written"] = len(back)
+        del back, raw, body
+
+        # --- RPC through the TCP proxy ---------------------------------------
+        def channel():
+            return rpc.RetryingChannel(rpc.Channel(tcp.address, timeout=300))
+
+        def execute(ch, command, params, idempotent=True):
+            body, _ = ch.call("driver", "execute", {
+                "command": command, "parameters": params},
+                idempotent=idempotent)
+            return body["result"]
+
+        wire = _Wire(tcp)
+        ranges = ctx["ranges"].tolist()
+
+        def selects(i):
+            ch = channel()
+            try:
+                for j in range(FRONT_CALLS):
+                    lo = ranges[i * FRONT_CALLS + j]
+                    hi = lo + FRONT_RANGE_ROWS
+                    got = execute(ch, "select_rows", {
+                        "query": f"k, g, v FROM [{FRONT_T}] WHERE k >= {lo} "
+                                 f"AND k < {hi}"})
+                    got = sorted((r["k"], r["g"], r["v"]) for r in got)
+                    if got != list(zip(range(lo, hi),
+                                       ctx["g_all"][lo:hi].tolist(),
+                                       ctx["v_all"][lo:hi].tolist())):
+                        raise AssertionError(f"FRONT RPC range {lo}")
+                wire.add(FRONT_CALLS)
+                return FRONT_CALLS
+            finally:
+                ch.close()
+        calls = sum(stage("rpc_selects", lambda: _client_threads(
+            selects, FRONT_THREADS), wire))
+        out["stages"]["rpc_select_calls"] = calls
+        out["stages"]["tcp_connections"] = tcp.stats["connections"]
+
+        d = ctx["dyn"]
+        ch = channel()
+        execute(ch, "create", {
+            "type": "table", "path": "//front/acc", "attributes": {
+                "schema": [{"name": "k", "type": "int64",
+                            "sort_order": "ascending"},
+                           {"name": "g", "type": "int64"},
+                           {"name": "v", "type": "int64"}],
+                "dynamic": True}}, idempotent=False)
+        execute(ch, "mount_table", {"path": "//front/acc"})
+        dyn_rows = [{"k": k, "g": g, "v": v} for k, g, v in zip(
+            d["k"].tolist(), d["g"].tolist(), d["v"].tolist())]
+        acknowledged = []
+        wire = _Wire(tcp)
+
+        def write():
+            for lo in range(0, FRONT_DYN_ROWS, FRONT_TX_ROWS):
+                part = dyn_rows[lo:lo + FRONT_TX_ROWS]
+                body, _ = ch.call("driver", "start_transaction", {},
+                                  idempotent=False)
+                tx_id = body["tx_id"]
+                ch.call("driver", "insert_rows_tx", {
+                    "tx_id": tx_id, "path": "//front/acc", "rows": part})
+                body, _ = ch.call("driver", "commit_transaction",
+                                  {"tx_id": tx_id}, idempotent=False)
+                if body["commit_timestamp"] <= 0:
+                    raise AssertionError("FRONT RPC: no commit timestamp")
+                acknowledged.extend(part)
+                wire.add(3)
+        stage("rpc_writes", write, wire, host_only=True)
+        rec = out["paths"]["front_rpc_writes"]
+        rec["rows_per_s"] = FRONT_DYN_ROWS / rec["host_s"]
+        _log(f"front rpc writes: {rec['rows_per_s']:.0f} rows/s in "
+             f"{FRONT_DYN_ROWS // FRONT_TX_ROWS} wire transactions")
+        oracle = {r["k"]: (r["g"], r["v"]) for r in acknowledged}
+        keys = ctx["lookup_keys"]
+        per = len(keys) // FRONT_THREADS
+        wire = _Wire(tcp)
+
+        def lookups(i):
+            lch = channel()
+            try:
+                mine = keys[i * per:(i + 1) * per]
+                for lo in range(0, per, FRONT_LOOKUP_BATCH):
+                    part = mine[lo:lo + FRONT_LOOKUP_BATCH]
+                    got = execute(lch, "lookup_rows", {
+                        "path": "//front/acc", "keys": [[k] for k in part]})
+                    wire.add(1)
+                    for k, row in zip(part, got):
+                        want = oracle.get(k)
+                        have = None if row is None else (row["g"], row["v"])
+                        if have != want:
+                            raise AssertionError(f"FRONT RPC lookup {k}: "
+                                                 f"{row} != {want}")
+                return per
+            finally:
+                lch.close()
+
+        def reads():
+            found = sum(_client_threads(lookups, FRONT_THREADS))
+            rows = execute(ch, "select_rows",
+                           {"query": "k, g, v FROM [//front/acc]"})
+            wire.add(1)
+            return found, rows
+        found, rows = stage("rpc_reads", reads, wire)
+        got = sorted((r["k"], r["g"], r["v"]) for r in rows)
+        if got != sorted((r["k"], r["g"], r["v"]) for r in acknowledged):
+            raise AssertionError("FRONT RPC: an acknowledged write was not "
+                                 "read back")
+        out["stages"]["rpc_lookups"] = found
+        out["stages"]["rpc_readback_rows"] = len(got)
+        ch.close()
+        del got, rows, dyn_rows
+
+        # --- the query tracker ------------------------------------------------
+        qt = client.query_tracker
+        g_all, v_all = ctx["g_all"], ctx["v_all"]
+        lo = int(ctx["ranges"][0])
+        acc_g = np.bincount(d["g"], weights=d["v"], minlength=1000)
+        acc_c = np.bincount(d["g"], minlength=1000)
+        low = g_all < 100
+        max100 = np.full(100, -1)
+        np.maximum.at(max100, g_all[low], v_all[low])
+        del low
+        seven = g_all == 7
+        order7 = np.lexsort((np.flatnonzero(seven), -v_all[seven]))[:100]
+        ql = [
+            (f"k, g, v FROM [{FRONT_T}] WHERE k >= {lo} AND k < {lo + 500}",
+             lambda rows: sorted((r["k"], r["g"], r["v"]) for r in rows)
+             == list(zip(range(lo, lo + 500), g_all[lo:lo + 500].tolist(),
+                         v_all[lo:lo + 500].tolist()))),
+            (CLIENT_QUERY, lambda rows: check_select(
+                "FRONT QL SELECT_8", rows) == SELECT_GROUPS),
+            (f"count(*) AS c, sum(v) AS s FROM [{FRONT_T}] WHERE v < 100 "
+             "GROUP BY 1 AS one",
+             lambda rows: [(r["c"], r["s"]) for r in rows] == [(
+                 int((v_all < 100).sum()), int(v_all[v_all < 100].sum()))]),
+            (f"g, max(v) AS m FROM [{FRONT_T}] WHERE g < 100 GROUP BY g",
+             lambda rows: {r["g"]: r["m"] for r in rows} == dict(
+                 enumerate(max100.tolist()))),
+            (f"k, v FROM [{FRONT_T}] WHERE g = 7 ORDER BY v DESC, k "
+             "LIMIT 100",
+             lambda rows: [(r["k"], r["v"]) for r in rows] == list(zip(
+                 np.flatnonzero(seven)[order7].tolist(),
+                 v_all[seven][order7].tolist()))),
+            ("g, sum(v) AS s, count(*) AS c FROM [//front/acc] GROUP BY g",
+             lambda rows: {r["g"]: (r["s"], r["c"]) for r in rows} == {
+                 g: (int(acc_g[g]), int(acc_c[g]))
+                 for g in np.flatnonzero(acc_c)}),
+            (f"name, count(*) AS c FROM [{FRONT_DIM}] GROUP BY name",
+             lambda rows: {_front_text(r["name"]): r["c"] for r in rows} ==
+             {f"name{n:02d}": SELECT_GROUPS // CLIENT_NAMES
+              for n in range(CLIENT_NAMES)}),
+        ]
+        wire = _Wire()
+        launched: dict = {}
+
+        def tracker_ql():
+            before = dict(rx.launches)
+            qid = qt.start_query(CLIENT_JOIN)
+            record = qt.wait(qid, timeout=600)
+            launched["join"] = {k: rx.launches[k] - before[k]
+                                for k in before}
+            check_join("FRONT QL join", qt.read_query_result(qid))
+            ids = [qt.start_query(query) for query, _ in ql]
+            states = [record["state"]]
+            for qid, (query, check) in zip(ids, ql):
+                record = qt.wait(qid, timeout=600)
+                states.append(record["state"])
+                if record["state"] != "completed" or record["truncated"] or \
+                        not check(qt.read_query_result(qid)):
+                    raise AssertionError(f"FRONT QL {query!r}: {record}")
+            wire.add(1 + len(ids))
+            return states
+        states = stage("tracker_ql", tracker_ql, wire, radix=True)
+        if states != ["completed"] * (1 + len(ql)):
+            raise AssertionError(f"FRONT QL states: {states}")
+        for kernel in PATH_KERNELS:
+            if launched["join"][kernel] <= 0:
+                raise AssertionError(f"FRONT QL join: no {kernel}")
+        out["stages"]["tracker_ql_join_launches"] = launched["join"]
+
+        s_join, c_join = ctx["join"]
+        top10 = np.lexsort((np.arange(CLIENT_NAMES), -s_join))[:10]
+        totals = ctx["totals"]
+        top_g = np.lexsort((np.arange(SELECT_GROUPS), -totals))[:100]
+        chyt = [
+            ("join", f'SELECT name, sum(v) AS s, count(*) AS c FROM '
+                     f'"{FRONT_T}" JOIN "{FRONT_DIM}" USING g GROUP BY name '
+                     f'ORDER BY sum(v) DESC, name LIMIT 10',
+             lambda rows: [(int(_front_text(r["name"])[4:]), r["s"], r["c"])
+                           for r in rows] == [
+                 (int(n), int(s_join[n]), int(c_join[n])) for n in top10]),
+            ("if", f"SELECT countIf(v < 100) AS lo, sumIf(v, g < 5000) AS s "
+                   f"FROM `{FRONT_T}` GROUP BY 1 AS one",
+             lambda rows: [(r["lo"], r["s"]) for r in rows] == [(
+                 int((v_all < 100).sum()),
+                 int(v_all[g_all < 5000].sum()))]),
+            ("subquery", f"SELECT g, total FROM (SELECT g, sum(v) AS total "
+                         f"FROM `{FRONT_T}` GROUP BY g) AS per_g ORDER BY "
+                         f"total DESC, g LIMIT 100",
+             lambda rows: [(r["g"], r["total"]) for r in rows] == [
+                 (int(g), int(totals[g])) for g in top_g]),
+        ]
+        wire = _Wire()
+
+        def tracker_chyt():
+            per_query = {}
+            for name, query, check in chyt:
+                before = dict(rx.launches)
+                qid = qt.start_query(query, engine="chyt")
+                record = qt.wait(qid, timeout=600)
+                per_query[name] = {k: rx.launches[k] - before[k]
+                                   for k in before}
+                if record["state"] != "completed" or \
+                        not check(qt.read_query_result(qid)):
+                    raise AssertionError(f"FRONT chyt {name}: {record}")
+            qid = qt.start_query(f"SELECT toString(v) FROM `{FRONT_T}`",
+                                 engine="chyt")
+            record = qt.wait(qid, timeout=600)
+            code = int(EErrorCode.QueryUnsupported)
+            if record["state"] != "failed" or \
+                    not record["error"].startswith(f"[{code}]"):
+                raise AssertionError(f"FRONT chyt failure: {record}")
+            try:
+                qt.read_query_result(qid)
+            except YtError as err:
+                if err.code != EErrorCode.OperationFailed:
+                    raise
+            else:
+                raise AssertionError("FRONT chyt: a failed query's result "
+                                     "was read")
+            wire.add(len(chyt) + 2)
+            return per_query
+        per_query = stage("tracker_chyt", tracker_chyt, wire, radix=True)
+        for kernel in PATH_KERNELS:
+            if per_query["subquery"][kernel] <= 0:
+                raise AssertionError(f"FRONT chyt subquery: no {kernel}")
+        out["stages"]["tracker_chyt_launches"] = per_query
+
+        hold, entered = threading.Event(), threading.Event()
+
+        def held_engine(cl, query):
+            entered.set()
+            hold.wait(120)
+            return cl.select_rows(query)
+        register_engine("front_hold", held_engine)
+        wire = _Wire()
+
+        def admin():
+            qid = qt.start_query(CLIENT_QUERY, engine="front_hold")
+            if not entered.wait(60) or \
+                    qt.get_query(qid)["state"] != "running":
+                raise AssertionError("FRONT: the held query is not running")
+            qt.abort_query(qid)
+            hold.set()
+            record = qt.wait(qid, timeout=600)
+            listed = qt.list_queries()
+            wire.add(4)
+            return record, listed
+        record, listed = stage("tracker_admin", admin, wire)
+        by_state: dict = {}
+        for q in listed:
+            by_state[q["state"]] = by_state.get(q["state"], 0) + 1
+        want = {"completed": 1 + len(ql) + len(chyt), "failed": 1,
+                "aborted": 1}
+        if record["state"] != "aborted" or by_state != want:
+            raise AssertionError(f"FRONT list_queries: {by_state} != {want}")
+        out["stages"]["queries"] = by_state
+    finally:
+        tcp.stop()
+        server.stop()
+        http.stop()
+    out["stages"]["tcp_stats"] = {k: tcp.stats[k] for k in (
+        "connections", "bytes_in", "bytes_out")}
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t_phase
+    _log(f"front: {out['seconds']:.1f} s in all")
+    return out
+
+
+def _front_alone(seed: int, hr, rx, port, root: str) -> dict:
+    """FRONT on a cluster of its own: CLIENT's two tables published as
+    CLIENT publishes them, then the phase."""
+    from ytsaurus_tpu_torch.chunks.columnar import ColumnarChunk
+    from ytsaurus_tpu_torch.client import connect, publish_table_chunks
+    arrays = _select_arrays(seed)
+    client = connect(root, device="cuda")
+    schema = port.TableSchema.make([("k", "int64"), ("g", "int64"),
+                                    ("v", "int64")])
+    client.create("table", CLIENT_T, recursive=True,
+                  attributes={"schema": schema})
+    publish_table_chunks(client, client.cluster.chunk_store, CLIENT_T,
+                         [ColumnarChunk.from_arrays(schema, a, device="cuda")
+                          for a in arrays], schema=schema)
+    client.write_table(FRONT_DIM, [
+        {"g": g, "name": f"name{g % CLIENT_NAMES:02d}".encode()}
+        for g in range(CLIENT_DIM_ROWS)])
+    return phase_front(seed, hr, rx, port, client=client, arrays=arrays)
 
 
 # --- OPS: reduce, map-reduce, command and vanilla operations ----------------
@@ -4606,8 +5243,14 @@ def main() -> int:
     paths.update(durable.pop("paths"))
     queue = timed("queue", phase_queue, args.seed, hr, rx, port)
     paths.update(queue.pop("paths"))
-    client = timed("client", phase_client, args.seed, hr, rx, port)
+    client = timed("client", phase_client, args.seed, hr, rx, port, True)
     paths.update(client.pop("paths"))
+    front = client.pop("front")
+    paths.update(front.pop("paths"))
+    phase_s["front"] = front["seconds"]
+    phase_s["client"] -= front["seconds"]
+    _log(f"phase front: {phase_s['front']:.1f} s (inside CLIENT's "
+         f"cluster; client without it {phase_s['client']:.1f} s)")
     ops = timed("ops", phase_ops, args.seed, hr, rx, port)
     paths.update(ops.pop("paths"))
     derived = timed("derived", phase_derived, args.seed, hr, rx, port)
@@ -4646,6 +5289,7 @@ def main() -> int:
               "window_rows": WINDOW_ROWS, "sort_rows": SORT_ROWS,
               "tablet_versions": TABLET_VERSIONS, "dyntable": dyntable,
               "durable": durable, "queue": queue, "client": client,
+              "front": front,
               "ops": ops, "derived": derived,
               "extsort_rows": paths["extsort"]["rows_in"],
               "strings_rows": STRINGS_ROWS, "vector_rows": VECTOR_ROWS,

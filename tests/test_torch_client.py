@@ -8,8 +8,7 @@ Two kinds of case:
 - the reference's own client tests (tests/test_client.py), run against
   the port through `port_twin`: their source with `ytsaurus_tpu` pointed
   at `ytsaurus_tpu_torch` and `connect` / `YtCluster` on the CPU. Left
-  out: `test_driver_command_registry` (driver.py is not ported) and the
-  statistics test, whose compile counters the port twins below;
+  out: the statistics test, whose compile counters the port twins below;
 - parity scripts that drive both clients alike and compare rows exactly
   (doubles by tests/harness.py's canon), the Cypress state with ids
   masked, `@row_count`, `@sorted_by`, `@chunk_stats`, operation results
@@ -134,7 +133,7 @@ def call_twin(module, name: str, fixtures: dict):
 
 _CLIENT_TWIN = port_twin("test_client")
 _CLIENT_CASES = twin_cases(_CLIENT_TWIN, exclude={
-    "test_driver_command_registry", "test_query_statistics_and_logging"})
+    "test_query_statistics_and_logging"})
 
 
 @pytest.mark.parametrize("name", _CLIENT_CASES)
@@ -178,8 +177,14 @@ def test_query_statistics_and_logging_on_the_port(tmp_path, capsys):
 
 
 def test_the_driver_is_not_ported():
-    with pytest.raises(ImportError):
-        __import__("ytsaurus_tpu_torch.driver")
+    """The port's driver is its own copy, not the reference's module: the
+    same registry, invoking the port's client."""
+    from ytsaurus_tpu import driver as ref_driver
+    from ytsaurus_tpu_torch import driver
+    assert driver.Driver is not ref_driver.Driver
+    assert list(driver.COMMANDS) == list(ref_driver.COMMANDS)
+    assert driver.COMMANDS["select_rows"].invoke.__module__ == \
+        "ytsaurus_tpu_torch.driver"
 
 
 # --- parity scripts ----------------------------------------------------------
@@ -489,8 +494,9 @@ def test_operations_match(tmp_path):
 
 
 def test_unported_methods_name_their_module(tmp_path):
-    """What is still unported raises naming its module: the query
-    tracker, exec-node dispatch, remote copy and portals. The replica,
+    """What is still unported raises naming its module: exec-node
+    dispatch, remote copy and portals. The query tracker is ported (its
+    parity cases are in tests/test_torch_query_tracker.py). The replica,
     index, view, consumer and backup methods, the reduce, map-reduce and
     vanilla operations and command maps are ported; their parity cases
     are in tests/test_torch_{reduce,job_environment,replication,views,
@@ -498,7 +504,6 @@ def test_unported_methods_name_their_module(tmp_path):
     client = port_client.connect(str(tmp_path), device="cpu")
     client.write_table("//t", [{"k": 1}])
     calls = {
-        "server/query_tracker.py": lambda: client.query_tracker,
         "rpc/": lambda: client.exec_node_addresses(),
         "cypress/hive.py": lambda: client.create(
             "portal_entrance", "//p", attributes={"cell_root": "/x"}),

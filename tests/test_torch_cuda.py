@@ -955,3 +955,69 @@ def test_operations_and_derived_tables_on_the_card_match_the_cpu(
     want = _ops_derived_script(connect(str(tmp_path / "cpu"), device="cpu"),
                                str(tmp_path / "cpu2"))
     assert got == want
+
+
+def _front_script(client):
+    """One REST select through HttpProxy, one driver call over RPC through
+    TcpProxy, and one `engine="sql"` query with a FROM-subquery."""
+    import json
+    import urllib.request
+
+    from ytsaurus_tpu_torch import rpc
+    from ytsaurus_tpu_torch.server.http_proxy import HttpProxy
+    from ytsaurus_tpu_torch.server.services import DriverService
+    from ytsaurus_tpu_torch.server.tcp_proxy import TcpProxy
+    rng = np.random.default_rng(6)
+    client.write_table("//t", [{"k": i, "g": int(g), "v": int(v)}
+                               for i, g, v in zip(range(4000),
+                                                  rng.integers(0, 300, 4000),
+                                                  rng.integers(0, 1000, 4000))])
+    client.write_table("//dim", [{"g": g, "name": f"n{g % 11}"}
+                                 for g in range(300)])
+    proxy = HttpProxy(lambda user: client)
+    proxy.start()
+    try:
+        req = urllib.request.Request(
+            f"http://{proxy.address}/api/v4/select_rows",
+            data=json.dumps({"query": "name, sum(v) AS s FROM [//t] JOIN "
+                                      "[//dim] USING g GROUP BY name"}).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            rest = sorted((r["name"], r["s"])
+                          for r in json.loads(resp.read())["value"])
+    finally:
+        proxy.stop()
+    server = rpc.RpcServer([DriverService(client)])
+    server.start()
+    tcp = TcpProxy([server.address]).start()
+    channel = rpc.RetryingChannel(rpc.Channel(tcp.address, timeout=120))
+    try:
+        body, _ = channel.call("driver", "execute", {
+            "command": "select_rows", "parameters": {
+                "query": "k, v FROM [//t] WHERE k >= 100 AND k < 140"}})
+        wire = sorted((r["k"], r["v"]) for r in body["result"])
+    finally:
+        channel.close()
+        tcp.stop()
+        server.stop()
+    qt = client.query_tracker
+    qid = qt.start_query(
+        "SELECT g, total FROM (SELECT g, sum(v) AS total FROM `//t` "
+        "GROUP BY g) ORDER BY total DESC LIMIT 7", engine="sql")
+    assert qt.wait(qid, timeout=120)["state"] == "completed"
+    return {"rest": rest, "wire": wire,
+            "sql": qt.read_query_result(qid)}
+
+
+def test_front_doors_on_the_card_match_the_cpu(cuda_device, tmp_path):
+    """The REST select, the driver call over RPC and the SQL query answer
+    on the card as on the CPU; the SQL subquery's chunk lies on the
+    card."""
+    from ytsaurus_tpu_torch.client import connect
+    from ytsaurus_tpu_torch.ops import radix
+    gpu = connect(str(tmp_path / "gpu"))
+    cpu = connect(str(tmp_path / "cpu"), device="cpu")
+    radix.reset_launches()
+    got = _front_script(gpu)
+    assert radix.launches["radix_onesweep"] > 0
+    assert got == _front_script(cpu)

@@ -9,10 +9,12 @@ seconds (lowering.prepare), its compile cache counts stay 0, its
 execution tier is "eager", and no `evaluator.compile` span is opened.
 Those are masked; every other line and span name is the reference's.
 
-Left out of the twins: the RPC server and channel cases, the `/traces`
-endpoint and orchid views, the multi-hop remote driver and the CLI
-(`rpc/`, `server/`, `cli.py`, not ported), and the compile-cache case,
-which the port twins below."""
+The RPC server and channel cases run on the port's `rpc/`. Left out of
+the twins: the `/traces` endpoint and orchid views, the multi-hop remote
+driver and the CLI (`server/monitoring.py`, `server/orchid.py`,
+`remote_client.py` and `cli.py`, which wait for the daemons), the
+distributed select, and the compile-cache case, which the port twins
+below."""
 
 import re
 import time
@@ -38,9 +40,6 @@ torch.set_num_threads(1)
 
 _TWIN = port_twin("test_flight_recorder")
 _CASES = twin_cases(_TWIN, exclude={
-    "test_rpc_server_restores_context_and_isolates_leaks",
-    "test_rpc_server_does_not_root_traces_for_untraced_requests",
-    "test_retrying_channel_fresh_span_per_attempt",
     "test_traces_endpoint_round_trip", "test_orchid_flight_recorder_views",
     "test_multihop_remote_driver_trace", "test_cli_explain_analyze_and_trace",
     "test_explain_analyze_distributed_select",

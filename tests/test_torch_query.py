@@ -325,9 +325,11 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
     a transaction, flushes, compacts and reads it back; and the client
     (`connect`, with Cypress, the gateway and the scheduler under it)
     writes a static table, selects from it, sorts, reduces, map-reduces
-    it through shell commands and runs a vanilla command; the replication,
-    chaos, secondary-index, queue-agent, view and view-daemon modules
-    import."""
+    it through shell commands and runs a vanilla command; the front doors
+    answer (a REST select through `HttpProxy`, a driver call over RPC
+    through `TcpProxy` and a `RetryingChannel`, an `engine="sql"` query in
+    the query tracker); the replication, chaos, secondary-index,
+    queue-agent, view and view-daemon modules import."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -479,6 +481,43 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
             op = client.run_vanilla({"t": {"job_count": 1,
                                            "command": "true"}})
             assert op.state == "completed", op.error
+            import json, urllib.request
+            from ytsaurus_tpu_torch import driver, rpc  # noqa: F401
+            from ytsaurus_tpu_torch.ecosystem import sql  # noqa: F401
+            from ytsaurus_tpu_torch.server.http_proxy import HttpProxy
+            from ytsaurus_tpu_torch.server.query_tracker import QueryTracker
+            from ytsaurus_tpu_torch.server.services import DriverService
+            from ytsaurus_tpu_torch.server.tcp_proxy import TcpProxy
+            proxy = HttpProxy(lambda user: client)
+            proxy.start()
+            req = urllib.request.Request(
+                f"http://{proxy.address}/api/v4/select_rows",
+                data=json.dumps({"query": "g, count(*) AS c FROM [//t] "
+                                          "GROUP BY g"}).encode(),
+                headers={"Content-Type": "application/json"}, method="POST")
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                rest = json.loads(resp.read())["value"]
+            proxy.stop()
+            assert sorted((r["g"], r["c"]) for r in rest) == [(0, 3), (1, 2)]
+            server = rpc.RpcServer([DriverService(client)])
+            server.start()
+            tcp = TcpProxy([server.address]).start()
+            channel = rpc.RetryingChannel(rpc.Channel(tcp.address, timeout=60))
+            body, _ = channel.call("driver", "execute", {
+                "command": "select_rows",
+                "parameters": {"query": "sum(k) AS s FROM [//t] "
+                                        "GROUP BY 1 AS o"}})
+            channel.close()
+            tcp.stop()
+            server.stop()
+            assert body["result"] == [{"s": 15}], body
+            qid = client.query_tracker.start_query(
+                "SELECT g, sum(k) AS s FROM `//t` GROUP BY g", engine="sql")
+            assert client.query_tracker.wait(qid)["state"] == "completed"
+            assert sorted((r["g"], r["s"]) for r in
+                          client.query_tracker.read_query_result(qid)) == \
+                [(0, 9), (1, 6)]
+            assert isinstance(client.query_tracker, QueryTracker)
         from ytsaurus_tpu_torch.operations import (  # noqa: F401
             job_environment, reduce_op)
         from ytsaurus_tpu_torch.tablet import (  # noqa: F401

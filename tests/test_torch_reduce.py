@@ -56,6 +56,37 @@ def test_reference_revival_case_on_the_port(name, tmp_path):
     call_twin(_REVIVAL_TWIN, name, {"tmp_path": tmp_path})
 
 
+def test_waiters_wake_after_the_observer():
+    """A job's waiters wake only once its on_done observer has run: the
+    revival snapshot's record is in place before a controller can publish
+    and clear it (a late record used to bring the snapshot back). 64 jobs
+    on 16 slots, each observer slow, under a short switch interval."""
+    import sys
+    import time
+
+    from ytsaurus_tpu_torch.operations.jobs import Job, JobManager
+    recorded = set()
+
+    def observe(job):
+        time.sleep(0.005)
+        recorded.add(job.index)
+
+    manager = JobManager(slots=16)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        jobs = [Job(op_id="op", index=i, run=lambda job: [job.index],
+                    on_done=observe) for i in range(64)]
+        manager.submit(jobs)
+        for job in jobs:
+            manager.wait([job], timeout=60)
+            assert job.index in recorded, job.index
+    finally:
+        sys.setswitchinterval(interval)
+    assert [job.state for job in jobs] == ["completed"] * 64
+    assert all(job._settled and job._done.is_set() for job in jobs)
+
+
 # --- reduce_op against the reference, on seeded inputs ----------------------
 
 _SPEC = [("a", "int64"), ("b", "string"), ("x", "double"),

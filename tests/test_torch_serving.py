@@ -5,9 +5,11 @@ NEAREST cohorts of `NearestBatcher`. The reference's own tests
 (tests/test_serving.py) run on the port, and the coalescing cases drive
 both gateways alike from threads. The port runs with device="cpu".
 
-Left out of the twins: the throttle-aware RPC channels, the exec node,
-the HTTP proxy and the monitoring endpoint (`rpc/` and `server/`, not
-ported), `test_pad_needles_pow2_buckets` (the port pads no needles: it
+The throttle-aware RPC channels and the HTTP proxy's error mapping run
+through the port's `rpc/channel.py` and `server/http_proxy.py`. Left out
+of the twins: the exec node and the monitoring endpoint
+(`server/exec_service.py` and `server/monitoring.py`, which wait for the
+daemons), `test_pad_needles_pow2_buckets` (the port pads no needles: it
 compiles no shapes), and the slow soak (its quick sibling runs)."""
 
 import threading
@@ -33,14 +35,7 @@ torch.set_num_threads(1)
 
 _TWIN = port_twin("test_serving")
 _CASES = twin_cases(_TWIN, exclude={
-    "test_pad_needles_pow2_buckets", "test_retrying_channel_honors_retry_after",
-    "test_retrying_channel_deadline_exceeded_is_terminal",
-    "test_retrying_channel_throttle_exhaustion_keeps_code",
-    "test_retrying_channel_backoff_capped_by_deadline",
-    "test_retrying_channel_budget_exhaustion_fails_fast",
-    "test_retry_budget_refills_on_success_only",
-    "test_exec_node_throttles_full_queue",
-    "test_http_proxy_maps_throttle_and_deadline",
+    "test_pad_needles_pow2_buckets", "test_exec_node_throttles_full_queue",
     "test_serving_metrics_move_under_load",
     "test_serving_soak_under_failpoints"})
 

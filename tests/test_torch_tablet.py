@@ -301,6 +301,31 @@ def test_vectorized_flush_matches_the_reference_oracle(tmp_path, seed):
     assert t.chunk_store.read_chunk(cid, device=CPU).to_rows() == rows
 
 
+@pytest.mark.parametrize("schema_name", sorted(SCHEMAS))
+def test_store_planes_are_the_references_versioned_rows(tmp_path,
+                                                        schema_name):
+    """A store's planes, built column-wise (`versioned_columns`,
+    `ColumnarChunk.from_columns`), hold the JAX store's versioned rows,
+    and serialize to the bytes of the chunk that the reference builds
+    from them."""
+    from ytsaurus_tpu.chunks.encoding import serialize_chunk as ref_serialize
+    from ytsaurus_tpu_torch.chunks.encoding import serialize_chunk
+    _configure(0)
+    ref, port = _pair(tmp_path, SCHEMAS[schema_name])
+    both = _Both(ref, port)
+    both.flush = lambda: None       # every version stays in the store
+    _apply_workload(both, SCHEMAS[schema_name], random.Random(8100),
+                    n_ops=60, allow_duplicates=False)
+    want = ref.active_store.versioned_rows()
+    assert len(want) > 40
+    planes = port.active_store.to_versioned_chunk(port._versioned_schema,
+                                                  torch.device(CPU))
+    assert planes.to_rows() == want
+    assert port.active_store.versioned_rows() == want
+    assert serialize_chunk(planes) == ref_serialize(RefChunk.from_rows(
+        ref._versioned_schema, want))
+
+
 def test_vectorized_compaction_matches_the_reference_oracle(tmp_path):
     _configure(0)
     schema = _port_schema(SCHEMAS["int_key"])

@@ -12,7 +12,8 @@ Twins, run on the port through `port_twin`, and what each leaves out:
 - tests/test_views.py (27 functions, 30 cases with the parametrized
   crash schedules): all but
   `test_daemon_and_cli_survive_one_broken_view` and
-  `test_driver_and_cli_verbs` (cli.py and driver.py are not ported),
+  `test_driver_and_cli_verbs` (cli.py is not ported; the driver's view
+  verbs run in tests/test_torch_driver.py),
   `test_view_dual_checked_against_mesh_oracle` (it takes the JAX
   package's 8-device CPU mesh fixture; the port's mesh is
   torch.distributed, held by tests/test_torch_distributed*.py),

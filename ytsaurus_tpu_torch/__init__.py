@@ -51,8 +51,13 @@ It runs QL queries over columnar chunks on one device:
     tablet/chaos.py, tablet/secondary_index.py, query/views.py,
     server/queue_agent.py, server/view_daemon.py and the client's
     backups;
-  - bench/chip_phases.py — chip_smoke's storage, client, operations and
-    derived-table phases alone on the card;
+  - the front doors: driver.py (the command registry), rpc/ (packets,
+    `RpcServer`, the retrying, hedging and failover channels),
+    server/services.py (`DriverService` with wire transactions),
+    server/http_proxy.py and server/tcp_proxy.py, server/query_tracker.py
+    with ecosystem/sql.py (the ClickHouse dialect);
+  - bench/chip_phases.py — chip_smoke's storage, client, operations,
+    derived-table and front-door phases alone on the card;
   - config.py, utils/ — the knobs, failpoints, trace spans, sensors,
     invariant checks and varints those read.
 

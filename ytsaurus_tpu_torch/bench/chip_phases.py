@@ -9,6 +9,9 @@ phases that take the seed and the port's entry points), with the same
 checks and logs as a whole chip_smoke run, and writes their records to
 `chiprun_out/phases.json`.
 Any failure exits non-zero.
+
+`front` also runs alone: it publishes CLIENT's two tables on a cluster of
+its own first (in a whole chip_smoke run, FRONT serves CLIENT's cluster).
 """
 
 from __future__ import annotations

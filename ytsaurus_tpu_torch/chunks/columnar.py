@@ -214,9 +214,6 @@ class ColumnarChunk:
                   rows: Sequence[Mapping[str, Any] | Sequence[Any]],
                   device: "str | torch.device" = DEFAULT_DEVICE
                   ) -> "ColumnarChunk":
-        dev = resolve_device(device)
-        n = len(rows)
-        cap = pad_capacity(max(n, 1))
         names = schema.column_names
         name_set = set(names)
         per_col: dict[str, list] = {name: [] for name in names}
@@ -236,18 +233,34 @@ class ColumnarChunk:
                         f"Row width {len(row)} != schema width {len(names)}")
                 for name, v in zip(names, row):
                     per_col[name].append(v)
+        return ColumnarChunk.from_columns(schema, per_col, len(rows),
+                                          device=device)
+
+    @staticmethod
+    def from_columns(schema: TableSchema, values: Mapping[str, list],
+                     row_count: int,
+                     device: "str | torch.device" = DEFAULT_DEVICE
+                     ) -> "ColumnarChunk":
+        """from_rows with the rows given column-wise: one list of
+        `row_count` Python values per schema column."""
+        dev = resolve_device(device)
+        n = row_count
+        cap = pad_capacity(max(n, 1))
         columns: dict[str, Column] = {}
         for col_schema in schema:
             name = col_schema.name
-            values = per_col[name]
+            values_of = values[name]
+            if len(values_of) != n:
+                raise YtError(f"Column {name!r} has {len(values_of)} values, "
+                              f"the first column {n}")
             if col_schema.required:
-                for i, v in enumerate(values):
+                for i, v in enumerate(values_of):
                     if v is None:
                         raise YtError(
                             f"Required column {name!r} is null in row {i}",
                             code=EErrorCode.QueryTypeError)
-            columns[name] = _build_column(col_schema.type, values, cap, dev,
-                                          name)
+            columns[name] = _build_column(col_schema.type, values_of, cap,
+                                          dev, name)
         return ColumnarChunk(schema=schema, row_count=n, columns=columns)
 
     @staticmethod

@@ -22,9 +22,12 @@ A cluster directory is the reference's: the master's changelog and
 snapshot, the chunk files and the attributes are written in the same
 formats, so a directory written by either package opens in the other.
 
+The query tracker (`client.query_tracker`, server/query_tracker.py) runs
+QL and the ClickHouse dialect (ecosystem/sql.py) on the cluster's device.
+
 Not ported yet, each raising a YtError that names the missing module:
-exec-node dispatch and remote copy (rpc/, remote_client.py), and the
-query tracker (server/query_tracker.py).
+exec-node dispatch (server/exec_service.py over rpc/) and remote copy
+(remote_client.py).
 """
 
 from __future__ import annotations
@@ -137,90 +140,11 @@ def _not_ported(what: str, module: str) -> YtError:
                    code=EErrorCode.QueryUnsupported)
 
 
-# Own copy of the JAX package's rpc/channel.py::hedged_race (the rpc/
-# slice is not ported).
-# Cluster-wide cap on in-flight hedge threads: losing (slow) attempts
-# park a daemon thread until they finish, so the cap must cover
-# request_rate x slow_latency.  Past it, hedged_race degrades to running
-# attempts sequentially in the caller's thread — safe, just unhedged.
-_HEDGE_SLOTS = threading.BoundedSemaphore(64)
-
-
-def hedged_race(attempts: "list", delay: float):
-    """First-success race with staggered arming (ref
-    core/rpc/hedging_channel.h generalized to N attempts): attempt 0
-    starts immediately; attempt i+1 is armed after `delay` with no
-    answer, or IMMEDIATELY when attempt i fails.  Raises the last
-    YtError when every attempt fails; a NON-YtError from any attempt
-    propagates immediately (a programming error must never be swallowed
-    into a silent hang).  Losing attempts run on abandoned daemon
-    threads — a wedged loser cannot block the caller or interpreter
-    exit."""
-    import queue as _queue
-
-    if not attempts:
-        raise YtError("hedged race with no attempts",
-                      code=EErrorCode.PeerUnavailable)
-    results: "_queue.SimpleQueue" = _queue.SimpleQueue()
-
-    def run(fn):
-        try:
-            try:
-                results.put(("ok", fn()))
-            except BaseException as err:  # noqa: BLE001 — relayed below
-                results.put(("err", err))
-        finally:
-            _HEDGE_SLOTS.release()
-
-    started = 0
-    pending = 0
-    last: YtError | None = None
-    while True:
-        if started < len(attempts):
-            fn = attempts[started]
-            if _HEDGE_SLOTS.acquire(blocking=False):
-                started += 1
-                try:
-                    threading.Thread(target=run, args=(fn,), daemon=True,
-                                     name=f"hedge-{started}").start()
-                except BaseException:
-                    # Thread spawn failed (fd/thread exhaustion): the
-                    # slot must not leak out of the global pool.
-                    _HEDGE_SLOTS.release()
-                    raise
-                pending += 1
-            elif pending == 0:
-                # Saturated with nothing in flight: run inline
-                # (sequential fallback) rather than spawning unboundedly.
-                started += 1
-                try:
-                    return fn()
-                except YtError as err:
-                    last = err
-                    continue
-            # Saturated with attempts in flight: fall through and wait
-            # on their results (a fast success must win over blocking
-            # inline on the next attempt); arming retries next loop.
-        if pending == 0 and started >= len(attempts):
-            raise last
-        try:
-            kind, value = results.get(
-                timeout=delay if started < len(attempts) else None)
-        except _queue.Empty:
-            continue                # stagger elapsed: arm the next
-        pending -= 1
-        if kind == "ok":
-            return value
-        if not isinstance(value, YtError):
-            raise value             # programming error: surface, loudly
-        last = value                # failure: arm the next immediately
-
-
-
 def _hedged_race(attempts: "list[Callable]", delay: float,
                  base_error: YtError):
-    """hedged_race with the replica-fallback error shape: base_error
-    (the primary-table failure) is always the root cause."""
+    """rpc.channel.hedged_race with the replica-fallback error shape:
+    base_error (the primary-table failure) is always the root cause."""
+    from ytsaurus_tpu_torch.rpc.channel import hedged_race
 
     if not attempts:
         raise base_error
@@ -241,12 +165,13 @@ class YtClient:
         self.last_query_statistics = QueryStatistics()
         self._computed_plans: dict = {}
         self._table_replicator = None
+        self._query_tracker = None
         # Stagger between hedged replica lookups (hedging_channel.h).
         self.lookup_hedging_delay = 0.05
 
     def exec_node_addresses(self) -> dict:
-        raise _not_ported("Exec-node dispatch", "the rpc/ and server/ "
-                          "slices")
+        raise _not_ported("Exec-node dispatch", "server/exec_service.py "
+                          "over rpc/")
 
     @property
     def table_replicator(self):
@@ -258,7 +183,11 @@ class YtClient:
 
     @property
     def query_tracker(self):
-        raise _not_ported("The query tracker", "server/query_tracker.py")
+        """Lazy shared QueryTracker (ref server/query_tracker)."""
+        if self._query_tracker is None:
+            from ytsaurus_tpu_torch.server.query_tracker import QueryTracker
+            self._query_tracker = QueryTracker(self)
+        return self._query_tracker
 
     # ------------------------------------------------------------------ cypress
 

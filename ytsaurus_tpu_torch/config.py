@@ -6,9 +6,11 @@ reference's `YsonStruct` layer and its daemon configs have no
 counterpart):
 
   RetryPolicyConfig  the jittered exponential backoff of the per-shard
-                     retry in `query/coordinator.py` and of the
+                     retry in `query/coordinator.py`, of the
                      replicated chunk read ladder
-                     (`chunks/replicated.py`) (`retry_policy`)
+                     (`chunks/replicated.py`) and of the RPC channels'
+                     transport retries with their retry budget
+                     (`rpc/channel.py`) (`retry_policy`)
   CompileConfig      `whole_plan` (the top rung of the degradation
                      ladder), `whole_plan_headroom` (the overflow
                      escalation's slack) and `broadcast_join_rows`
@@ -59,18 +61,28 @@ def _check(name: str, value: float, ge: Optional[float] = None,
 class RetryPolicyConfig:
     """Delay for attempt i is `min(backoff * 2^i, backoff_cap) *
     (1 - jitter * U[0,1))`: the jitter decorrelates retry storms after a
-    common-cause failure."""
+    common-cause failure.
+
+    Token-bucket retry budget: each retry spends one token, each
+    SUCCESSFUL call deposits `retry_budget_refill` tokens (capped at
+    `retry_budget`), and a throttled outcome deposits nothing, so an
+    overloaded cluster sees its retry traffic decay instead of a retry
+    storm. 0 disables the budget."""
 
     attempts: int = 5
     backoff: float = 0.2
     backoff_cap: float = 3.0
     jitter: float = 0.2
+    retry_budget: int = 0
+    retry_budget_refill: float = 0.1
 
     def __post_init__(self):
         _check("attempts", self.attempts, ge=1)
         _check("backoff", self.backoff, ge=0.0)
         _check("backoff_cap", self.backoff_cap, ge=0.0)
         _check("jitter", self.jitter, ge=0.0, le=1.0)
+        _check("retry_budget", self.retry_budget, ge=0)
+        _check("retry_budget_refill", self.retry_budget_refill, ge=0.0)
 
     def delay(self, attempt: int, rng=None) -> float:
         base = min(self.backoff * (2 ** attempt), self.backoff_cap)
@@ -82,6 +94,8 @@ class RetryPolicyConfig:
 
 _RETRY_POLICIES: dict[str, RetryPolicyConfig] = {}
 _RETRY_DEFAULTS: dict[str, dict] = {
+    # General RPC transport retries (rpc/channel.py::RetryingChannel).
+    "rpc": {},
     # Replicated chunk read ladder: rotate fast, short waits.
     "chunk_read": dict(attempts=3, backoff=0.05, backoff_cap=1.0,
                        jitter=0.5),

@@ -17,7 +17,8 @@ cluster's device itself and never relies on a thread's current CUDA
 device.
 
 Not ported yet: the dispatch to remote exec nodes
-(`run_remote_command_job`), which waits for the `rpc/` slice.
+(`run_remote_command_job`), which waits for the exec nodes
+(`server/exec_service.py`).
 Python-callable jobs cannot be killed, so they are neither preemptible
 nor speculated; command jobs are both.
 """
@@ -104,6 +105,12 @@ class Job:
     _split_pending: bool = False     # chosen for split; blocks speculation
     # live process handle for kill-based preemption/speculation-loss
     _proc: Optional[subprocess.Popen] = None
+    # `_settled` (read and written under the manager's lock) marks the
+    # terminal state; `_done` wakes the waiters, and is set only once the
+    # job's on_done observer has run: a controller woken earlier could
+    # publish and clear the operation's snapshot while the observer was
+    # still to record into it.
+    _settled: bool = False
     _done: threading.Event = field(default_factory=threading.Event)
     _lost: bool = False              # lost the speculative race
     _preempted: bool = False         # killed for fairness; will requeue
@@ -200,6 +207,7 @@ class JobManager:
                 job.state = "aborted"
                 job.error = YtError("operation aborted",
                                     code=EErrorCode.Canceled)
+                job._settled = True
                 job._done.set()
             for job in self._running:
                 if job.op_id == op_id:
@@ -209,6 +217,7 @@ class JobManager:
                     parent.state = "aborted"
                     parent.error = YtError("operation aborted",
                                            code=EErrorCode.Canceled)
+                    parent._settled = True
                     parent._done.set()
                     self._split_parents.remove(parent)
             self._completed_durations.pop(op_id, None)
@@ -279,6 +288,7 @@ class JobManager:
                         parent.on_done(parent)
                     except Exception:   # noqa: BLE001 — observer boundary
                         pass
+                parent._done.set()
 
     def _pool_states(self) -> "list[PoolState]":
         pools: dict[str, PoolState] = {}
@@ -358,7 +368,7 @@ class JobManager:
         with self._lock:
             if job in self._running:
                 self._running.remove(job)
-            if not job._done.is_set() and not job._lost:
+            if not job._settled and not job._lost:
                 job._proc = None
                 job.state = "pending"
                 job.attempt += 1
@@ -403,7 +413,7 @@ class JobManager:
         with self._lock:
             if job in self._running:
                 self._running.remove(job)
-            if job._done.is_set():
+            if job._settled:
                 # Already settled by a winning speculative twin (result
                 # copied, waiters woken) — this unwinding run must not
                 # clobber the settled state or re-queue a delivered job.
@@ -426,6 +436,7 @@ class JobManager:
                 job._proc = None
                 return True
             slot_ok = True
+            released: list[Job] = []
             if job._lost:
                 job.state = "aborted"   # deliberate kill: not a slot fault
             elif ok:
@@ -436,7 +447,7 @@ class JobManager:
                 if job.record_duration:
                     self._completed_durations.setdefault(
                         job.op_id, []).append(duration)
-                self._settle_speculation_locked(job)
+                released = self._settle_speculation_locked(job)
             elif job.failures + 1 < job.max_failures:
                 # Failure quarantine (ref max_failed_job_count): the
                 # failure budget absorbs transient faults; waiters keep
@@ -456,13 +467,16 @@ class JobManager:
                 job.error = error
                 prof.counter("failed").increment()
                 slot_ok = False
-            job._done.set()
+            job._settled = True
             self._lock.notify_all()
         if job.on_done is not None:
             try:
                 job.on_done(job)
             except Exception:      # noqa: BLE001 — observer boundary
                 pass
+        # Waiters wake only now: the observer's record is in place.
+        for settled in (job, *released):
+            settled._done.set()
         return slot_ok
 
     def _kill(self, job: Job) -> None:
@@ -517,7 +531,7 @@ class JobManager:
             child.record_duration = False
         with self._lock:
             # The job may have settled while the splitter ran.
-            if job._done.is_set() or job not in self._running or \
+            if job._settled or job not in self._running or \
                     job.split_children is not None:
                 return
             logger.info("splitting job %s into %d children",
@@ -550,7 +564,7 @@ class JobManager:
             else:
                 continue
             self._split_parents.remove(parent)
-            parent._done.set()
+            parent._settled = True
             self._lock.notify_all()
             settled.append(parent)
         return settled
@@ -581,10 +595,13 @@ class JobManager:
             _profiler.counter("speculated").increment()
             self._pending.append(twin)
 
-    def _settle_speculation_locked(self, winner: Job) -> None:
-        """First finisher wins; abort the twin."""
+    def _settle_speculation_locked(self, winner: Job) -> "list[Job]":
+        """First finisher wins; abort the twin. Returns the original job
+        when the twin won: its waiters wake with the winner's, after the
+        winner's on_done observer."""
+        released = []
         rival = winner.speculative_of
-        if rival is not None and not rival._done.is_set():
+        if rival is not None and not rival._settled:
             # Twin finished first: copy the result onto the original so
             # waiters (which hold the original) observe success.  The
             # logical job's on_done fires exactly once — here via the
@@ -594,7 +611,8 @@ class JobManager:
             rival.state = "completed"
             rival.duration = winner.duration
             self._kill(rival)
-            rival._done.set()
+            rival._settled = True
+            released.append(rival)
             if rival in self._running:
                 self._running.remove(rival)
         for job in self._pending + self._running:
@@ -602,9 +620,11 @@ class JobManager:
                 if job in self._pending:
                     self._pending.remove(job)
                     job.state = "aborted"
+                    job._settled = True
                     job._done.set()
                 else:
                     self._kill(job)
+        return released
 
     # -- preemption ------------------------------------------------------------
 

@@ -447,7 +447,7 @@ def _map_controller(client, spec: dict, op=None, job_manager=None) -> dict:
     on the shared JobManager under spec["pool"] fair share; stragglers
     get speculative twins and are split in halves (command jobs). Every
     command job runs in this process's job slots: the dispatch to exec
-    nodes waits for the rpc/ slice."""
+    nodes waits for server/exec_service.py."""
     from ytsaurus_tpu_torch.formats import dumps_rows, loads_rows
     from ytsaurus_tpu_torch.operations.chunk_pools import build_stripes, split_stripe
     from ytsaurus_tpu_torch.operations.jobs import Job, run_command_job

@@ -9,7 +9,9 @@ column above the latest delete — TVersionedRow semantics
 
 Port of the JAX package's `tablet/dynamic_store.py`. Differences:
 `to_versioned_chunk` builds the planes on the device it is given (the
-tablet's), and the sorted key list is kept lazily: a new key is appended,
+tablet's), from the versions taken column-wise (`versioned_columns`,
+`ColumnarChunk.from_columns`: no row dicts), and the sorted key list is
+kept lazily: a new key is appended,
 and the list is sorted when the store is next iterated, so a store of n
 keys costs O(n log n) to fill instead of the O(n^2) of inserting each key
 at its place (a store holds up to 1,000,000 rows before a flush).
@@ -134,28 +136,45 @@ class SortedDynamicStore:
         if cached is not None and cached[0] == count and \
                 cached[1] == device:
             return cached[2]
-        chunk = ColumnarChunk.from_rows(versioned_schema,
-                                        self.versioned_rows(), device=device)
+        columns = self.versioned_columns()
+        chunk = ColumnarChunk.from_columns(
+            versioned_schema, columns, len(columns["$timestamp"]),
+            device=device)
         self._versioned_chunk_cache = (count, device, chunk)
         return chunk
 
-    def versioned_rows(self) -> list[dict]:
-        """Flatten to versioned row dicts (newest first per key) for
-        flushing: key columns + $timestamp + $tombstone + value columns +
-        per-column $w: written flags (partial writes carry False for
-        columns the version does not state)."""
-        out = []
+    def versioned_columns(self) -> dict[str, list]:
+        """The store's versions column-wise (newest first per key): key
+        columns + $timestamp + $tombstone + each value column followed by
+        its $w: written flag (partial writes carry False for columns the
+        version does not state)."""
+        names = [*self.key_names, "$timestamp", "$tombstone"]
+        for name in self.value_names:
+            names += [name, f"$w:{name}"]
+        columns: dict[str, list] = {name: [] for name in names}
+        key_columns = [columns[name] for name in self.key_names]
+        stamps, tombs = columns["$timestamp"], columns["$tombstone"]
+        value_columns = [(name, columns[name], columns[f"$w:{name}"])
+                         for name in self.value_names]
         for key, versions in self.iter_items():
             for ts, state in sorted(versions, key=lambda v: -v[0]):
-                row = {name: value for name, value in zip(self.key_names, key)}
-                row["$timestamp"] = ts
-                row["$tombstone"] = state is None
-                for name in self.value_names:
-                    written = state is not None and name in state
-                    row[name] = state.get(name) if written else None
-                    row[f"$w:{name}"] = written
-                out.append(row)
-        return out
+                for column, value in zip(key_columns, key):
+                    column.append(value)
+                stamps.append(ts)
+                tombs.append(state is None)
+                for name, column, written in value_columns:
+                    stated = state is not None and name in state
+                    column.append(state[name] if stated else None)
+                    written.append(stated)
+        return columns
+
+    def versioned_rows(self) -> list[dict]:
+        """versioned_columns as row dicts (a small store's flush and the
+        replication log read them)."""
+        columns = self.versioned_columns()
+        names = list(columns)
+        return [dict(zip(names, values))
+                for values in zip(*columns.values())]
 
 
 def _null_safe(key: tuple) -> tuple:

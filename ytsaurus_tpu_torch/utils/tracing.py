@@ -3,9 +3,9 @@ recorder.
 
 Own copy of the JAX package's `utils/tracing.py` (ref
 core/tracing/trace_context.h:75): a `contextvars`-based ambient context,
-finished sampled spans in a bounded ring with a drain cursor. The
-reference's wire encoding (`to_wire` / `from_wire`) waits for the port's
-`rpc/` slice.
+finished sampled spans in a bounded ring with a drain cursor, and the
+reference's wire encoding (`to_wire` / `from_wire`): a plain dict that the
+RPC envelope carries.
 
 Span-site discipline (what keeps an untraced hot path ~free):
 
@@ -219,6 +219,27 @@ class TraceContext:
             _collector.add(SpanRecord(self, time.perf_counter() - self._t0))
         return False
 
+    # -- wire ------------------------------------------------------------------
+
+    def to_wire(self) -> dict:
+        return {"trace_id": self.trace_id, "span_id": self.span_id,
+                "sampled": self.sampled, "baggage": self.baggage}
+
+    @classmethod
+    def from_wire(cls, wire: Optional[dict], name: str) -> "TraceContext":
+        if not wire:
+            return cls(name)
+        def _text(v):
+            return v.decode() if isinstance(v, bytes) else v
+        wire = {(_text(k)): v for k, v in wire.items()}
+        return cls(name, trace_id=_text(wire.get("trace_id")),
+                   parent_span_id=_text(wire.get("span_id")),
+                   sampled=bool(wire.get("sampled", True)),
+                   baggage={_text(k): (_text(v) if isinstance(v, bytes)
+                                       else v)
+                            for k, v in (wire.get("baggage") or {}).items()})
+
+
 class _NullSpan:
     """The no-op span: what an untraced (or sampled-out) site gets.
     Activation touches NOTHING — not even the contextvar — so nesting
@@ -247,6 +268,9 @@ class _NullSpan:
 
     def create_child(self, name) -> "_NullSpan":
         return self
+
+    def to_wire(self) -> None:
+        return None
 
 
 NULL_SPAN = _NullSpan()
