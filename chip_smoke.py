@@ -72,41 +72,46 @@ Phases (any failure exits non-zero and prints no result line):
      retained versions equal to that of the originals at both
      timestamps. REPS warm runs, with each operation's time;
      DYNTABLE: the same table through the storage path (the host codec
-     library must load; it fails otherwise): a history of 24,000,000
-     base versions (g and v) and 8,000,000 later versions on random keys
+     library must load; it fails otherwise): a history of 6,000,000
+     base versions (g and v) and 2,000,000 later versions on random keys
      (99% partial writes of v, 1% deletes), interleaved at random over
-     timestamps 1..32,000,000 (each key's first version is its base), so
-     the compaction cut supersedes versions; cut by timestamp into 4 chunks of
-     8,000,000 versions, each sorted by (k, -ts) with numpy and written
+     timestamps 1..8,000,000 (each key's first version is its base), so
+     the compaction cut supersedes versions; cut by timestamp into 4
+     chunks of 2,000,000 versions, each sorted by (k, -ts) with numpy and
+     written
      through FsChunkStore.write_chunk at zlib_6 into a temporary
      directory, then mounted in a Tablet on the card by their chunk ids;
-     500,000 writes through TransactionManager in 500 transactions
+     250,000 writes through TransactionManager in 250 transactions
      (90% partial writes of v to existing keys, 9% new keys writing g and
      v, 1% deletes; writes/s on the host); flush() once under the
      profiler (the store's device sort and the serialize + write apart);
      read_snapshot at MAX_TIMESTAMP cold (5 decodes: decode, host -> device
-     copy and merge apart), then at 16,000,000 through the path runner,
+     copy and merge apart), then at 4,000,000 through the path runner,
      then a latest read that must hit the snapshot cache; GROUP BY g over
      both snapshots (REPS warm runs); lookup_rows of 4,096 keys (history
      only, rewritten, deleted, new, absent; REPS runs with the row cache
-     cleared, one that hits it); compact(retention_timestamp=16,000,000)
+     cleared, one that hits it); compact(retention_timestamp=4,000,000)
      once under the profiler: one chunk of the oracle's retained row
      count, the old files gone, and both reads unchanged. Every result
      is held to a numpy oracle (the TABLET oracle over the history and
      the writes at their commit timestamps), exactly;
-     DURABLE: SELECT_8's table (below) stored through the storage layer,
+     DURABLE: the first 5 of SELECT_8's 8 chunks (below; 40,000,000 rows,
+     cut from all 8 to fit CELLS) stored through the storage layer,
      each read a query through coordinate_and_execute over lazy shards
-     that decode the chunks onto the card, held to SELECT_8's oracle. An
-     FsChunkStore holds the 8 chunks erasure-coded as lrc_12_2_2 (12 data
-     and 4 parity parts; every part's sha256 recorded); chunks 0-3 then
-     lose one data part each (both locality groups), chunks 4-5 two data
-     parts and one parity part; read 1 repairs (exactly the data parts
-     and, for a single loss, only its group's local parity are read; the
+     that decode the chunks onto the card, held to SELECT_8's oracle over
+     those rows. An
+     FsChunkStore holds the 5 chunks erasure-coded as lrc_12_2_2 (12 data
+     and 4 parity parts; every part's sha256 recorded); chunks 0-1 then
+     lose one data part each (both locality groups), chunks 2-3 two data
+     parts and one parity part, chunk 4 none; read 1 repairs (exactly
+     the data parts and, for a single loss, only its group's local
+     parity are read; the
      `chunks.erasure.part_read` site counts them) and every rewritten
      part must hash as before; read 2 reads data parts only and repairs
-     nothing (profiled); verify_chunk holds for all 8; a ninth chunk that
+     nothing (profiled); verify_chunk holds for all 5; a sixth chunk that
      lost parts 0, 1, 2 and 12 raises ChunkFormatError. Then a
-     ReplicatedChunkStore over 4 locations at replication factor 3: one
+     ReplicatedChunkStore over 4 locations at replication factor 3 (the
+     chunks written by the client's write_table_chunks): one
      location's directory is deleted, the query re-replicates (every
      chunk back at 3 copies, each the same bytes), a clean read
      (profiled), one replica with a flipped byte fails verify_chunk and
@@ -118,17 +123,18 @@ Phases (any failure exits non-zero and prints no result line):
      bytes on disk per store, launches and peak memory per read;
      QUEUE: an ordered (queue) tablet on the card, rows of producer in
      [0, 64), seq (the producer's own count), v double and payload over
-     65,536 distinct 24-byte strings, from --seed + 11: 4,200,000 rows
-     appended in batches of 1,000 at their own timestamps, flushed at
-     every 1,000,000 rows (4 chunks; 200,000 rows stay in the store); 64
-     read_rows of 10,000 rows (8 across a chunk boundary or the store's
-     base), each against the oracle; trim_rows(1,500,000) removes the
-     first chunk's file, reads below and above the trim point; snapshot
-     at row 3,000,000's timestamp and the latest (host seconds, profiled
-     device ms), each queried on the card by a GROUP BY producer under
-     WHERE $row_index >= 2000000 (counts exact, sums to rtol 1e-9) and
+     65,536 distinct 24-byte strings, from --seed + 11: 2,200,000 rows
+     (cut from 4,200,000 to fit CELLS) appended in batches of 1,000 at
+     their own timestamps, flushed at every 1,000,000 rows (2 chunks;
+     200,000 rows stay in the store); 64 read_rows of 10,000 rows (4
+     across a chunk boundary or the store's base), each against the
+     oracle; trim_rows(1,500,000) removes the first chunk's file, reads
+     below and above the trim point; snapshot at row 1,800,000's
+     timestamp and the latest (host seconds, profiled device ms), each
+     queried on the card by a GROUP BY producer under
+     WHERE $row_index >= 1600000 (counts exact, sums to rtol 1e-9) and
      an ORDER BY seq DESC, producer LIMIT 100 (rows and order exact);
-     the first 160,000 consumed rows through dumps_rows / loads_rows in yson,
+     the first 80,000 consumed rows through dumps_rows / loads_rows in yson,
      json, dsv and schemaful_dsv and dumps_skiff / loads_skiff, each
      giving back the same rows (host seconds and bytes per format);
      CLIENT: the slice through ytsaurus_tpu_torch.client.connect(tmp,
@@ -210,6 +216,38 @@ Phases (any failure exits non-zero and prints no result line):
      at a timestamp, 10,000 more rows, restore_table_backup equal to the
      table at that timestamp; the upstream unmounted and looked up through
      its replicas. Each stage of OPS and DERIVED runs as CLIENT's do;
+     CELLS: the master's quorum and its cells in this process on
+     127.0.0.1:0, as server/daemon.py composes them across processes:
+     three data nodes (DataNodeService over a chunk location and a
+     journal directory each, heartbeating into a NodeTracker over RPC),
+     a Master on a QuorumWal over them (write quorum 2 of 3) elected by a
+     LeaderElector, two ClockServer peers electing over the same nodes
+     behind ClockServices, a QuorumTimestampProvider over both as the
+     cluster's clock, and a YtCluster on the card over an RpcChunkStore
+     (2 replicas). Bring-up (the clock's and the master's election
+     seconds, the WAL's rate alone over 100 sets); 16,777,216 rows
+     (k, g < 10,000, v < 1000, from --seed + 29) published as 2 chunks,
+     each on 2 of the 3 nodes, SELECT_8's query cold (both blobs over
+     RPC, decoded onto the card) and 5 times warm, the join with a
+     10,000-row dimension grouped by name (both radix kernels); a portal
+     //cell to a second root on the card, 1,048,576 rows written under it
+     through the primary, GROUP BY g ORDER BY sum(v) DESC, g LIMIT 100
+     through the primary's routed front door (multicell.delegate_for),
+     and the portal's removal, whose exit Hive dismantles with exactly
+     one message; 100,000 rows into a sorted dynamic table in 100
+     transactions with the clock leader killed after the 50th (the
+     standby takes over, every commit timestamp above the one before),
+     4,096 lookups from 16 threads and the read-back; node 3 stopped and
+     1,000 Cypress mutations each on 2 of 3 journals, the master closed,
+     node 3 back, a new Master on a fresh path over the same nodes at
+     epoch + 1 holding every acknowledged mutation (check_wal on the
+     recovered log, node 3 caught up), a new YtCluster over it whose
+     SELECT_8 and read-back agree without waiting for the next second;
+     Sequoia over a 1,000-node namespace (maps and documents four levels
+     deep) built through the quorum WAL: enable(), 4,096 resolves, 256
+     read_list / read_get calls, 100 more mutations with an aborted
+     transaction, verify() empty. Each stage runs as CLIENT's do and also
+     records the RPC requests and bytes of every server;
      SELECT (query/coordinator.py::coordinate_and_execute, the host rung
      behind select_rows, one evaluator on the card): SELECT_8 (bench.py's
      select over 8 chunks of 8,000,000 rows: k the row number, g uniform
@@ -290,11 +328,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1510,16 +1550,19 @@ def phase_tablet(seed: int, hr, rx, port) -> dict:
 
 # --- DYNTABLE: the dynamic-table storage path -------------------------------
 
-DYN_KEYS = 24_000_000        # keys, each with one base version (g and v)
-DYN_LATER = 8_000_000        # later versions on random keys
-DYN_CHUNK = 8_000_000        # versions per mounted chunk, cut by timestamp
-# Writes into the store: half of max_dynamic_store_row_count's default
-# (1,000,000), cut to fit FRONT in the check's time (as CLIENT's were).
-DYN_WRITES = 500_000
+# The history, cut from 24,000,000 keys and 8,000,000 later versions to
+# fit CELLS in the check's time (PERF.md §4).
+DYN_KEYS = 6_000_000         # keys, each with one base version (g and v)
+DYN_LATER = 2_000_000        # later versions on random keys
+DYN_CHUNK = 2_000_000        # versions per mounted chunk, cut by timestamp
+# Writes into the store: a quarter of max_dynamic_store_row_count's
+# default (1,000,000), cut to fit FRONT, then CELLS, in the check's time
+# (as CLIENT's were).
+DYN_WRITES = 250_000
 DYN_TX_ROWS = 1_000          # rows per transaction
 DYN_NEW_SHARE = 0.09         # writes that add a key (g and v)
 DYN_WRITE_DELETES = 0.01     # writes that delete a key; the rest write v
-DYN_READ_TS = 16_000_000     # the historical read and the compaction cut
+DYN_READ_TS = 4_000_000      # the historical read and the compaction cut
 DYN_LOOKUPS = 4_096
 DYN_RANGES = ("tablet.flush", "tablet.read", "tablet.compact",
               "tablet.write") + MVCC_RANGES
@@ -1740,7 +1783,8 @@ def phase_dyntable(seed: int, hr, rx, port) -> dict:
                                        rx)
         rec["host_s"] = time.perf_counter() - t0
         meta = store.read_meta(flushed)
-        if meta["row_count"] != DYN_WRITES or len(tablet.chunk_ids) != 5:
+        if meta["row_count"] != DYN_WRITES or \
+                len(tablet.chunk_ids) != n // DYN_CHUNK + 1:
             raise AssertionError(f"DYNTABLE flush wrote {meta['row_count']} "
                                  f"rows, {len(tablet.chunk_ids)} chunks")
         rec.update(versions=DYN_WRITES, chunks=len(tablet.chunk_ids),
@@ -1907,10 +1951,12 @@ def phase_dyntable(seed: int, hr, rx, port) -> dict:
 DURABLE_CODEC = "lrc_12_2_2"   # YTsaurus's usual erasure codec for tables
 DURABLE_LOCATIONS = 4          # location roots of the replicated store
 DURABLE_RF = 3                 # YTsaurus's default replication_factor
-# Parts each LRC chunk loses before the first read: chunks 0-3 one data
-# part each (both locality groups hit), chunks 4-5 two data parts and one
-# parity part, chunks 6-7 none.
-DURABLE_LOST = [(1,), (4,), (7,), (10,), (0, 6, 14), (3, 11, 12), (), ()]
+# SELECT's first chunks stored (cut from all 8 to fit CELLS, PERF.md §4).
+DURABLE_CHUNKS = 5
+# Parts each LRC chunk loses before the first read: chunks 0-1 one data
+# part each (both locality groups hit), chunks 2-3 two data parts and one
+# parity part (a global parity, then a local one), chunk 4 none.
+DURABLE_LOST = [(1,), (7,), (0, 6, 14), (3, 11, 12), ()]
 # Three data parts of one group and its local parity: the reference
 # refuses this pattern (tests/test_erasure.py).
 DURABLE_UNRECOVERABLE = (0, 1, 2, 12)
@@ -1981,7 +2027,7 @@ def _durable_read(name: str, co, ev, plan, shards, check, hr, rx,
 
 
 def phase_durable(seed: int, hr, rx, port) -> dict:
-    """DURABLE: the select table (64M rows as 8 chunks of 8M) stored
+    """DURABLE: the select table's first 5 chunks (40M rows) stored
     erasure-coded (lrc_12_2_2) and then replicated (4 locations, factor
     3), damaged, and read back through coordinate_and_execute with lazy
     shards that decode onto the card, each read held to SELECT_8's
@@ -1993,13 +2039,14 @@ def phase_durable(seed: int, hr, rx, port) -> dict:
     from ytsaurus_tpu_torch.chunks.erasure import get_erasure_codec
     from ytsaurus_tpu_torch.chunks.replicated import ReplicatedChunkStore
     from ytsaurus_tpu_torch.chunks.store import FsChunkStore
+    from ytsaurus_tpu_torch.client import write_table_chunks
     from ytsaurus_tpu_torch.errors import EErrorCode, YtError
     from ytsaurus_tpu_torch.utils import failpoints
     t_phase = time.perf_counter()
     co = _coordinator_entry_points()
     ev = co.Evaluator("cuda")
     codec = get_erasure_codec(DURABLE_CODEC)
-    arrays = _select_arrays(seed)
+    arrays = _select_arrays(seed)[:DURABLE_CHUNKS]
     check = _select_group_check(arrays, "DURABLE")
     schema = port.TableSchema.make([("k", "int64", "ascending"),
                                     ("g", "int64"), ("v", "int64")])
@@ -2101,13 +2148,15 @@ def phase_durable(seed: int, hr, rx, port) -> dict:
         roots = [os.path.join(root, f"loc{i}")
                  for i in range(DURABLE_LOCATIONS)]
         rs = ReplicatedChunkStore(roots, replication_factor=DURABLE_RF)
+
+        chunks = [port.ColumnarChunk.from_arrays(schema, a, device="cuda")
+                  for a in arrays]
         t = time.perf_counter()
-        for cid, a in zip(ids, arrays):
-            rs.write_chunk(port.ColumnarChunk.from_arrays(schema, a,
-                                                          device="cuda"),
-                           chunk_id=cid)
+        # Written as a client's publish writes a table's chunks.
+        ids, _ = write_table_chunks(rs, chunks)
         rep["write"] = {"host_s": time.perf_counter() - t,
                         "bytes_on_disk": sum(_tree_bytes(r) for r in roots)}
+        del chunks
         _dyntable_log("durable replicated write", rep["write"])
 
         def copies(cid):
@@ -2195,7 +2244,8 @@ def phase_durable(seed: int, hr, rx, port) -> dict:
 
 # --- QUEUE: an ordered (queue) tablet ----------------------------------------
 
-QUEUE_ROWS = 4_000_000         # rows flushed into chunks
+QUEUE_ROWS = 2_000_000         # rows flushed into chunks (cut from
+                               # 4,000,000 to fit CELLS, PERF.md §4)
 QUEUE_TAIL = 200_000           # rows left in the dynamic store
 QUEUE_BATCH = 1_000            # rows per append, each at its own timestamp
 QUEUE_FLUSH = 1_000_000        # max_dynamic_store_row_count's default
@@ -2203,12 +2253,12 @@ QUEUE_PRODUCERS = 64
 QUEUE_PAYLOADS = 65_536        # distinct 24-byte payloads
 QUEUE_CONSUMERS = 64
 QUEUE_READ = 10_000            # rows per consumer read
-QUEUE_FORMAT_ROWS = 160_000    # consumed rows through the formats (cut from
-                               # all 640,000 to 320,000, then to 160,000, to
-                               # fit the new phases)
+QUEUE_FORMAT_ROWS = 80_000     # consumed rows through the formats (cut from
+                               # all 640,000 to 320,000, then to 160,000 and
+                               # 80,000, to fit the new phases)
 QUEUE_TRIM = 1_500_000
-QUEUE_SNAPSHOT_ROW = 3_000_000  # snapshot(ts) at this row's timestamp
-QUEUE_GROUP_FROM = 2_000_000   # the GROUP BY's least $row_index
+QUEUE_SNAPSHOT_ROW = 1_800_000  # snapshot(ts) at this row's timestamp
+QUEUE_GROUP_FROM = 1_600_000   # the GROUP BY's least $row_index
 QUEUE_GROUP = ("producer, count(*) AS c, sum(v) AS s FROM [//q] "
                f"WHERE $row_index >= {QUEUE_GROUP_FROM} GROUP BY producer")
 QUEUE_TOP = 100
@@ -2305,9 +2355,9 @@ def _queue_formats(rows: list, port) -> dict:
 
 
 def phase_queue(seed: int, hr, rx, port) -> dict:
-    """QUEUE: an ordered tablet on the card. 4,200,000 message rows
+    """QUEUE: an ordered tablet on the card. 2,200,000 message rows
     appended in batches of 1,000 (each at its own timestamp), flushed at
-    every 1,000,000 rows (4 chunks, 200,000 rows left in the store); 64
+    every 1,000,000 rows (2 chunks, 200,000 rows left in the store); 64
     consumer reads of 10,000 rows; a trim; snapshots at a timestamp and
     at the latest, each queried on the card (GROUP BY and ORDER BY ...
     LIMIT); the consumers' rows through every row format. Everything is
@@ -2359,9 +2409,10 @@ def phase_queue(seed: int, hr, rx, port) -> dict:
                             for c in tablet.chunk_ids],
             "bytes_on_disk": _tree_bytes(root)}
         _dyntable_log("queue write", out["write"])
-        # Consumers: offsets spread over the log, 8 across the chunk
-        # boundaries and the store's base.
-        edges = [b * QUEUE_FLUSH + d_ for b in range(1, 5)
+        # Consumers: offsets spread over the log, 2 across each chunk
+        # boundary and the store's base.
+        edges = [b * QUEUE_FLUSH + d_
+                 for b in range(1, QUEUE_ROWS // QUEUE_FLUSH + 1)
                  for d_ in (-QUEUE_READ // 2, -1)]
         spread = np.linspace(0, n - QUEUE_READ, QUEUE_CONSUMERS
                              - len(edges)).astype(np.int64).tolist()
@@ -2383,7 +2434,8 @@ def phase_queue(seed: int, hr, rx, port) -> dict:
         # point start at it.
         first = tablet.chunk_ids[0]
         tablet.trim_rows(QUEUE_TRIM)
-        if store.exists(first) or len(tablet.chunk_ids) != 3:
+        if store.exists(first) or \
+                len(tablet.chunk_ids) != QUEUE_ROWS // QUEUE_FLUSH - 1:
             raise AssertionError("QUEUE: the trim left the first chunk")
         above = QUEUE_TRIM + QUEUE_FLUSH // 10
         for off, lo in ((0, QUEUE_TRIM),
@@ -4099,6 +4151,728 @@ def phase_derived(seed: int, hr, rx, port) -> dict:
     return out
 
 
+# --- CELLS: the master's quorum and its cells -------------------------------
+
+CELLS_ROWS = 16_777_216        # SELECT's table at its full width, 2 chunks
+CELLS_CHUNKS = 2               # of 8,388,608 rows, each on 2 of the 3 nodes
+CELLS_NODES = 3                # data nodes (chunk locations and journals)
+CELLS_RF = 2                   # RpcChunkStore's replication factor
+CELLS_WAL_QUORUM = 2           # the master's write quorum over the 3 nodes
+CELLS_LEASE_TTL = 2.0          # seconds of a master's or clock peer's lease
+CELLS_WARM = 5                 # warm runs of SELECT_8 after the cold one
+CELLS_RATE_MUTATIONS = 100     # Cypress sets that time the WAL alone
+CELLS_CELL_ROWS = 1_048_576    # rows written under the portal
+CELLS_TOP = 100
+CELLS_DYN_ROWS = 100_000       # rows of the dynamic table, in
+CELLS_TX_ROWS = 1_000          # transactions of this many rows
+CELLS_DYN_KEYS = 1_000_000     # keys drawn without repeats from [0, this)
+CELLS_LOOKUPS = 4_096
+CELLS_LOOKUP_BATCH = 16
+CELLS_THREADS = 16
+CELLS_MUTATIONS = 1_000        # Cypress mutations with one node down
+CELLS_NAMESPACE = 1_000        # Sequoia's namespace: maps and documents (cut
+                               # from 10,000 to what fits 15 s at the WAL's
+                               # rate, PERF.md §4)
+CELLS_FANOUT = 10              # maps per map on the first three levels
+CELLS_RESOLVES = 4_096
+CELLS_READS = 256              # read_list / read_get calls
+CELLS_LATE_MUTATIONS = 100     # mutations after Sequoia's sync
+CELLS_T = "//cells/t"
+CELLS_QUERY = ("g, sum(v) AS s, count(*) AS c FROM [//cells/t] "
+               "WHERE v < 900 GROUP BY g")
+CELLS_JOIN = ("name, sum(v) AS s, count(*) AS c FROM [//cells/t] "
+              "JOIN [//cells/dim] USING g GROUP BY name")
+CELLS_CELL_QUERY = (f"g, sum(v) AS s FROM [//cell/t] GROUP BY g "
+                    f"ORDER BY sum(v) DESC, g LIMIT {CELLS_TOP}")
+CELLS_DYN = "//cells/dyn"
+
+
+class _CellsPlane:
+    """CELLS's servers on 127.0.0.1:0: a NodeTracker behind a
+    NodeTrackerService, and data nodes, each an RpcServer over a
+    DataNodeService with a chunk location and a journal directory of its
+    own, heartbeating into the tracker over RPC. A stopped node restarts
+    on its port with its disk as it left it. `rpc()` sums the requests
+    and bytes of every server the plane has run (clock peers join it)."""
+
+    def __init__(self, root: str):
+        from ytsaurus_tpu_torch import rpc
+        from ytsaurus_tpu_torch.server.services import (
+            NodeTracker,
+            NodeTrackerService,
+        )
+        self.rpc_mod = rpc
+        self.root = root
+        self.tracker = NodeTracker()
+        self.tracker_server = rpc.RpcServer([NodeTrackerService(
+            self.tracker)])
+        self.tracker_server.start()
+        self.servers = [self.tracker_server]
+        self.nodes: list = [None] * CELLS_NODES
+        self.services: list = [None] * CELLS_NODES
+        self.ports = [0] * CELLS_NODES
+        self._beats: dict = {}
+        for i in range(CELLS_NODES):
+            self.start_node(i)
+
+    def start_node(self, i: int) -> None:
+        from ytsaurus_tpu_torch.chunks.store import FsChunkStore
+        from ytsaurus_tpu_torch.server.services import DataNodeService
+        base = os.path.join(self.root, f"node{i}")
+        service = DataNodeService(FsChunkStore(os.path.join(base, "chunks")),
+                                  os.path.join(base, "journals"))
+        server = self.rpc_mod.RpcServer([service], port=self.ports[i])
+        server.start()
+        self.ports[i] = server.port
+        self.nodes[i], self.services[i] = server, service
+        self.servers.append(server)
+        stop = threading.Event()
+        channel = self.rpc_mod.Channel(self.tracker_server.address,
+                                       timeout=10)
+        body = {"id": f"node{i}", "address": server.address}
+        channel.call("node_tracker", "heartbeat", body)
+
+        def loop():
+            while not stop.wait(1.0):
+                try:
+                    channel.call("node_tracker", "heartbeat", body)
+                except Exception:   # noqa: BLE001 — the next beat retries
+                    pass
+            channel.close()
+        thread = threading.Thread(target=loop, daemon=True,
+                                  name=f"heartbeat-{i}")
+        thread.start()
+        self._beats[i] = (stop, thread)
+
+    def stop_node(self, i: int) -> None:
+        stop, thread = self._beats.pop(i)
+        stop.set()
+        thread.join()
+        self.nodes[i].stop()
+        self.nodes[i] = None
+
+    def addresses(self) -> list:
+        return [f"127.0.0.1:{p}" for p in self.ports]
+
+    def channels(self) -> list:
+        """One plain channel per node: a stopped node refuses at once (a
+        retrying channel would back off on every append)."""
+        return [self.rpc_mod.Channel(a, timeout=30)
+                for a in self.addresses()]
+
+    def rpc(self) -> dict:
+        return {key: sum(s.stats[key] for s in self.servers)
+                for key in ("requests", "bytes_in", "bytes_out")}
+
+    def journal_counts(self, journal: str = "master_wal") -> list:
+        """Each node's record count of `journal` (None while it is down)."""
+        out = []
+        for address, node in zip(self.addresses(), self.nodes):
+            if node is None:
+                out.append(None)
+                continue
+            channel = self.rpc_mod.Channel(address, timeout=30)
+            body, _ = channel.call("data_node", "journal_count",
+                                   {"journal": journal})
+            channel.close()
+            out.append(int(body["count"]))
+        return out
+
+    def close(self) -> None:
+        for i in list(self._beats):
+            self.stop_node(i)
+        self.tracker_server.stop()
+
+
+class _CellsClock:
+    """The clock quorum: ClockServer peers over the plane's journal nodes
+    (journal "clock_wal"), each behind an RpcServer([ClockService])."""
+
+    def __init__(self, plane: _CellsPlane, root: str, peers: int = 2):
+        from ytsaurus_tpu_torch.tablet.clock import ClockServer, ClockService
+        self.peers = []
+        self.servers = []
+        for i in range(peers):
+            peer = ClockServer(os.path.join(root, f"clock{i}"),
+                               plane.channels(), index=i,
+                               lease_ttl=CELLS_LEASE_TTL).start()
+            server = plane.rpc_mod.RpcServer([ClockService(peer)])
+            server.start()
+            plane.servers.append(server)
+            self.peers.append(peer)
+            self.servers.append(server)
+
+    def addresses(self) -> list:
+        return [s.address for s in self.servers]
+
+    def wait_leader(self, timeout: float = 60.0) -> int:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            leaders = [i for i, p in enumerate(self.peers)
+                       if p is not None and p.is_leader]
+            if leaders:
+                return leaders[0]
+            time.sleep(0.01)
+        raise AssertionError("CELLS: no clock leader was elected")
+
+    def kill(self, i: int) -> None:
+        """The peer's process goes away: its server stops answering and
+        its lease is no longer renewed."""
+        self.servers[i].stop()
+        self.peers[i].stop()
+        self.peers[i] = None
+
+    def close(self) -> None:
+        for i, peer in enumerate(self.peers):
+            if peer is not None:
+                self.kill(i)
+
+
+def _cells_master(plane, master_dir: str, fresh: bool, lost: dict):
+    """A Master over a QuorumWal on the plane's nodes (write quorum 2 of
+    3, remote-only: a successor recovers with a fresh local path), elected
+    by a LeaderElector. Returns (master, wal, elector, seconds to elect
+    and recover)."""
+    from ytsaurus_tpu_torch.cypress.election import LeaderElector
+    from ytsaurus_tpu_torch.cypress.master import Master
+    from ytsaurus_tpu_torch.cypress.quorum import QuorumWal
+    t = time.perf_counter()
+    os.makedirs(master_dir, exist_ok=True)
+    wal = QuorumWal(os.path.join(master_dir, Master.CHANGELOG),
+                    "master_wal", plane.channels(), quorum=CELLS_WAL_QUORUM,
+                    count_local_ack=False, bootstrap_from_local=fresh,
+                    lease_ttl=CELLS_LEASE_TTL)
+    elector = LeaderElector("master_wal",
+                            lambda: [r.channel for r in wal.replicas],
+                            wal.writer_id, lease_ttl=CELLS_LEASE_TTL)
+    if not elector.wait_until_electable(timeout=60.0):
+        raise AssertionError("CELLS: the master never became electable")
+    master = Master(master_dir, wal=wal)
+    elector.start_renewing(lambda: wal.epoch,
+                           lambda: lost.__setitem__("master", True))
+    return master, wal, elector, time.perf_counter() - t
+
+
+def _cells_data(seed: int) -> dict:
+    """The select table's chunks, the cell's rows and the dynamic table's
+    rows and lookup keys, from --seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 29)
+    per = CELLS_ROWS // CELLS_CHUNKS
+    chunks = [{"k": np.arange(i * per, (i + 1) * per, dtype=np.int64),
+               "g": rng.integers(0, SELECT_GROUPS, per),
+               "v": rng.integers(0, 1000, per)}
+              for i in range(CELLS_CHUNKS)]
+    cell = {"k": np.arange(CELLS_CELL_ROWS, dtype=np.int64),
+            "g": rng.integers(0, SELECT_GROUPS, CELLS_CELL_ROWS),
+            "v": rng.integers(0, 1000, CELLS_CELL_ROWS)}
+    dyn_k = rng.permutation(CELLS_DYN_KEYS)[:CELLS_DYN_ROWS]
+    dyn_g = rng.integers(0, 1000, CELLS_DYN_ROWS)
+    dyn_v = rng.integers(0, 1000, CELLS_DYN_ROWS)
+    present = rng.choice(CELLS_DYN_ROWS, CELLS_LOOKUPS * 3 // 4,
+                         replace=False)
+    absent = CELLS_DYN_KEYS + rng.choice(CELLS_DYN_KEYS, CELLS_LOOKUPS // 4,
+                                         replace=False)
+    keys = np.concatenate([dyn_k[present], absent])
+    rng.shuffle(keys)
+    return {"chunks": chunks, "cell": cell, "dyn_k": dyn_k, "dyn_g": dyn_g,
+            "dyn_v": dyn_v, "lookup_keys": keys.tolist(),
+            "probe": rng.integers(0, 1 << 31, CELLS_RESOLVES).tolist()}
+
+
+def _cells_lookups(client, d: dict) -> int:
+    """CELLS_LOOKUPS keys of the dynamic table from CELLS_THREADS threads
+    in calls of CELLS_LOOKUP_BATCH keys, each row against the oracle."""
+    oracle = {int(k): (int(g), int(v)) for k, g, v in
+              zip(d["dyn_k"], d["dyn_g"], d["dyn_v"])}
+    keys = d["lookup_keys"]
+    per = len(keys) // CELLS_THREADS
+
+    def run(i):
+        mine = keys[i * per:(i + 1) * per]
+        for lo in range(0, per, CELLS_LOOKUP_BATCH):
+            part = mine[lo:lo + CELLS_LOOKUP_BATCH]
+            rows = client.lookup_rows(CELLS_DYN, [(k,) for k in part])
+            for k, row in zip(part, rows):
+                want = oracle.get(k)
+                got = None if row is None else (row["g"], row["v"])
+                if got != want or (row is not None and row["k"] != k):
+                    raise AssertionError(f"CELLS lookup of {k}: {row} != "
+                                         f"{want}")
+        return per
+
+    return sum(_client_threads(run, CELLS_THREADS))
+
+
+def _cells_readback(client, d: dict) -> int:
+    rows = client.select_rows(f"k, g, v FROM [{CELLS_DYN}]")
+    got = sorted((r["k"], r["g"], r["v"]) for r in rows)
+    if got != sorted(zip(d["dyn_k"].tolist(), d["dyn_g"].tolist(),
+                         d["dyn_v"].tolist())):
+        raise AssertionError("CELLS: an acknowledged write of the dynamic "
+                             "table was not read back")
+    return len(got)
+
+
+def _cells_namespace(n: int) -> list:
+    """(path, type, value) of n Cypress nodes four levels deep under
+    //seq: maps on the first three levels (CELLS_FANOUT each), documents
+    under the third-level maps, in creation order (parents first)."""
+    maps = []
+    for a in range(CELLS_FANOUT):
+        maps.append(f"//seq/m{a}")
+        for b in range(CELLS_FANOUT):
+            maps.append(f"//seq/m{a}/m{b}")
+            for c in range(CELLS_FANOUT):
+                maps.append(f"//seq/m{a}/m{b}/m{c}")
+    maps.sort(key=lambda p: p.count("/"))
+    maps = maps[:n // 2]
+    leaves = [p for p in maps if p.count("/") == maps[-1].count("/")]
+    nodes = [(p, "map_node", None) for p in maps]
+    i = 0
+    while len(nodes) < n:
+        parent = leaves[i % len(leaves)]
+        nodes.append((f"{parent}/d{i}", "document", {"i": i, "p": parent}))
+        i += 1
+    return nodes
+
+
+def phase_cells(seed: int, hr, rx, port) -> dict:
+    """CELLS: the master's quorum and its cells in one process on
+    127.0.0.1:0, as `server/daemon.py` composes them across processes:
+    three data nodes (DataNodeService over an FsChunkStore and a journal
+    directory each, heartbeating into a NodeTracker), a Master on a
+    QuorumWal over them (write quorum 2 of 3) elected by a
+    LeaderElector, two ClockServer peers electing over the same nodes
+    under "clock_wal", a QuorumTimestampProvider over both as the
+    cluster's clock, and a YtCluster on the card whose chunks live on the
+    data nodes (RpcChunkStore, 2 replicas). Six stages, each held to
+    numpy: bring-up (the election and recovery seconds, and the WAL's
+    mutation rate alone); 16,777,216 rows published as 2 chunks, SELECT_8
+    cold (blobs over RPC, decoded onto the card) and 5 times warm, and the
+    join with a 10,000-row dimension (both radix kernels); a portal
+    //cell on a second root on the card, 1,048,576 rows written under it
+    through the primary, GROUP BY ... ORDER BY ... LIMIT 100 through the
+    primary's routed front door (`multicell.delegate_for`), and the
+    portal's removal, whose exit Hive dismantles exactly once; 100,000
+    rows into a dynamic table in 100 transactions with the clock leader
+    killed after the 50th (strictly rising commit timestamps, then
+    lookups and a read-back); a master failover (1,000 mutations with
+    node 3 down, a new Master on a fresh path over the same nodes at
+    epoch + 1, the WAL invariant, node 3 caught up, SELECT_8 and the
+    read-back on a new cluster without waiting for the next second); and
+    Sequoia over a namespace built through the quorum WAL (resolves,
+    read_list / read_get, more mutations with an aborted transaction, and
+    verify()). Each stage records host s, device ms, idle share,
+    launches and the RPC requests and bytes of every server."""
+    import numpy as np
+    import torch
+    from ytsaurus_tpu_torch.chunks.columnar import ColumnarChunk
+    from ytsaurus_tpu_torch.client import (
+        YtClient,
+        YtCluster,
+        publish_table_chunks,
+    )
+    from ytsaurus_tpu_torch.cypress import multicell
+    from ytsaurus_tpu_torch.cypress.sequoia import SequoiaResolver
+    from ytsaurus_tpu_torch.server.remote_store import RpcChunkStore
+    from ytsaurus_tpu_torch.tablet.clock import QuorumTimestampProvider
+    from ytsaurus_tpu_torch.utils.invariants import check_wal
+    t_phase = time.perf_counter()
+    d = _cells_data(seed)
+    out: dict = {"paths": {}, "stages": {}}
+    holder: dict = {}
+    lost: dict = {}
+
+    def cache():
+        client = holder.get("client")
+        return client.cluster.chunk_cache if client is not None else None
+
+    def stage(name, run, plane, radix=False, host_only=False):
+        before = plane.rpc()
+        result, rec = _client_stage(f"cells {name}", run, hr, rx, cache,
+                                    radix=radix, host_only=host_only)
+        after = plane.rpc()
+        wire = {f"rpc_{k}": after[k] - before[k] for k in after}
+        rec.update(wire)
+        _log(f"cells {name} rpc: {json.dumps(wire)}")
+        out["paths"][f"cells_{name}"] = rec
+        return result
+
+    g_all = np.concatenate([c["g"] for c in d["chunks"]])
+    v_all = np.concatenate([c["v"] for c in d["chunks"]])
+    sel = v_all < 900
+    select_oracle = (np.bincount(g_all[sel], weights=v_all[sel],
+                                 minlength=SELECT_GROUPS),
+                     np.bincount(g_all[sel], minlength=SELECT_GROUPS))
+    name_of_g = np.arange(SELECT_GROUPS) % CLIENT_NAMES
+    join_oracle = (np.bincount(name_of_g[g_all], weights=v_all,
+                               minlength=CLIENT_NAMES),
+                   np.bincount(name_of_g[g_all], minlength=CLIENT_NAMES))
+    del g_all, v_all, sel
+    cell_sums = np.bincount(d["cell"]["g"], weights=d["cell"]["v"],
+                            minlength=SELECT_GROUPS).astype(np.int64)
+    cell_groups = np.flatnonzero(np.bincount(d["cell"]["g"],
+                                             minlength=SELECT_GROUPS))
+    cell_top = sorted(((-int(cell_sums[g]), int(g)) for g in cell_groups)
+                      )[:CELLS_TOP]
+
+    def check_select(name, rows):
+        return _client_check_groups(name, rows, "g", *select_oracle)
+
+    def check_join(name, rows):
+        named = [{"name": int(r["name"][4:]), "s": r["s"], "c": r["c"]}
+                 for r in rows]
+        return _client_check_groups(name, named, "name", *join_oracle)
+
+    with tempfile.TemporaryDirectory() as root:
+        plane = _CellsPlane(os.path.join(root, "nodes"))
+        clock = None
+        try:
+            # --- 1. bring-up ------------------------------------------------
+            def bring_up():
+                t = time.perf_counter()
+                c = _CellsClock(plane, os.path.join(root, "clocks"))
+                leader = c.wait_leader()
+                clock_s = time.perf_counter() - t
+                master, wal, elector, master_s = _cells_master(
+                    plane, os.path.join(root, "master"), True, lost)
+                provider = QuorumTimestampProvider(c.addresses(),
+                                                   failover_deadline=60.0)
+                store = RpcChunkStore(plane.tracker.alive_nodes,
+                                      replication_factor=CELLS_RF)
+                cluster = YtCluster(os.path.join(root, "cluster"),
+                                    chunk_store=store, master=master,
+                                    device="cuda")
+                cluster.transactions.timestamps = provider
+                return (c, leader, clock_s, master, wal, elector, master_s,
+                        provider, store, YtClient(cluster))
+            (clock, leader, clock_s, master, wal, elector, master_s,
+             provider, store, client) = stage("bring_up", bring_up, plane,
+                                              host_only=True)
+            holder["client"] = client
+            if client.cluster.device.type != "cuda" or wal.epoch != 1 or \
+                    plane.journal_counts() != [len(wal._records)] * \
+                    CELLS_NODES:
+                raise AssertionError("CELLS bring-up: the cluster is not on "
+                                     "the card or a node lacks a record")
+            out["stages"]["bring_up"] = {
+                "clock_elect_s": clock_s, "clock_leader": leader,
+                "master_elect_s": master_s, "epoch": wal.epoch}
+            _log(f"cells bring-up: {json.dumps(out['stages']['bring_up'])}")
+            client.create("document", "//cells/rate", recursive=True,
+                          attributes={"value": 0})
+
+            def rate():
+                for i in range(CELLS_RATE_MUTATIONS):
+                    client.set("//cells/rate", i)
+            stage("wal_rate", rate, plane, host_only=True)
+            rec = out["paths"]["cells_wal_rate"]
+            rec["mutations_per_s"] = CELLS_RATE_MUTATIONS / rec["host_s"]
+            _log(f"cells WAL rate alone: {rec['mutations_per_s']:.1f} "
+                 "mutations/s")
+            if client.get("//cells/rate") != CELLS_RATE_MUTATIONS - 1:
+                raise AssertionError("CELLS: a WAL-rate mutation was lost")
+
+            # --- 2. chunks on data nodes ------------------------------------
+            schema = port.TableSchema.make([("k", "int64"), ("g", "int64"),
+                                            ("v", "int64")])
+
+            def publish():
+                client.create("table", CELLS_T, recursive=True,
+                              attributes={"schema": schema})
+                chunks = [ColumnarChunk.from_arrays(schema, a, device="cuda")
+                          for a in d["chunks"]]
+                publish_table_chunks(client, store, CELLS_T, chunks,
+                                     schema=schema)
+            stage("publish", publish, plane)
+            cids = client.get(CELLS_T + "/@chunk_ids")
+            held = [[i for i, svc in enumerate(plane.services)
+                     if svc.store.exists(cid)] for cid in cids]
+            if client.get(CELLS_T + "/@row_count") != CELLS_ROWS or \
+                    [len(h) for h in held] != [CELLS_RF] * CELLS_CHUNKS:
+                raise AssertionError(f"CELLS: the published chunks are "
+                                     f"placed on {held}")
+            out["stages"]["chunk_nodes"] = held
+            rows = stage("select_8_cold",
+                         lambda: client.select_rows(CELLS_QUERY), plane)
+            if out["paths"]["cells_select_8_cold"]["cache_misses"] != \
+                    CELLS_CHUNKS:
+                raise AssertionError("CELLS: the cold select did not fetch "
+                                     "every chunk from the data nodes")
+            out["stages"]["select_8_groups"] = check_select(
+                "CELLS SELECT_8 cold", rows)
+            if {client.cluster.chunk_cache.get(c).device.type
+                    for c in cids} != {"cuda"}:
+                raise AssertionError("CELLS: a chunk read over RPC is not "
+                                     "on the card")
+            warm = []
+            for _ in range(CELLS_WARM):
+                t = time.perf_counter()
+                check_select("CELLS SELECT_8 warm",
+                             client.select_rows(CELLS_QUERY))
+                warm.append(time.perf_counter() - t)
+            out["stages"]["select_8_warm_s"] = warm
+            _log(f"cells SELECT_8 warm: {[round(w, 4) for w in warm]} s")
+            dim_rows = [{"g": g, "name": f"name{g % CLIENT_NAMES:02d}"}
+                        for g in range(CLIENT_DIM_ROWS)]
+            client.write_table("//cells/dim", dim_rows)
+            rows = stage("join", lambda: client.select_rows(CELLS_JOIN),
+                         plane, radix=True)
+            out["stages"]["join_groups"] = check_join("CELLS join", rows)
+
+            # --- 3. cells ---------------------------------------------------
+            cell_root = os.path.join(root, "cell")
+            client.create("portal_entrance", "//cell", attributes={
+                "cell_root": cell_root, "cell_tag": 2})
+            cell = multicell.cell_client(client, cell_root)
+            if cell.cluster.device != client.cluster.device:
+                raise AssertionError("CELLS: the cell is not on the "
+                                     "primary's device")
+            cell_rows = [{"k": k, "g": g, "v": v} for k, g, v in zip(
+                d["cell"]["k"].tolist(), d["cell"]["g"].tolist(),
+                d["cell"]["v"].tolist())]
+            stage("cell_write", lambda: client.write_table("//cell/t",
+                                                           cell_rows), plane)
+            del cell_rows
+            if client.get("//cell/t/@row_count") != CELLS_CELL_ROWS or \
+                    cell.get("//cell/t/@row_count") != CELLS_CELL_ROWS or \
+                    client.cluster.master.tree.try_resolve("//cell/t") \
+                    is not None:
+                raise AssertionError("CELLS: //cell/t is not on the cell")
+
+            def cell_select():
+                delegate = multicell.delegate_for(client, "//cell/t",
+                                                  "read")
+                if delegate is not cell:
+                    raise AssertionError("CELLS: //cell/t is not routed "
+                                         "to the cell")
+                with multicell.as_cell_principal():
+                    return delegate.select_rows(CELLS_CELL_QUERY)
+            rows = stage("cell_select", cell_select, plane)
+            if [(-r["s"], r["g"]) for r in rows] != cell_top:
+                raise AssertionError("CELLS: the cell's ORDER BY ... LIMIT "
+                                     "differs from numpy")
+            hive = multicell.hive_of(client)
+            cell_hive = multicell.hive_of(cell)
+            before = cell_hive.last_applied(hive.cell_id)
+            stage("portal_remove", lambda: client.remove(
+                "//cell", recursive=True), plane, host_only=True)
+            applied = cell_hive.last_applied(hive.cell_id) - before
+            if client.exists("//cell") or cell.exists("//cell") or \
+                    applied != 1 or hive.pending(cell_hive.cell_id):
+                raise AssertionError(f"CELLS: the portal's exit was not "
+                                     f"dismantled exactly once ({applied} "
+                                     "messages applied)")
+            out["stages"]["hive_applied"] = applied
+
+            # --- 4. the clock quorum ---------------------------------------
+            dyn_schema = port.TableSchema.make(
+                [("k", "int64", "ascending"), ("g", "int64"),
+                 ("v", "int64")], unique_keys=True)
+            client.create("table", CELLS_DYN, attributes={
+                "schema": dyn_schema, "dynamic": True})
+            client.mount_table(CELLS_DYN)
+            dyn_rows = [{"k": k, "g": g, "v": v} for k, g, v in zip(
+                d["dyn_k"].tolist(), d["dyn_g"].tolist(),
+                d["dyn_v"].tolist())]
+            commits: list = []
+            failover: dict = {}
+
+            def insert():
+                for n, lo in enumerate(range(0, CELLS_DYN_ROWS,
+                                             CELLS_TX_ROWS)):
+                    if n == CELLS_DYN_ROWS // CELLS_TX_ROWS // 2:
+                        failover["killed"] = clock.wait_leader()
+                        clock.kill(failover["killed"])
+                        t_kill = time.perf_counter()
+                    tx = client.start_transaction()
+                    client.insert_rows(CELLS_DYN,
+                                       dyn_rows[lo:lo + CELLS_TX_ROWS],
+                                       tx=tx)
+                    commits.append(client.commit_transaction(tx))
+                    if "killed" in failover and "s" not in failover:
+                        failover["s"] = time.perf_counter() - t_kill
+            stage("clock_insert", insert, plane, host_only=True)
+            failover["leader"] = clock.wait_leader()
+            if failover["leader"] == failover["killed"] or \
+                    len(commits) != CELLS_DYN_ROWS // CELLS_TX_ROWS or \
+                    any(b <= a for a, b in zip(commits, commits[1:])):
+                raise AssertionError(f"CELLS: the clock did not fail over "
+                                     f"or a commit timestamp did not rise "
+                                     f"({failover})")
+            out["stages"]["clock_failover"] = failover
+            _log(f"cells clock failover: {json.dumps(failover)}")
+            rec = out["paths"]["cells_clock_insert"]
+            rec["rows_per_s"] = CELLS_DYN_ROWS / rec["host_s"]
+            out["stages"]["readback_rows"] = stage(
+                "lookup_readback", lambda: (_cells_lookups(client, d),
+                                            _cells_readback(client, d))[1],
+                plane)
+
+            # --- 5. master failover ----------------------------------------
+            client.unmount_table(CELLS_DYN)
+            client.create("map_node", "//cells/m")
+            plane.stop_node(CELLS_NODES - 1)
+
+            def mutations():
+                for i in range(CELLS_MUTATIONS):
+                    client.set(f"//cells/m/d{i}", i)
+            # Every append warns that the stopped node refused its catch-up.
+            quorum_log = logging.getLogger("ytsaurus_tpu_torch.quorum")
+            level = quorum_log.level
+            quorum_log.setLevel(logging.ERROR)
+            try:
+                stage("mutations", mutations, plane, host_only=True)
+            finally:
+                quorum_log.setLevel(level)
+            rec = out["paths"]["cells_mutations"]
+            rec["mutations_per_s"] = CELLS_MUTATIONS / rec["host_s"]
+            acked = len(wal._records)
+            if lost or plane.journal_counts()[:CELLS_NODES - 1] != \
+                    [acked] * (CELLS_NODES - 1):
+                raise AssertionError("CELLS: a mutation with one node down "
+                                     "was not acknowledged by 2 of 3")
+            epoch = wal.epoch
+            t_fail = time.perf_counter()
+            elector.stop()
+            wal.close()
+            holder.clear()
+            del client, master
+            plane.start_node(CELLS_NODES - 1)
+
+            def recover():
+                m, w, e, _ = _cells_master(
+                    plane, os.path.join(root, "master2"), False, lost)
+                recovered = list(w._records)
+                cl = YtCluster(os.path.join(root, "cluster"),
+                               chunk_store=store, master=m, device="cuda")
+                cl.transactions.timestamps = provider
+                c = YtClient(cl)
+                holder["client"] = c
+                return m, w, e, c, recovered
+            master, wal, elector, client, recovered = stage(
+                "recover", recover, plane, host_only=True)
+            failover_s = time.perf_counter() - t_fail
+            counts = plane.journal_counts()
+            check_wal(recovered)
+            values = [client.get(f"//cells/m/d{i}")
+                      for i in range(CELLS_MUTATIONS)]
+            if wal.epoch != epoch + 1 or len(recovered) != acked or \
+                    counts != [len(wal._records)] * CELLS_NODES or \
+                    values != list(range(CELLS_MUTATIONS)):
+                raise AssertionError(f"CELLS: the recovered master differs "
+                                     f"(epoch {wal.epoch}, {len(recovered)} "
+                                     f"records recovered, {counts} on the "
+                                     f"nodes, {acked} acknowledged, "
+                                     f"documents {values[:3]}...)")
+            out["stages"]["master_failover"] = {
+                "seconds": failover_s, "epoch": wal.epoch,
+                "records": acked, "journal_counts": counts}
+            _log(f"cells master failover: "
+                 f"{json.dumps(out['stages']['master_failover'])}")
+            client.mount_table(CELLS_DYN)
+            rows = stage("reads_recovered", lambda: (
+                client.select_rows(CELLS_QUERY),
+                _cells_readback(client, d))[0], plane)
+            check_select("CELLS SELECT_8 after the failover", rows)
+
+            # --- 6. Sequoia ------------------------------------------------
+            nodes = _cells_namespace(CELLS_NAMESPACE)
+
+            def build():
+                for path, kind, value in nodes:
+                    if kind == "map_node":
+                        client.create(kind, path, recursive=True)
+                    else:
+                        client.set(path, value)
+            stage("namespace", build, plane, host_only=True)
+            rec = out["paths"]["cells_namespace"]
+            rec["mutations_per_s"] = len(nodes) / rec["host_s"]
+            seq = stage("sequoia_enable",
+                        lambda: SequoiaResolver(client).enable(), plane,
+                        host_only=True)
+            tree = client.cluster.master.tree
+            paths = [p for p, _, _ in nodes]
+            probe = [paths[i % len(paths)] if i % 8 else
+                     f"//seq/missing{i}" for i in d["probe"]]
+
+            maps = [p for p, kind, _ in nodes if kind == "map_node"]
+            docs = [p for p, kind, _ in nodes if kind == "document"]
+            # read_get of a map assembles its subtree from the tables: the
+            # deepest maps, whose children are documents.
+            leaf_maps = [p for p in maps
+                         if p.count("/") == maps[-1].count("/")]
+            reads = []
+            for i in range(CELLS_READS):
+                pick = (i * 7919) % 1_000_003
+                reads.append(("list", maps[pick % len(maps)]) if i % 2 else
+                             ("get", leaf_maps[pick % len(leaf_maps)])
+                             if i % 4 == 2 else ("get", docs[pick % len(docs)]))
+
+            def read():
+                return ([seq.resolve(path) for path in probe],
+                        [seq.read_list(p) if kind == "list" else
+                         seq.read_get(p) for kind, p in reads])
+            resolved, got = stage("sequoia_reads", read, plane)
+            for path, res in zip(probe, resolved):
+                node = tree.try_resolve(path, follow_links=False)
+                want = None if node is None else {"node_id": node.id,
+                                                  "node_type": node.type}
+                if res != want:
+                    raise AssertionError(f"CELLS resolve {path}: {res} != "
+                                         f"{want}")
+            for (kind, path), res in zip(reads, got):
+                want = sorted(client.list(path)) if kind == "list" else \
+                    client.get(path)
+                if (sorted(res) if kind == "list" else res) != want:
+                    raise AssertionError(f"CELLS read_{kind} {path}: "
+                                         f"{res} != {want}")
+
+            def late():
+                for i in range(CELLS_LATE_MUTATIONS - 3):
+                    path = docs[(i * 131) % len(docs)]
+                    if i % 3 == 0:
+                        client.set(path, {"late": i})
+                    elif i % 3 == 1:
+                        client.create("document", f"//seq/late/d{i}",
+                                      recursive=True,
+                                      attributes={"value": i})
+                    else:
+                        client.set(path + "/@tag", f"t{i}")
+                client.remove(docs[0])
+                tx = client.start_tx()
+                client.create("map_node", "//seq/aborted/x",
+                              recursive=True, tx=tx)
+                client.abort_tx(tx)
+                return seq.verify()
+            divergent = stage("sequoia_late", late, plane)
+            if divergent or seq.resolve("//seq/aborted") is not None or \
+                    seq.resolve(docs[0]) is not None or \
+                    seq.read_get(docs[1]) != client.get(docs[1]):
+                raise AssertionError(f"CELLS: Sequoia's tables diverge from "
+                                     f"the tree: {divergent[:5]}")
+            out["stages"]["sequoia"] = {"nodes": len(nodes),
+                                        "resolves": len(probe),
+                                        "reads": len(reads)}
+            if lost:
+                raise AssertionError("CELLS: the master lost its lease")
+            elector.stop()
+            wal.close()
+            provider.close()
+            store.close()
+            holder.clear()
+            del client, seq, tree
+        finally:
+            if clock is not None:
+                clock.close()
+            plane.close()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    _log(f"cells: {out['seconds']:.1f} s in all")
+    return out
+
+
 # --- SELECT: multi-chunk selects through the host coordinator ---------------
 
 SELECT_ROWS = 64_000_000     # bench.py's select table at the q1 bench size
@@ -5173,7 +5947,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--record", help="write a JSON record of the run "
-                        "to this path")
+                        "to this path (default: chiprun_out/chip_smoke.json "
+                        "beside this script)",
+                        default=os.path.join(HERE, "chiprun_out",
+                                             "chip_smoke.json"))
     args = parser.parse_args()
 
     import torch
@@ -5255,6 +6032,8 @@ def main() -> int:
     paths.update(ops.pop("paths"))
     derived = timed("derived", phase_derived, args.seed, hr, rx, port)
     paths.update(derived.pop("paths"))
+    cells = timed("cells", phase_cells, args.seed, hr, rx, port)
+    paths.update(cells.pop("paths"))
     paths.update(timed("select", phase_select, args.seed, hr, rx, tpch, port,
                        keep))
     paths.update(timed("mesh", phase_mesh, hr, rx, tpch, keep))
@@ -5290,7 +6069,7 @@ def main() -> int:
               "tablet_versions": TABLET_VERSIONS, "dyntable": dyntable,
               "durable": durable, "queue": queue, "client": client,
               "front": front,
-              "ops": ops, "derived": derived,
+              "ops": ops, "derived": derived, "cells": cells,
               "extsort_rows": paths["extsort"]["rows_in"],
               "strings_rows": STRINGS_ROWS, "vector_rows": VECTOR_ROWS,
               "vector": vec, "mesh_ranks": mesh_ranks,

@@ -495,7 +495,8 @@ def test_operations_match(tmp_path):
 
 def test_unported_methods_name_their_module(tmp_path):
     """What is still unported raises naming its module: exec-node
-    dispatch, remote copy and portals. The query tracker is ported (its
+    dispatch and remote copy. Portals are ported (their parity cases are
+    in tests/test_torch_cells.py). The query tracker is ported (its
     parity cases are in tests/test_torch_query_tracker.py). The replica,
     index, view, consumer and backup methods, the reduce, map-reduce and
     vanilla operations and command maps are ported; their parity cases
@@ -505,8 +506,6 @@ def test_unported_methods_name_their_module(tmp_path):
     client.write_table("//t", [{"k": 1}])
     calls = {
         "rpc/": lambda: client.exec_node_addresses(),
-        "cypress/hive.py": lambda: client.create(
-            "portal_entrance", "//p", attributes={"cell_root": "/x"}),
     }
     for module, call in calls.items():
         with pytest.raises(YtError, match=re.escape(module)):

@@ -1021,3 +1021,55 @@ def test_front_doors_on_the_card_match_the_cpu(cuda_device, tmp_path):
     got = _front_script(gpu)
     assert radix.launches["radix_onesweep"] > 0
     assert got == _front_script(cpu)
+
+
+def test_cells_on_the_card_match_the_cpu(cuda_device, tmp_path):
+    """A cluster on the card whose chunks live on data nodes reads them
+    over RPC onto the card; a portal's cell opens on the primary's
+    device; its select and a Sequoia resolve answer as on the CPU."""
+    from ytsaurus_tpu_torch.chunks.store import FsChunkStore
+    from ytsaurus_tpu_torch.client import YtClient, YtCluster, connect
+    from ytsaurus_tpu_torch.cypress import multicell
+    from ytsaurus_tpu_torch.cypress.sequoia import SequoiaResolver
+    from ytsaurus_tpu_torch.rpc import RpcServer
+    from ytsaurus_tpu_torch.server.remote_store import RpcChunkStore
+    from ytsaurus_tpu_torch.server.services import DataNodeService
+
+    nodes = [RpcServer([DataNodeService(
+        FsChunkStore(str(tmp_path / f"loc{i}")), str(tmp_path / f"j{i}"))])
+        for i in range(3)]
+    for node in nodes:
+        node.start()
+    try:
+        store = RpcChunkStore(lambda: [n.address for n in nodes])
+        rows = [{"k": i, "g": i % 7, "v": i * 3} for i in range(5000)]
+
+        def script(client) -> list:
+            client.write_table("//t", rows)
+            (cid,) = client.get("//t/@chunk_ids")
+            planes_on = client.cluster.chunk_cache.get(cid).device.type
+            cell_root = str(tmp_path / f"cell-{planes_on}")
+            client.create("portal_entrance", "//cell",
+                          attributes={"cell_root": cell_root})
+            client.write_table("//cell/t", rows)
+            cell = multicell.cell_client(client, cell_root)
+            with multicell.as_cell_principal():
+                got = multicell.delegate_for(client, "//cell/t", "read") \
+                    .select_rows("g, sum(v) AS s FROM [//cell/t] GROUP BY g "
+                                 "ORDER BY sum(v) DESC LIMIT 3")
+            seq = SequoiaResolver(client).enable()
+            return [planes_on, cell.cluster.device.type,
+                    client.select_rows("g, sum(v) AS s FROM [//t] GROUP BY g"
+                                       " ORDER BY g LIMIT 10"), got,
+                    seq.resolve("//cell")["node_type"], seq.verify()]
+
+        gpu = YtClient(YtCluster(str(tmp_path / "gpu"), chunk_store=store))
+        got = script(gpu)
+        want = script(connect(str(tmp_path / "cpu"), device="cpu"))
+        assert got[:2] == ["cuda", "cuda"]
+        assert got[2:] == want[2:]
+        assert store.read_chunk(gpu.get("//t/@chunk_ids")[0]).device.type \
+            == "cuda"
+    finally:
+        for node in nodes:
+            node.stop()

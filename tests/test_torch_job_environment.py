@@ -18,9 +18,7 @@ Twins and what each leaves out:
   failure.
 - tests/test_failpoints.py (14): all but
   `test_counters_exported_through_monitoring_endpoint` (the monitoring
-  server is not ported) and
-  `test_state_write_failpoint_quorum_rides_out_one_failed_put` (the rpc/
-  data-node services are not ported).
+  server is not ported).
 """
 
 import signal
@@ -48,14 +46,13 @@ _VANILLA_CASES = twin_cases(_VANILLA_TWIN, exclude={
     "test_vanilla_gang_restart_on_any_failure"})
 _FP_TWIN = port_twin("test_failpoints")
 _FP_CASES = twin_cases(_FP_TWIN, exclude={
-    "test_counters_exported_through_monitoring_endpoint",
-    "test_state_write_failpoint_quorum_rides_out_one_failed_put"})
+    "test_counters_exported_through_monitoring_endpoint"})
 
 
 def test_twin_lists_hold_every_runnable_case():
     assert len(_ENV_CASES) == 6 - 1
     assert len(_VANILLA_CASES) == 9 - 3
-    assert len(_FP_CASES) == 14 - 2
+    assert len(_FP_CASES) == 14 - 1
 
 
 @pytest.mark.parametrize("name", _ENV_CASES)
@@ -73,10 +70,10 @@ def test_reference_vanilla_case_on_the_port(name, tmp_path):
 
 
 @pytest.mark.parametrize("name", _FP_CASES)
-def test_reference_failpoints_case_on_the_port(name):
+def test_reference_failpoints_case_on_the_port(name, tmp_path):
     failpoints.deactivate()
     try:
-        call_twin(_FP_TWIN, name, {})
+        call_twin(_FP_TWIN, name, {"tmp_path": tmp_path})
     finally:
         failpoints.deactivate()
 

@@ -329,7 +329,9 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
     answer (a REST select through `HttpProxy`, a driver call over RPC
     through `TcpProxy` and a `RetryingChannel`, an `engine="sql"` query in
     the query tracker); the replication, chaos, secondary-index,
-    queue-agent, view and view-daemon modules import."""
+    queue-agent, view and view-daemon modules import; and so do the quorum,
+    election, Hive, portal, Sequoia, clock and RPC chunk-store modules,
+    with one `QuorumWal` append acknowledged by port `DataNodeService`s."""
     script = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -525,6 +527,30 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
         from ytsaurus_tpu_torch.server import (  # noqa: F401
             queue_agent, view_daemon)
         from ytsaurus_tpu_torch.query import views  # noqa: F401
+        from ytsaurus_tpu_torch.cypress import (  # noqa: F401
+            election, hive, multicell, quorum, sequoia)
+        from ytsaurus_tpu_torch.server import remote_store  # noqa: F401
+        from ytsaurus_tpu_torch.server.services import DataNodeService
+        from ytsaurus_tpu_torch.tablet import clock  # noqa: F401
+        with tempfile.TemporaryDirectory() as root:
+            nodes = [rpc.RpcServer([DataNodeService(
+                FsChunkStore(f"{root}/loc{i}"), f"{root}/j{i}")])
+                for i in range(2)]
+            for node in nodes:
+                node.start()
+            wal = quorum.QuorumWal(
+                f"{root}/wal.log", "master_wal",
+                [rpc.Channel(n.address, timeout=60) for n in nodes],
+                quorum=2, count_local_ack=False, bootstrap_from_local=True)
+            assert wal.recover() == []
+            wal.append({"op": "create", "args": {"path": "//x"}})
+            counts = [rpc.Channel(n.address).call(
+                "data_node", "journal_count", {"journal": "master_wal"})[0]
+                for n in nodes]
+            assert [c["count"] for c in counts] == [1, 1], counts
+            wal.close()
+            for node in nodes:
+                node.stop()
         assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                              if v is not None}
         print("ok", len(rows))

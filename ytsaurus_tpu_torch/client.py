@@ -97,21 +97,41 @@ class YtCluster:
         return self._gateway
 
 
+# Chunks a publish writes at once (each one's columns encode on the codec
+# pool of chunks/encoding.py).
+_PUBLISH_THREADS = 4
+
+
+def write_table_chunks(chunk_store, chunks) -> "tuple[list, list]":
+    """Write `chunks` to `chunk_store` and read back their stats, on
+    threads of their own, at most `_PUBLISH_THREADS` at a time: each
+    serialize is zlib and the codec library, which release the
+    interpreter lock, and the stores take concurrent writes of distinct
+    chunks. Returns (chunk ids, stats) in the chunks' order."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=max(1, min(len(chunks),
+                                                   _PUBLISH_THREADS)),
+                            thread_name_prefix="publish") as pool:
+        chunk_ids = list(pool.map(chunk_store.write_chunk, chunks))
+        stats = list(pool.map(chunk_store.read_stats, chunk_ids))
+    return chunk_ids, stats
+
+
 def publish_table_chunks(client, chunk_store, path, chunks,
                          sorted_by=None, schema=None) -> None:
     """THE static-table chunk attribute protocol (@schema/@chunk_ids/
     @chunk_stats/@row_count/@sorted_by) — one implementation shared by the
     in-process client and the remote thin client, so tables stay
-    cross-readable whichever path wrote them."""
-    chunk_ids = [chunk_store.write_chunk(c) for c in chunks]
+    cross-readable whichever path wrote them. The chunks are written as
+    `write_table_chunks` writes them."""
+    chunk_ids, stats = write_table_chunks(chunk_store, chunks)
     total = sum(c.row_count for c in chunks)
     if schema is not None:
         client.set(path + "/@schema", schema.to_dict())
     client.set(path + "/@chunk_ids", chunk_ids)
     # Stats were computed ONCE at seal time (chunk meta header); reading
     # them back is a meta parse, not a host-side min/max recompute.
-    client.set(path + "/@chunk_stats",
-               [chunk_store.read_stats(cid) for cid in chunk_ids])
+    client.set(path + "/@chunk_stats", stats)
     client.set(path + "/@row_count", total)
     if sorted_by:
         client.set(path + "/@sorted_by", list(sorted_by))

@@ -87,7 +87,11 @@ def _text(v) -> str:
 
 
 class RpcServer:
-    """Hosts services on a TCP port inside a dedicated event-loop thread."""
+    """Hosts services on a TCP port inside a dedicated event-loop thread.
+
+    `stats` counts the requests served and the packet bytes read and
+    written (all parts, envelopes included); only the loop thread
+    updates it."""
 
     def __init__(self, services, host: str = "127.0.0.1", port: int = 0,
                  max_workers: int = 16):
@@ -103,6 +107,7 @@ class RpcServer:
         self._server: asyncio.AbstractServer | None = None
         self._connections: set = set()
         self._started = threading.Event()
+        self.stats = {"requests": 0, "bytes_in": 0, "bytes_out": 0}
 
     def add_service(self, svc) -> None:
         """Register a service (also usable after start: daemons bring up
@@ -187,6 +192,8 @@ class RpcServer:
             writer.close()
 
     async def _dispatch(self, parts, writer, write_lock) -> None:
+        self.stats["requests"] += 1
+        self.stats["bytes_in"] += sum(len(p) for p in parts)
         act = _FP_RECV.fire()
         if act is not None:
             mode, ms = act
@@ -271,6 +278,7 @@ class RpcServer:
                           code=EErrorCode.Generic)
             out = [yson.dumps({"rid": rid, "kind": "err"}, binary=True),
                    yson.dumps(_error_to_wire(err), binary=True)]
+        self.stats["bytes_out"] += sum(len(p) for p in out)
         try:
             async with write_lock:
                 await write_packet(writer, out)

@@ -1,26 +1,516 @@
-"""RPC services hosted by the cluster.
+"""RPC services hosted by the cluster daemons.
 
-DriverService — the full driver command registry over RPC, plus tx-id-based
-                transactions (the proxy pattern: the client stays thin).
+DataNodeService   — blob-level chunk storage + journal (quorum WAL) records.
+MasterService     — the leader / follower role probe.
+NodeTrackerService — data-node registration/heartbeats on the primary.
+DriverService     — the full driver command registry over RPC, plus
+                    tx-id-based transactions and chunk location metadata
+                    (the proxy pattern: the client stays thin).
 
-Own copy of the JAX package's `server/services.py`, of its DriverService
-only. The data node's DataNodeService, the primary's MasterService and the
-node tracker (NodeTracker, NodeTrackerService) serve the daemons of a
-multi-process cluster, which the port has not yet: they wait for the
-quorum, multicell and daemon slices.
+Own copy of the JAX package's `server/services.py`. The daemons that host
+these services in processes of their own (`server/daemon.py`), the exec
+node's job service (`server/exec_service.py`) and the rest of `server/`
+are not ported yet: the services run in the process that builds them.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from typing import Optional
 
 from ytsaurus_tpu_torch.errors import EErrorCode, YtError
 from ytsaurus_tpu_torch.rpc import Service, rpc_method
 from ytsaurus_tpu_torch.rpc.wire import wire_text as _text
+from ytsaurus_tpu_torch.utils import failpoints
 from ytsaurus_tpu_torch.utils.logging import get_logger
 
+# Injects a disk fault into the data node's DURABLE-state publishes
+# (journal membership + replicated snapshots, both tmp+fsync+rename):
+# the writer sees a failed put and the quorum ladder must ride it out.
+_FP_STATE_WRITE = failpoints.register_site(
+    "server.state.write",
+    error=lambda s: OSError(f"injected state write failure at {s}"))
+
 logger = get_logger("server")
+
+
+def chunk_push_request(store, chunk_id: str) -> "tuple[dict, bytes]":
+    """(body, blob) for a node-to-node chunk push — ONE protocol shared
+    by the replicator's replicate_chunk job and P2P seeding (erasure
+    chunks reconstruct on read and carry their codec tag so the target
+    re-encodes the full part set)."""
+    blob = store.get_blob(chunk_id)
+    body = {"chunk_id": chunk_id}
+    erasure = store.erasure_codec_of(chunk_id)
+    if erasure is not None:
+        body["erasure"] = erasure
+    return body, blob
+
+
+class DataNodeService(Service):
+    """Serves chunk blobs + journal records from one store location."""
+
+    name = "data_node"
+
+    def __init__(self, store, journal_dir: str):
+        import os
+        self.store = store
+        self.journal_dir = journal_dir
+        os.makedirs(journal_dir, exist_ok=True)
+        self._journals: dict[str, object] = {}
+        self._epochs: dict[str, tuple] = {}   # journal → (epoch, writer)
+        # journal → (writer, monotonic expiry).  In-memory only: a
+        # restarted journal node forgets leases, which merely makes a
+        # takeover attempt possible — epoch fencing still arbitrates it.
+        self._leases: dict[str, tuple[str, float]] = {}
+        self._peers: dict[str, object] = {}   # replicate_chunk channels
+        self._journal_lock = threading.Lock()
+        self._scrub_lock = threading.Lock()
+
+    # -- chunks ---------------------------------------------------------------
+
+    @rpc_method()
+    def put_chunk(self, body, attachments):
+        chunk_id = _text(body["chunk_id"])
+        erasure = body.get("erasure")
+        self.store.put_blob(chunk_id, attachments[0],
+                            erasure=_text(erasure) if erasure else None)
+        return {}
+
+    # Set by the daemon when P2P hot-chunk distribution is on; reads
+    # then feed its heat accounting (server/p2p.py).
+    p2p = None
+
+    @rpc_method()
+    def get_chunk(self, body, attachments):
+        chunk_id = _text(body["chunk_id"])
+        if self.p2p is not None:
+            self.p2p.record_read(chunk_id)
+        return {}, [self.store.get_blob(chunk_id)]
+
+    @rpc_method()
+    def has_chunk(self, body, attachments):
+        return {"exists": self.store.exists(_text(body["chunk_id"]))}
+
+    @rpc_method()
+    def remove_chunk(self, body, attachments):
+        self.store.remove_chunk(_text(body["chunk_id"]))
+        return {}
+
+    @rpc_method()
+    def list_chunks(self, body, attachments):
+        return {"chunk_ids": self.store.list_chunks()}
+
+    @rpc_method(concurrency=1)
+    def scrub_chunks(self, body, attachments):
+        """Background checksum scrub (ref: the reference's disk-failure
+        detection + replica failure marks feeding the replicator):
+        deep-verify every local chunk's block CRCs; corrupt ones are
+        QUARANTINED so list_chunks stops advertising them and the
+        master's chunk replicator restores the replication factor from
+        healthy holders — with no read on the user path."""
+        corrupt: list = []
+        checked = 0
+        only = body.get("chunk_ids")
+        ids = [_text(c) for c in only] if only else \
+            self.store.list_chunks()
+        # One scrub at a time — the RPC concurrency cap does not bind
+        # the daemon's direct in-process calls, so serialize here.
+        with self._scrub_lock:
+            for chunk_id in ids:
+                if not self.store.exists(chunk_id):
+                    continue        # deleted mid-scan: not corruption
+                checked += 1
+                if not self.store.verify_chunk(chunk_id):
+                    self.store.quarantine_chunk(chunk_id)
+                    corrupt.append(chunk_id)
+        return {"checked": checked, "corrupt": corrupt}
+
+    @rpc_method()
+    def replicate_chunk(self, body, attachments):
+        """Push one locally-held chunk to a peer data node — the
+        Replicate/Repair job of the master's chunk replicator
+        (chunk_replicator.h), executed node-to-node so chunk data never
+        crosses the master.  Erasure chunks: get_blob reconstructs from
+        surviving parts (repairing local damage as a side effect) and
+        the target re-encodes the full part set."""
+        from ytsaurus_tpu_torch.rpc import Channel, RetryingChannel
+        chunk_id = _text(body["chunk_id"])
+        target = _text(body["target"])
+        req, blob = chunk_push_request(self.store, chunk_id)
+        with self._journal_lock:
+            peer = self._peers.get(target)
+            if peer is None:
+                peer = RetryingChannel(Channel(target, timeout=60),
+                                       attempts=2, backoff=0.1)
+                self._peers[target] = peer
+        peer.call("data_node", "put_chunk", req, [blob])
+        return {}
+
+    # -- journals (quorum changelog storage) ----------------------------------
+    #
+    # Appends are POSITION-CHECKED: the writer states the index its records
+    # start at; a mismatch is rejected, so this location always holds a
+    # prefix of the writer's log (the invariant quorum recovery relies on).
+    # Opening a journal truncates any torn tail first (LocalWal contract).
+
+    @staticmethod
+    def _check_name(name: str) -> str:
+        if not name.replace("_", "").replace("-", "").isalnum():
+            raise YtError(f"Bad journal name {name!r}")
+        return name
+
+    def _journal(self, name: str):
+        import os
+
+        from ytsaurus_tpu_torch.cypress.quorum import LocalWal, record_epoch
+        self._check_name(name)
+        with self._journal_lock:
+            entry = self._journals.get(name)
+            if entry is None:
+                wal = LocalWal(os.path.join(self.journal_dir,
+                                            name + ".log"))
+                records = wal.recover()
+                entry = {"wal": wal, "count": len(records),
+                         "last_epoch": record_epoch(records[-1])
+                         if records else 0}
+                self._journals[name] = entry
+            return entry
+
+    def _epoch_path(self, name: str) -> str:
+        import os
+        return os.path.join(self.journal_dir, name + ".epoch")
+
+    def _epoch_state(self, name: str) -> "tuple[int, str]":
+        """Cached (epoch, writer) — the append hot path must not read the
+        sidecar file per record (it is loaded once per process)."""
+        cached = self._epochs.get(name)
+        if cached is None:
+            from ytsaurus_tpu_torch.utils.diskio import read_epoch_file
+            cached = read_epoch_file(self._epoch_path(name))
+            self._epochs[name] = cached
+        return cached
+
+    def _set_epoch_state(self, name: str, epoch: int, writer: str) -> None:
+        from ytsaurus_tpu_torch.utils.diskio import write_epoch_file
+        write_epoch_file(self._epoch_path(name), epoch, writer)
+        self._epochs[name] = (epoch, writer)
+
+    def _check_writer(self, name: str, epoch, writer) -> None:
+        """Fencing rule shared by append/reset/snapshot: a request from an
+        older epoch — or the same epoch under a DIFFERENT writer id (two
+        candidates tied on disjoint grant sets) — is rejected; a newer
+        epoch is adopted (a replica that missed the acquisition learns it
+        from the first write that reaches it)."""
+        if epoch is None:
+            return
+        epoch = int(epoch)
+        writer = _text(writer or "")
+        stored, stored_writer = self._epoch_state(name)
+        if epoch < stored or (epoch == stored and stored_writer and
+                              writer != stored_writer):
+            raise YtError(
+                f"journal writer fenced: epoch {epoch}/{writer!r} vs "
+                f"stored {stored}/{stored_writer!r}",
+                code=EErrorCode.JournalEpochFenced,
+                attributes={"stored_epoch": stored})
+        if epoch > stored:
+            self._set_epoch_state(name, epoch, writer)
+
+    @rpc_method(concurrency=1)
+    def journal_acquire(self, body, attachments):
+        """Epoch acquisition (ref Hydra changelog acquisition /
+        lease_tracker fencing): a writer claims a strictly higher epoch;
+        stale writers' journal writes are rejected from then on.
+
+        While an unexpired lease is held by a DIFFERENT writer the grant
+        is refused — a flapping standby must not fence a healthy leader
+        (disruption guard; safety never depends on it).  A granted
+        acquisition also grants the lease when lease_ttl is present, so
+        an elected leader is lease-covered before its first write."""
+        name = self._check_name(_text(body["journal"]))
+        epoch = int(body["epoch"])
+        writer = _text(body.get("writer") or "")
+        ttl = float(body.get("lease_ttl") or 0)
+        with self._journal_lock:
+            holder, expiry = self._leases.get(name, ("", 0.0))
+            if holder and holder != writer and \
+                    time.monotonic() < expiry:
+                return {"granted": False, "epoch": self._epoch_state(name)[0],
+                        "lease_holder": holder}
+            stored, _ = self._epoch_state(name)
+            if epoch <= stored:
+                return {"granted": False, "epoch": stored}
+            self._set_epoch_state(name, epoch, writer)
+            if ttl > 0:
+                self._leases[name] = (writer, time.monotonic() + ttl)
+            return {"granted": True, "epoch": epoch}
+
+    @rpc_method(concurrency=1)
+    def journal_lease_renew(self, body, attachments):
+        """Leader lease renewal: granted ONLY to the exact current epoch
+        holder — a fenced writer learns it lost leadership here, and a
+        writer that never won journal_acquire cannot install a lease by
+        presenting a higher epoch (renewal never adopts epochs; only
+        acquisition and position-checked appends do)."""
+        name = self._check_name(_text(body["journal"]))
+        epoch = int(body["epoch"])
+        writer = _text(body.get("writer") or "")
+        ttl = float(body.get("ttl") or 0)
+        with self._journal_lock:
+            stored, stored_writer = self._epoch_state(name)
+            if epoch != stored or (stored_writer and
+                                   writer != stored_writer):
+                return {"granted": False, "epoch": stored}
+            self._leases[name] = (writer, time.monotonic() + ttl)
+            return {"granted": True}
+
+    @rpc_method()
+    def journal_lease(self, body, attachments):
+        """Lease status probe for election candidates."""
+        name = self._check_name(_text(body["journal"]))
+        with self._journal_lock:
+            holder, expiry = self._leases.get(name, ("", 0.0))
+            epoch, _ = self._epoch_state(name)
+            return {"writer": holder, "epoch": epoch,
+                    "remaining": max(expiry - time.monotonic(), 0.0)}
+
+    # -- journal membership (shared source of truth for multi-master) ----------
+    #
+    # Which node ids form the quorum set is itself metadata that every
+    # master must agree on; it lives ON the journal nodes (fenced writes,
+    # epoch-stamped) so a standby reads it instead of guessing from its
+    # own view of node registration order.
+
+    def _membership_path(self, name: str) -> str:
+        import os
+        return os.path.join(self.journal_dir, name + ".members")
+
+    @rpc_method(concurrency=1)
+    def journal_membership_put(self, body, attachments):
+        import os
+
+        from ytsaurus_tpu_torch import yson
+        name = self._check_name(_text(body["journal"]))
+        _FP_STATE_WRITE.hit()
+        with self._journal_lock:
+            self._check_writer(name, body.get("epoch"),
+                               body.get("writer"))
+            payload = yson.dumps(
+                {"epoch": int(body["epoch"]),
+                 "member_ids": [_text(m) for m in body["member_ids"]]},
+                binary=True)
+            path = self._membership_path(name)
+            tmp = path + ".tmp"
+            with open(tmp, "wb") as f:
+                f.write(payload)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+        return {}
+
+    # analyze: allow(failpoint): read side — a missing/torn file already reads as defaults; recovery is quorum-WAL tested
+    @rpc_method()
+    def journal_membership_get(self, body, attachments):
+        import os
+
+        from ytsaurus_tpu_torch import yson
+        name = self._check_name(_text(body["journal"]))
+        path = self._membership_path(name)
+        if not os.path.exists(path):
+            return {"member_ids": None, "epoch": 0}
+        with open(path, "rb") as f:
+            data = yson.loads(f.read())
+        return {"member_ids": data.get("member_ids"),
+                "epoch": int(data.get("epoch", 0))}
+
+    @rpc_method()
+    def journal_epoch(self, body, attachments):
+        name = self._check_name(_text(body["journal"]))
+        with self._journal_lock:
+            epoch, writer = self._epoch_state(name)
+            return {"epoch": epoch, "writer": writer}
+
+    @rpc_method(concurrency=1)
+    def journal_append(self, body, attachments):
+        from ytsaurus_tpu_torch.cypress.quorum import record_epoch
+        name = _text(body["journal"])
+        entry = self._journal(name)
+        position = body.get("position")
+        prev_epoch = body.get("prev_epoch")
+        with self._journal_lock:
+            self._check_writer(name, body.get("epoch"), body.get("writer"))
+            if position is not None and int(position) != entry["count"]:
+                raise YtError(
+                    f"journal position mismatch: writer at {position}, "
+                    f"location at {entry['count']}",
+                    code=EErrorCode.JournalPositionMismatch,
+                    attributes={"expected": entry["count"]})
+            # Raft-style consistency check: the writer states the epoch
+            # of ITS record preceding this append; a mismatch means this
+            # location's tail is another (fenced) writer's fork and must
+            # be reset, not extended.
+            if prev_epoch is not None and \
+                    int(prev_epoch) != entry["last_epoch"]:
+                raise YtError(
+                    f"journal tail diverged: writer expects prev epoch "
+                    f"{prev_epoch}, location tail epoch is "
+                    f"{entry['last_epoch']}",
+                    code=EErrorCode.JournalDivergence)
+            for record in body["records"]:
+                entry["wal"].append(record)
+                entry["count"] += 1
+                entry["last_epoch"] = record_epoch(record)
+        return {"count": entry["count"]}
+
+    @rpc_method()
+    def journal_read(self, body, attachments):
+        import os
+
+        from ytsaurus_tpu_torch.cypress.master import Changelog
+        name = self._check_name(_text(body["journal"]))
+        path = os.path.join(self.journal_dir, name + ".log")
+        # A journal this node never held must be reported as uninitialized
+        # BEFORE any auto-creating open: a fresh disk may not vote an empty
+        # prefix in quorum recovery.
+        if not os.path.exists(path) and name not in self._journals:
+            return {"records": [], "initialized": False}
+        self._journal(name)        # open (truncates any torn tail)
+        records, _ = Changelog.read_all(path)
+        return {"records": records, "initialized": True}
+
+    @rpc_method()
+    def journal_count(self, body, attachments):
+        """Count + tail-epoch — the cheap liveness/lag/divergence probe
+        for catch-up (no record payloads cross the wire)."""
+        import os
+        name = self._check_name(_text(body["journal"]))
+        path = os.path.join(self.journal_dir, name + ".log")
+        if not os.path.exists(path) and name not in self._journals:
+            return {"count": 0, "initialized": False}
+        entry = self._journal(name)
+        return {"count": entry["count"], "initialized": True,
+                "last_epoch": entry["last_epoch"]}
+
+    # analyze: allow(failpoint): unlink of a journal already truncated by fence checks; append faults inject upstream
+    @rpc_method(concurrency=1)
+    def journal_reset(self, body, attachments):
+        """Truncate a journal to empty (after a snapshot, or a divergence
+        reset in catch-up).  FENCED like appends: a stale master's
+        divergence reset must not destroy the new master's records."""
+        import os
+        name = self._check_name(_text(body["journal"]))
+        with self._journal_lock:
+            self._check_writer(name, body.get("epoch"), body.get("writer"))
+            entry = self._journals.pop(name, None)
+            if entry is not None:
+                entry["wal"].close()
+            path = os.path.join(self.journal_dir, name + ".log")
+            if os.path.exists(path):
+                os.unlink(path)
+        return {}
+
+    # -- replicated snapshots --------------------------------------------------
+
+    @rpc_method(concurrency=1)
+    def snapshot_put(self, body, attachments):
+        import os
+        name = self._check_name(_text(body["name"]))
+        _FP_STATE_WRITE.hit()
+        with self._journal_lock:
+            self._check_writer(name, body.get("epoch"),
+                               body.get("writer"))
+        seq = int(body["seq"])
+        path = os.path.join(self.journal_dir, f"{name}.snap")
+        tmp = path + ".tmp"
+        from ytsaurus_tpu_torch import yson
+        with open(tmp, "wb") as f:
+            f.write(yson.dumps({"seq": seq}, binary=True))
+            f.write(b"\n")
+            f.write(attachments[0])
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        return {}
+
+    # analyze: allow(failpoint): read side — a missing snapshot reads as seq=None; recovery is quorum-WAL tested
+    @rpc_method()
+    def snapshot_get(self, body, attachments):
+        import os
+        name = self._check_name(_text(body["name"]))
+        path = os.path.join(self.journal_dir, f"{name}.snap")
+        if not os.path.exists(path):
+            return {"seq": None}
+        from ytsaurus_tpu_torch import yson
+        with open(path, "rb") as f:
+            data = f.read()
+        head, _, blob = data.partition(b"\n")
+        meta = yson.loads(head)
+        return {"seq": int(meta["seq"])}, [blob]
+
+
+class MasterService(Service):
+    """Role probe for election-aware clients: leader or follower.
+
+    Ref shape: the election service's GetStatus / cell directory role
+    discovery (yt/yt/server/lib/election/)."""
+
+    name = "master"
+
+    def __init__(self, role_ref: dict):
+        self.role_ref = role_ref       # {"value": "leader" | "follower"}
+
+    @rpc_method()
+    def get_role(self, body, attachments):
+        return {"role": self.role_ref["value"]}
+
+
+class NodeTracker:
+    """Alive-node registry kept by the primary (heartbeat-driven).
+
+    Nodes have STABLE ids (their store identity) and ephemeral addresses;
+    journal placement binds to ids, chunk reads resolve addresses live."""
+
+    def __init__(self, liveness_timeout: float = 15.0):
+        self._nodes: dict[str, tuple[str, float]] = {}   # id → (addr, t)
+        self._lock = threading.Lock()
+        self.liveness_timeout = liveness_timeout
+
+    def heartbeat(self, node_id: str, address: str) -> None:
+        with self._lock:
+            self._nodes[node_id] = (address, time.monotonic())
+
+    def alive(self) -> dict[str, str]:
+        now = time.monotonic()
+        with self._lock:
+            return {i: a for i, (a, t) in sorted(self._nodes.items())
+                    if now - t < self.liveness_timeout}
+
+    def alive_nodes(self) -> list[str]:
+        return list(self.alive().values())
+
+    def drop(self, node_id: str) -> None:
+        with self._lock:
+            self._nodes.pop(node_id, None)
+
+
+class NodeTrackerService(Service):
+    name = "node_tracker"
+
+    def __init__(self, tracker: NodeTracker):
+        self.tracker = tracker
+
+    @rpc_method()
+    def heartbeat(self, body, attachments):
+        self.tracker.heartbeat(_text(body.get("id") or body["address"]),
+                               _text(body["address"]))
+        return {"alive": self.tracker.alive_nodes()}
+
+    @rpc_method()
+    def list_nodes(self, body, attachments):
+        return {"alive": self.tracker.alive_nodes(),
+                "nodes": self.tracker.alive()}
 
 
 class DriverService(Service):

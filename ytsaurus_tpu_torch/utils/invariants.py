@@ -1,8 +1,5 @@
 """Invariant checking: the debug-build sanitizer analog.
 
-Own copy of the JAX package's `utils/invariants.py` without its `wal`
-check (the port has no replicated log).
-
 Ref: the reference leans on debug-build assertions (YT_VERIFY /
 VERIFY_*), TSAN/ASAN builds, and stress suites to catch state
 corruption early.  A Python framework has no TSAN, so this module
@@ -15,11 +12,15 @@ stores).
 Registered checks (grown alongside the subsystems):
   tablet   — per store: versioned rows key-ordered, no duplicate
              (key, timestamp) version
+  wal      — epoch tags non-decreasing along the committed log (the
+             invariant VR-style recovery depends on)
   chunks   — column planes share one capacity; row_count <= capacity
 
 Usage: `check("tablet", tablet_obj)` at a boundary — a no-op unless
 enabled; violations raise InvariantError with enough context to debug
 the corruption at its SOURCE rather than at a distant read.
+
+Own copy of the JAX package's `utils/invariants.py`.
 """
 
 from __future__ import annotations
@@ -50,6 +51,19 @@ def check_chunk(chunk) -> None:
             _fail("chunks",
                   f"column {name!r} planes {col.data.shape[0]}/"
                   f"{col.valid.shape[0]} != capacity {cap}")
+
+
+def check_wal(records) -> None:
+    """Epoch tags must be non-decreasing along a committed log — the
+    property recovery's (last-epoch, length) rule rests on."""
+    from ytsaurus_tpu_torch.cypress.quorum import record_epoch
+    last = 0
+    for i, record in enumerate(records):
+        epoch = record_epoch(record)
+        if epoch < last:
+            _fail("wal", f"epoch regressed at record {i}: "
+                         f"{epoch} after {last}")
+        last = max(last, epoch)
 
 
 def check_tablet(tablet) -> None:
@@ -121,6 +135,7 @@ def check_versioned_rows(subject) -> None:
 
 _CHECKS = {
     "chunks": check_chunk,
+    "wal": check_wal,
     "tablet": check_tablet,
     "versioned_rows": check_versioned_rows,
 }
