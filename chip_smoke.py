@@ -157,11 +157,13 @@ Phases (any failure exits non-zero and prints no result line):
      mount, the same lookups and selects, and every acknowledged write
      read back; 131,072 vectors at dim 256 written, flushed and remounted,
      then nearest_rows from 16 threads through the vector batcher (fewer
-     batches than callers), each held to batched_nearest's. Each stage
-     runs once under the profiler, after 1,000 tiny kernels: host
+     batches than callers), each held to batched_nearest's. Each device
+     stage runs once under the profiler, after 1,000 tiny kernels: host
      seconds, device ms, idle share, peak memory, the chunk cache's hits
-     and misses, radix launches; a stage that is not host-only must put
-     work on the device;
+     and misses, radix launches, and it must put work on the device; a
+     host stage (no port kernel, no device work worth a trace) runs once
+     on the host's clock between two synchronizes, with no profiler
+     session, its launches read from the counters;
      FRONT: the front doors over CLIENT's cluster as CLIENT leaves it
      (its open client after the restart: the 64M-row table and the
      dimension, no second table), on 127.0.0.1:0: an HttpProxy over
@@ -248,6 +250,35 @@ Phases (any failure exits non-zero and prints no result line):
      read_list / read_get calls, 100 more mutations with an aborted
      transaction, verify() empty. Each stage runs as CLIENT's do and also
      records the RPC requests and bytes of every server;
+     CLUSTER: the multi-process cluster (environment/local.py): a
+     LocalCluster of a primary daemon on the card (--device cuda) and
+     three data-node daemons (2 replicas), this process its client
+     through connect_remote(..., device="cuda"); it fails if the card's
+     compute mode is Exclusive_Process. Bring-up (spawn to ready);
+     16,777,216 rows (k, g < 10,000, v < 1000, from --seed + 31)
+     published from here as 2 chunks onto the nodes; SELECT_8's query
+     served by the primary cold and 5 times warm; the join with a
+     10,000-row dimension, after which the primary's orchid
+     /query/device must name the card with both radix kernels launched
+     there; node 3 killed, a remote run_sort of the table by (g, k) in
+     this process (both radix kernels here, read from the surviving
+     replicas) held to numpy's lexsort, then GROUP BY g ORDER BY sum(v)
+     DESC, g LIMIT 100 over the sorted table through the primary; node 3
+     and the primary restarted together (restart_node(..., wait=False),
+     restart_primary()); a dynamic table over RPC (100,000 rows in 100
+     transactions) and a command map ("cat") of 65,536 rows run by the
+     nodes' exec service, while the new primary's tracer warms up; then
+     SELECT_8 cold on the new primary process (its metadata from its WAL,
+     the chunks decoded anew onto the card, both kernels launched there
+     again); then the dynamic table's 4,096 lookups from 16 threads and
+     its read-back select. The daemons start while this process makes
+     the data and oracles. Each stage records host s; a stage whose
+     kernels run in this process runs as CLIENT's device stages do (device
+     ms, idle share, the trace holding every launch); a stage served by
+     the primary records the primary's launches (the difference of its
+     /query/device counts) and the primary's own device trace around it
+     (/query/device/trace/start and /stop: device busy ms, idle share of
+     the window, and the trace holding every launch of the primary);
      SELECT (query/coordinator.py::coordinate_and_execute, the host rung
      behind select_rows, one evaluator on the card): SELECT_8 (bench.py's
      select over 8 chunks of 8,000,000 rows: k the row number, g uniform
@@ -312,7 +343,9 @@ Phases (any failure exits non-zero and prints no result line):
      threads, in the suppliers) and the output (torch, on the card). The
      oracles of SORT, TABLET, DYNTABLE and VECTOR are numpy's orders and
      float64 measures, computed the faster ways of _stable_argsort,
-     _newest_first_order and vector_measures' threads. If the host's
+     _newest_first_order and vector_measures' threads; SORT's and
+     TABLET's tables and oracles are made on a thread (_Ahead) while the
+     slice, STRINGS and VECTOR run on the card. If the host's
      available memory cannot hold the spill, the rows are halved until it
      can, and the line says so;
   5. the `kernels` line: each kernel's time at the main path's shape (the
@@ -330,6 +363,7 @@ import argparse
 import json
 import logging
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -569,7 +603,7 @@ def phase_argsort(rx, gen) -> dict:
 
 
 def _profile(run, hr, rx, ranges=(), runs: int = 2, first=None,
-             host_only: bool = False) -> dict:
+             detail: bool = True) -> dict:
     """The last of `runs` runs of `run` under torch.profiler (`first`, when
     given, runs in place of the runs before it: a stage that changes
     state runs once, after a small warm-up of the profiler): device time
@@ -596,8 +630,11 @@ def _profile(run, hr, rx, ranges=(), runs: int = 2, first=None,
     negative), give or take the few microseconds a launch takes. Where
     the trace dropped the marker, the run starts at the run range's host
     start plus that skew (`device_clock` is false), and the count check
-    still holds. A run that put no work on the device raises, unless
-    `host_only` (its idle share is then 1)."""
+    still holds. A run that put no work on the device raises (a host
+    stage runs without a session: `_client_stage`'s `host_only`).
+    Without `detail` (the stages of CLIENT and the phases after it) the
+    rows come from the raw trace (`_trace_rows`): no ranges, and
+    `top_ops_self_device_ms` is None."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -621,20 +658,24 @@ def _profile(run, hr, rx, ranges=(), runs: int = 2, first=None,
         torch.cuda._sleep(int(pad_ms * PAD_CYCLES_PER_MS))
         torch.cuda.synchronize()
     launched = _launches(hr, rx)
-    events = prof.events()
-    run_cpu = [e.time_range for e in events if e.name == RUN_RANGE and
-               e.device_type == DeviceType.CPU]
-    run_start = min(r.start for r in run_cpu)
-    run_end = max(r.end for r in run_cpu)
-    spins = [e.time_range for e in events
-             if e.device_type == DeviceType.CUDA and MARK_KERNEL in e.name]
-    marks = [r.end for r in spins if r.end - r.start < PAD_MS * 500]
-    closing = [r.start for r in spins if r.end - r.start >= PAD_MS * 500
-               and r.start > (max(marks) if marks else run_start)]
-    pad_launch = min((e.time_range.start for e in events
-                      if e.device_type == DeviceType.CPU and
-                      e.name.startswith("cudaLaunch") and
-                      e.time_range.start >= run_end), default=run_end)
+    # (name, device type, user annotation?, start us, end us) per event.
+    events = [(e.name, e.device_type, getattr(e, "is_user_annotation",
+                                              False),
+               e.time_range.start, e.time_range.end)
+              for e in prof.events()] if detail else _trace_rows(prof)
+    run_cpu = [(t0, t1) for name, dev, _, t0, t1 in events
+               if name == RUN_RANGE and dev == DeviceType.CPU]
+    run_start = min(r[0] for r in run_cpu)
+    run_end = max(r[1] for r in run_cpu)
+    spins = [(t0, t1) for name, dev, _, t0, t1 in events
+             if dev == DeviceType.CUDA and MARK_KERNEL in name]
+    marks = [t1 for t0, t1 in spins if t1 - t0 < PAD_MS * 500]
+    closing = [t0 for t0, t1 in spins if t1 - t0 >= PAD_MS * 500
+               and t0 > (max(marks) if marks else run_start)]
+    pad_launch = min((t0 for name, dev, _, t0, _t1 in events
+                      if dev == DeviceType.CPU and
+                      name.startswith("cudaLaunch") and t0 >= run_end),
+                     default=run_end)
     skew_us = max(closing) - pad_launch if closing else None
     _LAG["us"] = max(_LAG["us"], skew_us if closing else pad_ms * 1e3)
     device_start = max(marks) if marks else run_start + (skew_us or 0.0)
@@ -642,19 +683,17 @@ def _profile(run, hr, rx, ranges=(), runs: int = 2, first=None,
     spans = []
     traced = dict.fromkeys(TRACE_NAMES, 0)
     anywhere = dict.fromkeys(TRACE_NAMES, 0)
-    for e in events:
-        if e.device_type != DeviceType.CUDA or \
-                getattr(e, "is_user_annotation", False) or \
-                MARK_KERNEL in e.name:
+    for name, dev, annotation, t0, t1 in events:
+        if dev != DeviceType.CUDA or annotation or MARK_KERNEL in name:
             continue
         for kernel, trace_name in TRACE_NAMES.items():
-            anywhere[kernel] += trace_name in e.name
-        if e.time_range.start < device_start:
+            anywhere[kernel] += trace_name in name
+        if t0 < device_start:
             continue
-        by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time_total
-        spans.append((e.time_range.start, e.time_range.end))
+        by_kernel[name] = by_kernel.get(name, 0.0) + (t1 - t0)
+        spans.append((t0, t1))
         for kernel, trace_name in TRACE_NAMES.items():
-            traced[kernel] += trace_name in e.name
+            traced[kernel] += trace_name in name
     if traced != launched:
         raise AssertionError(
             f"the trace holds {traced} port kernels, the run launched "
@@ -665,29 +704,30 @@ def _profile(run, hr, rx, ranges=(), runs: int = 2, first=None,
             f"{len(spans)} device events in the run)")
     listed_us = sum(by_kernel.values())
     busy_us = _busy_us(spans)
-    if busy_us <= 0 and not host_only:
+    if busy_us <= 0:
         raise AssertionError("the trace holds no device time")
-    op_acc: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CPU and \
-                run_start <= e.time_range.start <= run_end and \
-                e.self_device_time_total > 0:
-            acc = op_acc.setdefault(e.name, [0.0, 0])
-            acc[0] += e.self_device_time_total
-            acc[1] += 1
-    by_op = sorted(((name, us, count) for name, (us, count) in
-                    op_acc.items()), key=lambda x: -x[1])[:8]
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
     port_ms = {kernel: sum(us for name, us in by_kernel.items()
                            if trace_name in name) / 1e3
                for kernel, trace_name in TRACE_NAMES.items()}
+    by_op = None
     in_range = {name: 0.0 for name in ranges}
     host_range = {name: 0.0 for name in ranges}
-    for e in prof.events():
-        if e.device_type == DeviceType.CPU and e.name in in_range and \
-                run_start <= e.time_range.start <= run_end:
-            in_range[e.name] += e.device_time_total
-            host_range[e.name] += e.time_range.end - e.time_range.start
+    if detail:
+        op_acc: dict = {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CPU or \
+                    not run_start <= e.time_range.start <= run_end:
+                continue
+            if e.self_device_time_total > 0:
+                acc = op_acc.setdefault(e.name, [0.0, 0])
+                acc[0] += e.self_device_time_total
+                acc[1] += 1
+            if e.name in in_range:
+                in_range[e.name] += e.device_time_total
+                host_range[e.name] += e.time_range.end - e.time_range.start
+        by_op = [[key, us / 1e3, count] for key, (us, count) in sorted(
+            op_acc.items(), key=lambda kv: -kv[1][0])[:8]]
     if ranges and not any(in_range.values()):
         raise AssertionError(f"the trace shows no device time in the "
                              f"ranges {list(ranges)}")
@@ -708,9 +748,30 @@ def _profile(run, hr, rx, ranges=(), runs: int = 2, first=None,
         "device_busy_ms": busy_us / 1e3,
         "idle_share": 1 - busy_us / wall_us,
         "top_kernels_ms": [[name[:90], us / 1e3] for name, us in top],
-        "top_ops_self_device_ms": [[key, us / 1e3, count]
-                                   for key, us, count in by_op],
+        "top_ops_self_device_ms": by_op,
     }
+
+
+def _warm_profiler() -> None:
+    """An empty profiler session (CPU and CUDA activity): the tracer's
+    one-time start-up, paid off the timed paths."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        pass
+
+
+def _trace_rows(prof) -> list:
+    """`_profile`'s event rows straight from the profiler's raw trace,
+    without the event tree torch builds for `prof.events()` (seconds for
+    a stage of many small ops; the rows need none of it)."""
+    rows = []
+    for e in prof.profiler.kineto_results.events():
+        if getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        rows.append((e.name(), e.device_type(),
+                     getattr(e, "is_user_annotation", lambda: False)(),
+                     e.start_ns() / 1e3, e.end_ns() / 1e3))
+    return rows
 
 
 def _busy_us(spans: list) -> float:
@@ -1272,28 +1333,69 @@ def _port_entry_points():
         MAX_TIMESTAMP=MAX_TIMESTAMP)
 
 
-def phase_sort(seed: int, hr, rx, port, keep: dict) -> dict:
-    """SORT: bench.py --config sort at its accelerator size, through
-    sort_chunk; k and p exactly as numpy's stable argsort orders them. The
-    table's arrays and the check go into `keep` for the mesh phase."""
+class _Ahead:
+    """Host work of a later phase (its table and numpy oracle), done on a
+    thread while the phases before it run on the card; `after` makes it
+    wait for another _Ahead first, so that one such thread runs at a
+    time. `result()` gives (value, seconds of the work, seconds the
+    caller waited for it)."""
+
+    def __init__(self, fn, *args, after=None):
+        self._box: dict = {}
+        self._thread = threading.Thread(target=self._run,
+                                        args=(fn, args, after), daemon=True,
+                                        name=f"ahead-{fn.__name__}")
+        self._thread.start()
+
+    def _run(self, fn, args, after) -> None:
+        if after is not None:
+            after._thread.join()
+        t = time.perf_counter()
+        try:
+            self._box["value"] = fn(*args)
+        except BaseException as exc:   # noqa: BLE001 — raised by result()
+            self._box["error"] = exc
+        self._box["s"] = time.perf_counter() - t
+
+    def result(self) -> tuple:
+        t = time.perf_counter()
+        self._thread.join()
+        if "error" in self._box:
+            raise self._box["error"]
+        return self._box.pop("value"), self._box["s"], \
+            time.perf_counter() - t
+
+
+def _sort_oracle(seed: int) -> dict:
+    """SORT's table from --seed and its oracle: k and p in numpy's stable
+    argsort order by k."""
     import numpy as np
-    import torch
-    t0 = time.perf_counter()
     rng = np.random.default_rng(seed)
     k = rng.integers(0, 1 << 60, size=SORT_ROWS, dtype=np.int64)
     p = rng.random(SORT_ROWS)
+    order = _stable_argsort(k)
+    return {"k": k, "p": p, "want_k": k[order], "want_p": p[order]}
+
+
+def phase_sort(seed: int, hr, rx, port, keep: dict, ahead: _Ahead) -> dict:
+    """SORT: bench.py --config sort at its accelerator size, through
+    sort_chunk; k and p exactly as numpy's stable argsort orders them
+    (`ahead`: `_sort_oracle` on a thread during the earlier phases). The
+    table's arrays and the check go into `keep` for the mesh phase."""
+    import torch
+    data, oracle_s, waited_s = ahead.result()
+    k, p, want_k, want_p = data["k"], data["p"], data["want_k"], \
+        data["want_p"]
+    del data
+    t0 = time.perf_counter()
     schema = port.TableSchema.make([("k", "int64"), ("p", "double")])
     chunk = port.ColumnarChunk.from_arrays(schema, {"k": k, "p": p},
                                            device="cuda")
     torch.cuda.synchronize()
-    made_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    order = _stable_argsort(k)
-    want_k, want_p = k[order], p[order]
-    del order
-    _log(f"sort table: {SORT_ROWS} rows, capacity {chunk.capacity}, made "
-         f"in {made_s:.1f} s (seed {seed}); oracle (numpy stable argsort) "
-         f"{time.perf_counter() - t0:.1f} s")
+    _log(f"sort table: {SORT_ROWS} rows, capacity {chunk.capacity}, onto "
+         f"the card in {time.perf_counter() - t0:.1f} s (seed {seed}); "
+         f"table and oracle (numpy stable argsort) {oracle_s:.1f} s on a "
+         f"thread during the earlier phases, {waited_s:.1f} s waited")
 
     def check(out) -> int:
         return _check_sorted("SORT", out, want_k, want_p)
@@ -1445,12 +1547,23 @@ def _same_visible(a, b) -> bool:
     return True
 
 
-def phase_tablet(seed: int, hr, rx, port) -> dict:
-    """TABLET: a sorted dynamic table read through MVCC, then GROUP BY."""
+def _tablet_ahead(seed: int) -> tuple:
+    """TABLET's versions from --seed and their oracle at its two read
+    timestamps."""
+    from ytsaurus_tpu_torch.tablet.timestamp import MAX_TIMESTAMP
+    versions = _tablet_data(seed)
+    return versions, _tablet_oracle(versions, (MAX_TIMESTAMP,
+                                               TABLET_READ_TS))
+
+
+def phase_tablet(seed: int, hr, rx, port, ahead: _Ahead) -> dict:
+    """TABLET: a sorted dynamic table read through MVCC, then GROUP BY
+    (`ahead`: `_tablet_ahead`, the versions and their oracle, on a thread
+    during the earlier phases)."""
     import numpy as np
     import torch
+    (versions, oracle), oracle_s, waited_s = ahead.result()
     t0 = time.perf_counter()
-    versions = _tablet_data(seed)
     table = port.TableSchema.make([("k", "int64", "ascending"),
                                    ("g", "int64"), ("v", "int64")])
     vschema = port.versioned_schema(table)
@@ -1469,14 +1582,14 @@ def phase_tablet(seed: int, hr, rx, port) -> dict:
     del planes
     torch.cuda.synchronize()
     made_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     read_points = (port.MAX_TIMESTAMP, TABLET_READ_TS)
-    oracle = _tablet_oracle(versions, read_points)
     _log(f"tablet: {n} versions of {TABLET_BASE} keys ({n - TABLET_BASE} "
          f"later: {1 - TABLET_DELETE_SHARE:.0%} partial writes of v, "
          f"{TABLET_DELETE_SHARE:.0%} deletes), capacity {chunk.capacity}, "
-         f"{chunk.nbytes / 1e9:.3f} GB on the card, made in {made_s:.1f} s "
-         f"(seed {seed}); oracle (numpy) {time.perf_counter() - t0:.1f} s")
+         f"{chunk.nbytes / 1e9:.3f} GB on the card, onto the card in "
+         f"{made_s:.1f} s (seed {seed}); versions and oracle (numpy) "
+         f"{oracle_s:.1f} s on a thread during the earlier phases, "
+         f"{waited_s:.1f} s waited")
     op_ms: list = []
 
     def label(what: str, ts: int) -> str:
@@ -2559,15 +2672,20 @@ def _client_warmup(kernels: int = 1_000) -> None:
 
 def _client_stage(name: str, run, hr, rx, cache, radix: bool = False,
                   host_only: bool = False, extra=None) -> tuple:
-    """One stage of the CLIENT phase, run once under the profiler (after
-    `_client_warmup` in the same session): its result and its record
-    (host seconds, device busy ms and idle share, peak device memory, the
-    chunk cache's hits and misses during the stage (`cache()` gives the
-    live client's cache, or None), radix launches, which the trace must
-    hold one for one, and `overhead_s`, the stage's seconds outside its
-    run: warm-up, pads, profiler start, stop and analysis). With `radix`,
-    it fails unless both radix kernels were launched; unless `host_only`,
-    it fails if the stage put no work on the device."""
+    """One stage of the CLIENT phase (and of FRONT, OPS, DERIVED, CELLS
+    and CLUSTER): its result and its record (host seconds, peak device
+    memory, the chunk cache's hits and misses during the stage (`cache()`
+    gives the live client's cache, or None), the port kernels' launches
+    from their counters, and `overhead_s`, the stage's seconds outside
+    its run). A device stage runs once under the profiler, after
+    `_client_warmup` in the same session: its record adds device busy ms
+    and idle share, the trace must hold every launch one for one, and
+    `overhead_s` is the warm-up, pads, profiler start, stop and analysis;
+    it fails if the stage put no work on the device. A `host_only` stage
+    (it launches no port kernel and no device work worth a trace) runs
+    once on the host's clock, between two `torch.cuda.synchronize()`,
+    with no profiler session: its device fields are None. With `radix`,
+    it fails unless both radix kernels were launched."""
     import torch
     box = {}
 
@@ -2580,19 +2698,32 @@ def _client_stage(name: str, run, hr, rx, cache, radix: bool = False,
 
     t = time.perf_counter()
     hits, misses = counts()
-    prof = _profile(once, hr, rx, runs=2, first=_client_warmup,
-                    host_only=host_only)
-    rec = {"host_s": prof["wall_ms"] / 1e3,
-           "device_busy_ms": prof["device_busy_ms"],
-           "idle_share": prof["idle_share"],
-           "peak_bytes": torch.cuda.max_memory_allocated(),
-           "cache_hits": counts()[0] - hits,
-           "cache_misses": counts()[1] - misses,
-           "launches": prof["launched"],
-           "clock_lead_us": prof["clock_lead_us"],
-           "clock_skew_us": prof["clock_skew_us"],
-           "overhead_s": time.perf_counter() - t - prof["wall_ms"] / 1e3,
-           **(extra or {})}
+    if host_only:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches(hr, rx)
+        t_run = time.perf_counter()
+        once()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t_run
+        prof = {"launched": _launches(hr, rx), "traced": None}
+        rec = {"host_s": host_s, "device_busy_ms": None,
+               "idle_share": None, "traced": False}
+    else:
+        prof = _profile(once, hr, rx, runs=2, first=_client_warmup,
+                        detail=False)
+        host_s = prof["wall_ms"] / 1e3
+        rec = {"host_s": host_s,
+               "device_busy_ms": prof["device_busy_ms"],
+               "idle_share": prof["idle_share"], "traced": True,
+               "clock_lead_us": prof["clock_lead_us"],
+               "clock_skew_us": prof["clock_skew_us"]}
+    rec.update({"peak_bytes": torch.cuda.max_memory_allocated(),
+                "cache_hits": counts()[0] - hits,
+                "cache_misses": counts()[1] - misses,
+                "launches": prof["launched"],
+                "overhead_s": time.perf_counter() - t - host_s,
+                **(extra or {})})
     if radix:
         for kernel in PATH_KERNELS:
             if rec["launches"][kernel] <= 0:
@@ -4873,6 +5004,439 @@ def phase_cells(seed: int, hr, rx, port) -> dict:
     return out
 
 
+# --- CLUSTER: the multi-process cluster -------------------------------------
+
+CLUSTER_ROWS = 16_777_216      # SELECT's table at its full width, 2 chunks
+CLUSTER_CHUNKS = 2             # of 8,388,608 rows, each on 2 of the 3 nodes
+CLUSTER_NODES = 3              # data-node daemons
+CLUSTER_RF = 2                 # replicas of a chunk
+CLUSTER_WARM = 5               # warm runs of SELECT_8 after the cold one
+CLUSTER_TOP = 100
+CLUSTER_DYN_ROWS = 100_000     # rows of the dynamic table, in
+CLUSTER_TX_ROWS = 1_000        # transactions of this many rows
+CLUSTER_DYN_KEYS = 1_000_000   # keys drawn without repeats from [0, this)
+CLUSTER_LOOKUPS = 4_096
+CLUSTER_LOOKUP_BATCH = 16
+CLUSTER_THREADS = 16
+CLUSTER_MAP_ROWS = 65_536      # the command map's input
+CLUSTER_MAP_ROWS_PER_JOB = 16_384
+CLUSTER_T = "//cluster/t"
+CLUSTER_SORTED = "//cluster/sorted"
+CLUSTER_DIM = "//cluster/dim"
+CLUSTER_DYN = "//cluster/dyn"
+CLUSTER_QUERY = ("g, sum(v) AS s, count(*) AS c FROM [//cluster/t] "
+                 "WHERE v < 900 GROUP BY g")
+CLUSTER_JOIN = ("name, sum(v) AS s, count(*) AS c FROM [//cluster/t] "
+                "JOIN [//cluster/dim] USING g GROUP BY name")
+CLUSTER_TOP_QUERY = (f"g, sum(v) AS s FROM [{CLUSTER_SORTED}] GROUP BY g "
+                     f"ORDER BY sum(v) DESC, g LIMIT {CLUSTER_TOP}")
+
+
+def _cluster_data(seed: int) -> dict:
+    """The select table's chunks, the dynamic table's rows and lookup
+    keys, and the command map's input, from --seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 31)
+    per = CLUSTER_ROWS // CLUSTER_CHUNKS
+    chunks = [{"k": np.arange(i * per, (i + 1) * per, dtype=np.int64),
+               "g": rng.integers(0, SELECT_GROUPS, per),
+               "v": rng.integers(0, 1000, per)}
+              for i in range(CLUSTER_CHUNKS)]
+    dyn_k = rng.permutation(CLUSTER_DYN_KEYS)[:CLUSTER_DYN_ROWS]
+    dyn_g = rng.integers(0, 1000, CLUSTER_DYN_ROWS)
+    dyn_v = rng.integers(0, 1000, CLUSTER_DYN_ROWS)
+    present = rng.choice(CLUSTER_DYN_ROWS, CLUSTER_LOOKUPS * 3 // 4,
+                         replace=False)
+    absent = CLUSTER_DYN_KEYS + rng.choice(
+        CLUSTER_DYN_KEYS, CLUSTER_LOOKUPS // 4, replace=False)
+    keys = np.concatenate([dyn_k[present], absent])
+    rng.shuffle(keys)
+    return {"chunks": chunks, "dyn_k": dyn_k, "dyn_g": dyn_g,
+            "dyn_v": dyn_v, "lookup_keys": keys.tolist(),
+            "map": {"a": np.arange(CLUSTER_MAP_ROWS, dtype=np.int64),
+                    "b": rng.integers(0, 1 << 40, CLUSTER_MAP_ROWS)}}
+
+
+def _compute_mode() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _node_call(address: str, method: str, body: dict) -> dict:
+    from ytsaurus_tpu_torch.rpc import Channel
+    channel = Channel(address, timeout=60)
+    try:
+        return channel.call("data_node" if method != "exec_stats"
+                            else "exec_node", method, body)[0]
+    finally:
+        channel.close()
+
+
+def _cluster_lookups(client, d: dict) -> int:
+    """CLUSTER_LOOKUPS keys of the dynamic table from CLUSTER_THREADS
+    threads in calls of CLUSTER_LOOKUP_BATCH keys over RPC, each row
+    against the oracle."""
+    oracle = {int(k): (int(g), int(v)) for k, g, v in
+              zip(d["dyn_k"], d["dyn_g"], d["dyn_v"])}
+    keys = d["lookup_keys"]
+    per = len(keys) // CLUSTER_THREADS
+
+    def run(i):
+        mine = keys[i * per:(i + 1) * per]
+        for lo in range(0, per, CLUSTER_LOOKUP_BATCH):
+            part = mine[lo:lo + CLUSTER_LOOKUP_BATCH]
+            rows = client.lookup_rows(CLUSTER_DYN, [(k,) for k in part])
+            for k, row in zip(part, rows):
+                want = oracle.get(k)
+                got = None if row is None else (row["g"], row["v"])
+                if got != want or (row is not None and row["k"] != k):
+                    raise AssertionError(f"CLUSTER lookup of {k}: {row} != "
+                                         f"{want}")
+        return per
+
+    return sum(_client_threads(run, CLUSTER_THREADS))
+
+
+def phase_cluster(seed: int, hr, rx, port) -> dict:
+    """CLUSTER: the port's multi-process cluster. A LocalCluster of a
+    primary daemon on the card and CLUSTER_NODES data-node daemons
+    (CLUSTER_RF replicas), this process its client through
+    connect_remote(..., device="cuda"). Eight stages, each held to numpy
+    (the module docstring lists them). A stage whose kernels run in this
+    process is profiled as CLIENT's device stages are; a stage served by
+    the primary runs on the host's clock here, inside a device trace of
+    the primary (its orchid /query/device/trace/start and /stop), and
+    records the primary's launches, the difference of its /query/device
+    counts around the stage, which its trace must hold one for one. The
+    daemons start on a thread while this process makes the data and the
+    oracles; the bring-up stage is their spawn-to-ready seconds."""
+    import torch
+    from ytsaurus_tpu_torch.environment import LocalCluster
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    mode = _compute_mode()
+    _log(f"cluster: card memory free {free / 2**30:.2f} of "
+         f"{total / 2**30:.2f} GiB, compute mode {mode}")
+    if mode.replace(" ", "_").lower() == "exclusive_process":
+        raise AssertionError("CLUSTER: the card's compute mode is "
+                             "Exclusive_Process; the primary daemon and "
+                             "this process must share it")
+    # The daemons start while this process makes the data and oracles.
+    root = tempfile.mkdtemp(prefix="cluster-")
+    cluster = LocalCluster(os.path.join(root, "c"), n_nodes=CLUSTER_NODES,
+                           replication_factor=CLUSTER_RF, device="cuda")
+    spawn: dict = {}
+
+    def start():
+        t = time.perf_counter()
+        try:
+            cluster.start()
+        except BaseException as exc:   # noqa: BLE001 — raised below
+            spawn["error"] = exc
+        spawn["s"] = time.perf_counter() - t
+
+    starter = threading.Thread(target=start, name="cluster-start")
+    starter.start()
+    try:
+        return _cluster_stages(seed, hr, rx, port, cluster, starter, spawn,
+                               {"card_free_bytes": free,
+                                "card_total_bytes": total,
+                                "compute_mode": mode}, t_phase)
+    finally:
+        starter.join()
+        cluster.stop()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _cluster_stages(seed, hr, rx, port, cluster, starter, spawn, card,
+                    t_phase) -> dict:
+    """phase_cluster's stages, once its daemons are spawning."""
+    import numpy as np
+    import torch
+    from ytsaurus_tpu_torch.chunks.columnar import ColumnarChunk
+    from ytsaurus_tpu_torch.client import publish_table_chunks
+    from ytsaurus_tpu_torch.remote_client import connect_remote
+    d = _cluster_data(seed)
+    out: dict = {"paths": {}, "stages": {}, **card}
+    holder: dict = {}
+
+    def device_state() -> dict:
+        return holder["client"].get_orchid("/query/device")
+
+    def stage(name, run, radix=False, host_only=False, primary=False):
+        if primary:
+            before = device_state()["launches"]
+            t = time.perf_counter()
+            holder["client"].get_orchid("/query/device/trace/start")
+            trace_start_s = time.perf_counter() - t
+        result, rec = _client_stage(f"cluster {name}", run, hr, rx,
+                                    lambda: None, radix=radix and not primary,
+                                    host_only=host_only or primary)
+        if primary:
+            t = time.perf_counter()
+            trace = holder["client"].get_orchid("/query/device/trace/stop")
+            trace.update(start_s=trace_start_s,
+                         stop_s=time.perf_counter() - t)
+            after = device_state()["launches"]
+            served = {k: int(after[k]) - int(before[k]) for k in after}
+            rec["launches_here"] = rec["launches"]
+            rec["launches_primary"] = served
+            rec["launches"] = {k: v + served.get(k, 0)
+                               for k, v in rec["launches"].items()}
+            rec["primary_trace"] = trace
+            _log(f"cluster {name} primary launches: {json.dumps(served)}, "
+                 f"trace: {json.dumps(trace)}")
+            if radix and min(served[k] for k in PATH_KERNELS) <= 0:
+                raise AssertionError(f"CLUSTER {name}: the primary launched "
+                                     f"{served}, not both radix kernels")
+            if {k: int(v) for k, v in trace["traced"].items()} != \
+                    {k: served[k] for k in trace["traced"]}:
+                raise AssertionError(f"CLUSTER {name}: the primary's trace "
+                                     f"holds {trace['traced']}, it launched "
+                                     f"{served}")
+        out["paths"][f"cluster_{name}"] = rec
+        return result
+
+    g_all = np.concatenate([c["g"] for c in d["chunks"]])
+    v_all = np.concatenate([c["v"] for c in d["chunks"]])
+    k_all = np.concatenate([c["k"] for c in d["chunks"]])
+    sel = v_all < 900
+    select_oracle = (np.bincount(g_all[sel], weights=v_all[sel],
+                                 minlength=SELECT_GROUPS),
+                     np.bincount(g_all[sel], minlength=SELECT_GROUPS))
+    name_of_g = np.arange(SELECT_GROUPS) % CLIENT_NAMES
+    join_oracle = (np.bincount(name_of_g[g_all], weights=v_all,
+                               minlength=CLIENT_NAMES),
+                   np.bincount(name_of_g[g_all], minlength=CLIENT_NAMES))
+    sums = np.bincount(g_all, weights=v_all,
+                       minlength=SELECT_GROUPS).astype(np.int64)
+    present = np.flatnonzero(np.bincount(g_all, minlength=SELECT_GROUPS))
+    top = sorted((-int(sums[g]), int(g)) for g in present)[:CLUSTER_TOP]
+    del sel
+
+    def check_select(name, rows):
+        return _client_check_groups(name, rows, "g", *select_oracle)
+
+    def check_join(name, rows):
+        named = [{"name": int(r["name"][4:]), "s": r["s"], "c": r["c"]}
+                 for r in rows]
+        return _client_check_groups(name, named, "name", *join_oracle)
+
+    def check_device(when: str) -> dict:
+        state = device_state()
+        if not str(state["device"]).startswith("cuda") or \
+                state["name"] != torch.cuda.get_device_name(0) or \
+                min(int(state["launches"][k]) for k in PATH_KERNELS) <= 0:
+            raise AssertionError(f"CLUSTER {when}: the primary's "
+                                 f"/query/device reads {state}")
+        _log(f"cluster primary /query/device {when}: {json.dumps(state)}")
+        return state
+
+    # --- 1. bring-up: spawn to ready, beside the data and oracles --------
+    starter.join()
+    if "error" in spawn:
+        raise spawn["error"]
+    rec = {"host_s": spawn["s"], "device_busy_ms": None, "idle_share": None,
+           "traced": False, "peak_bytes": torch.cuda.max_memory_allocated(),
+           "cache_hits": 0, "cache_misses": 0,
+           "launches": dict.fromkeys(TRACE_NAMES, 0), "overhead_s": 0.0}
+    _log(f"cluster bring_up: {json.dumps(rec)}")
+    out["paths"]["cluster_bring_up"] = rec
+    out["stages"]["bring_up_s"] = rec["host_s"]
+    holder["client"] = client = connect_remote(cluster.primary_address,
+                                               device="cuda")
+
+    # --- 2. SELECT's data on the nodes -----------------------------
+    schema = port.TableSchema.make([("k", "int64"), ("g", "int64"),
+                                    ("v", "int64")])
+
+    def publish():
+        client.create("table", CLUSTER_T, recursive=True,
+                      attributes={"schema": schema})
+        chunks = [ColumnarChunk.from_arrays(schema, a, device="cuda")
+                  for a in d["chunks"]]
+        publish_table_chunks(client, client.chunk_store, CLUSTER_T,
+                             chunks, schema=schema)
+    stage("publish", publish)
+    cids = client.get(CLUSTER_T + "/@chunk_ids")
+    held = [[i for i, a in enumerate(cluster.node_addresses)
+             if _node_call(a, "has_chunk", {"chunk_id": c})
+             .get("exists")] for c in cids]
+    if client.get(CLUSTER_T + "/@row_count") != CLUSTER_ROWS or \
+            [len(h) for h in held] != [CLUSTER_RF] * CLUSTER_CHUNKS:
+        raise AssertionError(f"CLUSTER: the published chunks are "
+                             f"placed on {held}")
+    out["stages"]["chunk_nodes"] = held
+
+    # --- 3. GROUP BY served by the primary ------------------------
+    rows = stage("select_8_cold",
+                 lambda: client.select_rows(CLUSTER_QUERY),
+                 primary=True)
+    out["stages"]["select_8_groups"] = check_select(
+        "CLUSTER SELECT_8 cold", rows)
+    warm = []
+    for _ in range(CLUSTER_WARM):
+        t = time.perf_counter()
+        check_select("CLUSTER SELECT_8 warm",
+                     client.select_rows(CLUSTER_QUERY))
+        warm.append(time.perf_counter() - t)
+    out["stages"]["select_8_warm_s"] = warm
+    _log(f"cluster SELECT_8 warm: {[round(w, 4) for w in warm]} s")
+
+    # --- 4. the join; the primary's kernels -----------------------
+    client.write_table(CLUSTER_DIM, [
+        {"g": g, "name": f"name{g % CLIENT_NAMES:02d}"}
+        for g in range(CLIENT_DIM_ROWS)])
+    rows = stage("join", lambda: client.select_rows(CLUSTER_JOIN),
+                 radix=True, primary=True)
+    out["stages"]["join_groups"] = check_join("CLUSTER join", rows)
+    out["stages"]["primary_device"] = check_device("after the join")
+
+    # --- 5. node 3 down: a remote sort here, a top-k there --------
+    cluster.kill_node(CLUSTER_NODES - 1)
+    op = stage("run_sort", lambda: client.run_sort(
+        CLUSTER_T, CLUSTER_SORTED, sort_by=["g", "k"]), radix=True)
+    if op.state != "completed" or \
+            op.result["rows"] != CLUSTER_ROWS:
+        raise AssertionError(f"CLUSTER run_sort: {op.state} "
+                             f"{op.result}")
+    t_check = time.perf_counter()
+    order = np.argsort(g_all.astype(np.int16), kind="stable")
+    at = 0
+    for cid in client.get(CLUSTER_SORTED + "/@chunk_ids"):
+        chunk = client.chunk_store.read_chunk(cid, device="cuda")
+        planes = chunk.to_numpy()["planes"]
+        n = chunk.row_count
+        for name, col in (("g", g_all), ("k", k_all),
+                          ("v", v_all)):
+            if not np.array_equal(planes[name][0][:n],
+                                  col[order[at:at + n]]):
+                raise AssertionError(f"CLUSTER run_sort: {name} is "
+                                     "not in np.lexsort's order")
+        at += n
+        del chunk, planes
+    if at != CLUSTER_ROWS or client.get(
+            CLUSTER_SORTED + "/@sorted_by") != ["g", "k"]:
+        raise AssertionError("CLUSTER run_sort: rows or @sorted_by "
+                             "differ")
+    del order
+    out["stages"]["sort_check_s"] = time.perf_counter() - t_check
+    rows = stage("top_limit",
+                 lambda: client.select_rows(CLUSTER_TOP_QUERY),
+                 primary=True)
+    if [(-r["s"], r["g"]) for r in rows] != top:
+        raise AssertionError("CLUSTER ORDER BY ... LIMIT differs "
+                             "from numpy")
+
+    # --- 6. node 3 back, the primary restarted --------------------
+    def restart():
+        # Node 3 and the primary start together; the primary's
+        # journal membership waits for all three nodes.
+        cluster.restart_node(CLUSTER_NODES - 1, wait=False)
+        cluster.restart_primary()
+    stage("restart", restart, host_only=True)
+    client.close()
+    holder["client"] = client = connect_remote(
+        cluster.primary_address, device="cuda")
+    if client.get(CLUSTER_T + "/@row_count") != CLUSTER_ROWS:
+        raise AssertionError("CLUSTER: the restarted primary lost "
+                             "the table's metadata")
+    # The new primary's tracer warms up on a thread of its own
+    # (server/daemon.py::DeviceTrace) for ≈ 10 s after it starts:
+    # the stages that need no trace of the primary run first (7's
+    # writes, 8), then the cold SELECT_8 (nothing reads
+    # //cluster/t's chunks before it), then 7's reads.
+
+    # --- 7. a dynamic table over RPC: the writes ------------------
+    dyn_schema = port.TableSchema.make(
+        [("k", "int64", "ascending"), ("g", "int64"),
+         ("v", "int64")], unique_keys=True)
+    client.create("table", CLUSTER_DYN, recursive=True,
+                  attributes={"schema": dyn_schema,
+                              "dynamic": True})
+    client.mount_table(CLUSTER_DYN)
+    dyn_rows = [{"k": k, "g": g, "v": v} for k, g, v in zip(
+        d["dyn_k"].tolist(), d["dyn_g"].tolist(),
+        d["dyn_v"].tolist())]
+    commits: list = []
+
+    def insert():
+        for lo in range(0, CLUSTER_DYN_ROWS, CLUSTER_TX_ROWS):
+            tx = client.start_transaction()
+            client.insert_rows(CLUSTER_DYN,
+                               dyn_rows[lo:lo + CLUSTER_TX_ROWS],
+                               tx=tx)
+            commits.append(client.commit_transaction(tx))
+    stage("dyn_insert", insert, host_only=True)
+    if len(commits) != CLUSTER_DYN_ROWS // CLUSTER_TX_ROWS or \
+            any(b <= a for a, b in zip(commits, commits[1:])):
+        raise AssertionError("CLUSTER: commit timestamps are not "
+                             "strictly rising")
+    del dyn_rows
+
+    # --- 8. a command map on the nodes' exec slots ----------------
+    map_schema = port.TableSchema.make([("a", "int64"),
+                                        ("b", "int64")])
+    client.create("table", "//cluster/map_in", recursive=True,
+                  attributes={"schema": map_schema})
+    publish_table_chunks(
+        client, client.chunk_store, "//cluster/map_in",
+        [ColumnarChunk.from_arrays(map_schema, d["map"],
+                                   device="cuda")],
+        schema=map_schema)
+    started = sum(_node_call(a, "exec_stats", {})["started_total"]
+                  for a in cluster.node_addresses)
+    op = stage("map", lambda: client.run_map(
+        "cat", "//cluster/map_in", "//cluster/map_out",
+        rows_per_job=CLUSTER_MAP_ROWS_PER_JOB), host_only=True)
+    ran = sum(_node_call(a, "exec_stats", {})["started_total"]
+              for a in cluster.node_addresses) - started
+    jobs = CLUSTER_MAP_ROWS // CLUSTER_MAP_ROWS_PER_JOB
+    pairs = []
+    for cid in client.get("//cluster/map_out/@chunk_ids"):
+        chunk = client.chunk_store.read_chunk(cid, device="cpu")
+        planes = chunk.to_numpy()["planes"]
+        pairs.append(np.stack([planes[c][0][:chunk.row_count]
+                               for c in ("a", "b")]))
+    got = np.concatenate(pairs, axis=1)
+    got = got[:, np.argsort(got[0], kind="stable")]
+    if op.result["rows"] != CLUSTER_MAP_ROWS or ran < jobs or \
+            not np.array_equal(got, np.stack([d["map"]["a"],
+                                              d["map"]["b"]])):
+        raise AssertionError(f"CLUSTER map: {op.result}, {ran} jobs "
+                             "on the nodes, or rows differ")
+
+    # --- 6, continued: SELECT_8 cold on the new primary -----------
+    rows = stage("select_8_restarted",
+                 lambda: client.select_rows(CLUSTER_QUERY),
+                 radix=True, primary=True)
+    out["stages"]["select_8_restarted_groups"] = check_select(
+        "CLUSTER SELECT_8 after the restart", rows)
+    out["stages"]["primary_device_restarted"] = check_device(
+        "after the restart")
+
+    # --- 7, continued: the dynamic table's reads ------------------
+    stage("dyn_lookup", lambda: _cluster_lookups(client, d),
+          primary=True)
+    rows = stage("dyn_select", lambda: client.select_rows(
+        f"k, g, v FROM [{CLUSTER_DYN}]"), primary=True)
+    if sorted((r["k"], r["g"], r["v"]) for r in rows) != sorted(
+            zip(d["dyn_k"].tolist(), d["dyn_g"].tolist(),
+                d["dyn_v"].tolist())):
+        raise AssertionError("CLUSTER: an acknowledged write of the "
+                             "dynamic table was not read back")
+    del rows
+    out["stages"]["map_jobs_on_nodes"] = ran
+    client.close()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    _log(f"cluster: {out['seconds']:.1f} s in all")
+    return out
+
+
 # --- SELECT: multi-chunk selects through the host coordinator ---------------
 
 SELECT_ROWS = 64_000_000     # bench.py's select table at the q1 bench size
@@ -5974,7 +6538,12 @@ def main() -> int:
     free_text, _ = _host_memory()
     _log(free_text)
 
-    # 2. build
+    # 2. build. Meanwhile a thread opens and closes an empty profiler
+    # session: a process's first session spends seconds initializing the
+    # tracer (8.1–11.6 s on the H100's host), which then overlap the build
+    # and the kernel checks instead of the first profiled path.
+    warm = threading.Thread(target=_warm_profiler, name="profiler-warm-up")
+    warm.start()
     t0 = time.perf_counter()
     _build.load_all(list(TRACE_NAMES))
     _log(f"built {', '.join(TRACE_NAMES)} in "
@@ -6004,6 +6573,14 @@ def main() -> int:
     # 4. the slice: the queries, then the Sort operation and MVCC reads,
     # the mesh paths, and the spill sort
     keep: dict = {"seed": args.seed}
+    # SORT's and TABLET's tables and numpy oracles (≈ 60 s of host time on
+    # a slow host) are made on a thread, one after the other, while the
+    # slice, STRINGS and VECTOR run on the card.
+    sort_ahead = _Ahead(_sort_oracle, args.seed)
+    tablet_ahead = _Ahead(_tablet_ahead, args.seed, after=sort_ahead)
+    t_warm = time.perf_counter()
+    warm.join()
+    _log(f"profiler warm-up joined after {time.perf_counter() - t_warm:.2f} s")
     paths = timed("slice", phase_slice, args.seed, hr, rx, tpch, select_rows,
                   keep)
     paths.update(timed("strings", phase_strings, args.seed, hr, rx,
@@ -6012,8 +6589,10 @@ def main() -> int:
                 select_rows)
     paths.update(vec.pop("paths"))
     port = _port_entry_points()
-    paths["sort"] = timed("sort", phase_sort, args.seed, hr, rx, port, keep)
-    paths["tablet"] = timed("tablet", phase_tablet, args.seed, hr, rx, port)
+    paths["sort"] = timed("sort", phase_sort, args.seed, hr, rx, port, keep,
+                          sort_ahead)
+    paths["tablet"] = timed("tablet", phase_tablet, args.seed, hr, rx, port,
+                            tablet_ahead)
     dyntable = timed("dyntable", phase_dyntable, args.seed, hr, rx, port)
     paths.update(dyntable.pop("paths"))
     durable = timed("durable", phase_durable, args.seed, hr, rx, port)
@@ -6034,6 +6613,8 @@ def main() -> int:
     paths.update(derived.pop("paths"))
     cells = timed("cells", phase_cells, args.seed, hr, rx, port)
     paths.update(cells.pop("paths"))
+    cluster = timed("cluster", phase_cluster, args.seed, hr, rx, port)
+    paths.update(cluster.pop("paths"))
     paths.update(timed("select", phase_select, args.seed, hr, rx, tpch, port,
                        keep))
     paths.update(timed("mesh", phase_mesh, hr, rx, tpch, keep))
@@ -6070,6 +6651,7 @@ def main() -> int:
               "durable": durable, "queue": queue, "client": client,
               "front": front,
               "ops": ops, "derived": derived, "cells": cells,
+              "cluster": cluster,
               "extsort_rows": paths["extsort"]["rows_in"],
               "strings_rows": STRINGS_ROWS, "vector_rows": VECTOR_ROWS,
               "vector": vec, "mesh_ranks": mesh_ranks,

@@ -1073,3 +1073,67 @@ def test_cells_on_the_card_match_the_cpu(cuda_device, tmp_path):
     finally:
         for node in nodes:
             node.stop()
+
+
+def test_local_cluster_primary_runs_on_the_card(cuda_device, tmp_path):
+    """A LocalCluster(device="cuda") primary daemon holds the card: its
+    /query/device names it, and its GROUP BY (general path: keys past
+    65,536) launches both radix kernels there, every launch held by the
+    primary's device trace; this process's remote run_sort launches them
+    here. Both answer as a CPU cluster does."""
+    from ytsaurus_tpu_torch.environment import LocalCluster
+    from ytsaurus_tpu_torch.remote_client import connect_remote
+    rng = np.random.default_rng(11)
+    rows = [{"k": int(k), "g": int(g), "v": int(v)} for k, g, v in zip(
+        rng.permutation(4000), rng.integers(0, 1 << 40, 4000) % 97 << 20,
+        rng.integers(0, 1000, 4000))]
+    query = "g, sum(v) AS s, count(*) AS c FROM [//t] GROUP BY g"
+    results = {}
+    for device in ("cuda", "cpu"):
+        with LocalCluster(str(tmp_path / device), n_nodes=1,
+                          replication_factor=1, device=device) as cluster:
+            client = connect_remote(cluster.primary_address, device=device)
+            client.write_table("//t", rows)
+            before = dict(rx.launches)
+            op = client.run_sort("//t", "//s", sort_by=["g", "k"])
+            sorted_rows = client.read_table("//s")
+            local = {k: rx.launches[k] - before[k] for k in before}
+            if device == "cuda":
+                first = client.get_orchid("/query/device")["launches"]
+                client.get_orchid("/query/device/trace/start")
+            got = sorted(client.select_rows(query), key=lambda r: r["g"])
+            if device == "cuda":
+                trace = client.get_orchid("/query/device/trace/stop")
+            state = client.get_orchid("/query/device")
+            client.close()
+        results[device] = (op.state, sorted_rows, got)
+        if device == "cuda":
+            assert state["device"].startswith("cuda")
+            assert state["name"] == torch.cuda.get_device_name(0)
+            assert min(state["launches"].values()) > 0, state
+            assert min(local.values()) > 0, local
+            # The select's launches, held by the primary's own trace.
+            assert trace["traced"] == {
+                k: n - first[k] for k, n in state["launches"].items()}, \
+                (trace, first, state)
+            assert trace["device_busy_ms"] > 0 and \
+                0 <= trace["idle_share"] < 1, trace
+    assert results["cuda"] == results["cpu"]
+
+
+def test_primary_without_the_card_exits_and_start_raises(cuda_device,
+                                                         tmp_path,
+                                                         monkeypatch):
+    """With the card hidden (CUDA_VISIBLE_DEVICES=""), a --device cuda
+    primary exits non-zero before it binds a port, and start() raises
+    with the tail of its daemon.log: it never serves from the CPU."""
+    from ytsaurus_tpu_torch.environment import LocalCluster
+    from ytsaurus_tpu_torch.errors import YtError
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    cluster = LocalCluster(str(tmp_path / "c"), n_nodes=1,
+                           replication_factor=1, device="cuda")
+    with pytest.raises(YtError) as info:
+        cluster.start(timeout=120)
+    text = str(info.value)
+    assert "exited rc=1" in text and "no CUDA device" in text, text
+    assert not (tmp_path / "c" / "primary" / "primary.port").exists()

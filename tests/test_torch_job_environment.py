@@ -5,20 +5,18 @@ the port through `port_twin`. The port runs with device="cpu".
 
 Twins and what each leaves out:
 
-- tests/test_job_environment.py (6): all but
-  `test_limits_enforced_on_exec_nodes`, which starts a LocalCluster of
-  node daemons (environment/ and the exec nodes are not ported).
-- tests/test_vanilla.py (9): all but the two remote-copy cases (they
-  start a LocalCluster; the port's remote_copy raises naming
-  remote_client.py) and `test_vanilla_gang_restart_on_any_failure`,
-  which is unsteady in both packages: the gang abort can kill the steady
-  job before it writes its line, and under a full parallel test run it
-  does. `test_gang_restart_is_deterministic` below holds the same
-  guarantee with the steady job's write ordered before the flaky job's
-  failure.
-- tests/test_failpoints.py (14): all but
-  `test_counters_exported_through_monitoring_endpoint` (the monitoring
-  server is not ported).
+- tests/test_job_environment.py (6): all, the exec-node case on a CPU
+  `LocalCluster` of the port's daemons (its `jax.config.update` lines
+  taken out).
+- tests/test_vanilla.py (9): all but
+  `test_vanilla_gang_restart_on_any_failure`, which is unsteady in both
+  packages: the gang abort can kill the steady job before it writes its
+  line, and under a full parallel test run it does.
+  `test_gang_restart_is_deterministic` below holds the same guarantee
+  with the steady job's write ordered before the flaky job's failure.
+  The two remote-copy cases run against a CPU `LocalCluster`.
+- tests/test_failpoints.py (14): all, the monitoring case against the
+  port's `MonitoringServer`.
 """
 
 import signal
@@ -35,24 +33,21 @@ from ytsaurus_tpu_torch.utils import failpoints
 
 torch.set_num_threads(1)
 
-_ENV_TWIN = port_twin("test_job_environment")
-_ENV_CASES = twin_cases(_ENV_TWIN, exclude={
-    "test_limits_enforced_on_exec_nodes"})
+_ENV_TWIN = port_twin("test_job_environment", edits={
+    '    import jax\n    jax.config.update("jax_platforms", "cpu")\n': ""})
+_ENV_CASES = twin_cases(_ENV_TWIN)
 _VANILLA_TWIN = port_twin("test_vanilla")
 _VANILLA_CASES = twin_cases(_VANILLA_TWIN, exclude={
-    "test_remote_copy_between_clusters",
-    "test_remote_copy_missing_table_fails",
     # Unsteady: the gang abort races the steady job's write (above).
     "test_vanilla_gang_restart_on_any_failure"})
 _FP_TWIN = port_twin("test_failpoints")
-_FP_CASES = twin_cases(_FP_TWIN, exclude={
-    "test_counters_exported_through_monitoring_endpoint"})
+_FP_CASES = twin_cases(_FP_TWIN)
 
 
 def test_twin_lists_hold_every_runnable_case():
-    assert len(_ENV_CASES) == 6 - 1
-    assert len(_VANILLA_CASES) == 9 - 3
-    assert len(_FP_CASES) == 14 - 1
+    assert len(_ENV_CASES) == 6
+    assert len(_VANILLA_CASES) == 9 - 1
+    assert len(_FP_CASES) == 14
 
 
 @pytest.mark.parametrize("name", _ENV_CASES)
@@ -132,6 +127,10 @@ def test_memory_limit_failure_carries_its_probable_cause(tmp_path):
 
 
 def test_remote_copy_names_its_module(tmp_path):
+    """Remote copy is ported (its cluster cases are the vanilla twins
+    above): from a cluster that does not answer it raises the transport
+    error naming the address, not a "not ported" error."""
     client = connect(str(tmp_path / "c"), device="cpu")
-    with pytest.raises(YtError, match="remote_client.py"):
-        client.run_remote_copy("localhost:1", "//src", "//dst")
+    with pytest.raises(YtError, match="127.0.0.1:1") as info:
+        client.run_remote_copy("127.0.0.1:1", "//src", "//dst")
+    assert "not ported" not in str(info.value)

@@ -5,7 +5,8 @@
 from the repo root (the directory that holds `chip_smoke.py`). It builds
 the kernels, then calls `chip_smoke.phase_<name>(0, ...)` for each name
 given (`dyntable`, `durable`, `queue`, `client`, `ops`, `derived`,
-`cells`: the phases that take the seed and the port's entry points),
+`cells`, `cluster`: the phases that take the seed and the port's entry
+points),
 with the same
 checks and logs as a whole chip_smoke run, and writes their records to
 `chiprun_out/phases.json`.

@@ -25,9 +25,10 @@ formats, so a directory written by either package opens in the other.
 The query tracker (`client.query_tracker`, server/query_tracker.py) runs
 QL and the ClickHouse dialect (ecosystem/sql.py) on the cluster's device.
 
-Not ported yet, each raising a YtError that names the missing module:
-exec-node dispatch (server/exec_service.py over rpc/) and remote copy
-(remote_client.py).
+In a multi-process cluster (environment/local.py) the primary daemon
+sets `YtCluster.node_directory`, and command maps dispatch to the data
+nodes' exec slots; `run_remote_copy` pulls a table from another cluster
+through `remote_client.connect_remote`.
 """
 
 from __future__ import annotations
@@ -74,6 +75,9 @@ class YtCluster:
         # table is about to adopt.
         self.protected_chunk_ids: set = set()
         self.transactions = TransactionManager()
+        # id -> address of exec-node daemons (set by the primary daemon);
+        # None in pure local mode, where command jobs run in-process.
+        self.node_directory: "Callable[[], dict] | None" = None
         self.evaluator = Evaluator(self.device)
         self.tablets: dict[str, list[Tablet]] = {}   # node id → tablets
         # Query serving plane (query/serving.py): set serving_config
@@ -155,11 +159,6 @@ def _mc():
     return multicell
 
 
-def _not_ported(what: str, module: str) -> YtError:
-    return YtError(f"{what} is not ported yet (waits for {module})",
-                   code=EErrorCode.QueryUnsupported)
-
-
 def _hedged_race(attempts: "list[Callable]", delay: float,
                  base_error: YtError):
     """rpc.channel.hedged_race with the replica-fallback error shape:
@@ -189,9 +188,21 @@ class YtClient:
         # Stagger between hedged replica lookups (hedging_channel.h).
         self.lookup_hedging_delay = 0.05
 
+    @property
+    def device(self):
+        """The cluster's device: where this client's operation
+        controllers sort, as a remote client's run on its own."""
+        return self.cluster.device
+
     def exec_node_addresses(self) -> dict:
-        raise _not_ported("Exec-node dispatch", "server/exec_service.py "
-                          "over rpc/")
+        """id -> address of data nodes hosting exec slots ({} in pure
+        local mode, where jobs run in-process)."""
+        if self.cluster.node_directory is None:
+            return {}
+        try:
+            return dict(self.cluster.node_directory())
+        except Exception:   # noqa: BLE001 — the directory is advisory
+            return {}
 
     @property
     def table_replicator(self):

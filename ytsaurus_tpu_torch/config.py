@@ -34,17 +34,37 @@ counterpart):
                      slots and pools, the brown-out ladder, deadlines and
                      lookup micro-batching
 
+  SloConfig          one service-level objective over the telemetry
+                     history rings (utils/slo.py); `view_lag_slo` builds
+                     the view-freshness one
+
+The daemons' configs are declarative, as the reference's are: a
+`YsonStruct` subclass declares `param(...)`s with defaults, types and
+bounds; values load from YSON-shaped dicts (bytes keys tolerated), merge
+recursively and round-trip through `to_dict`. `RpcConfig`,
+`ChunkStoreConfig`, `MasterConfig` and `SchedulerConfig` are such
+structs, and `DaemonConfig` nests them with the plain configs above (a
+plain config loads from a map of its fields). `DynamicConfigManager`
+polls a patch source, validates the merged config and keeps the last
+good one.
+
 The reference's CompileConfig knobs for compile caches, AOT artifacts and
-buffer donation have no counterpart: nothing here is compiled.
+buffer donation, and its tiering and sanitizer configs, have no
+counterpart: nothing here is compiled, and the port's locks are plain.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import random as _random
+import threading
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Callable, Optional
 
 from ytsaurus_tpu_torch.errors import EErrorCode, YtError
+from ytsaurus_tpu_torch.utils.logging import get_logger
+
+logger = get_logger("Config")
 
 
 def _check(name: str, value: float, ge: Optional[float] = None,
@@ -96,6 +116,9 @@ _RETRY_POLICIES: dict[str, RetryPolicyConfig] = {}
 _RETRY_DEFAULTS: dict[str, dict] = {
     # General RPC transport retries (rpc/channel.py::RetryingChannel).
     "rpc": {},
+    # Remote job start / poll: fail fast so the job revives on another
+    # node.
+    "job_rpc": dict(attempts=2, backoff=0.1, backoff_cap=1.0),
     # Replicated chunk read ladder: rotate fast, short waits.
     "chunk_read": dict(attempts=3, backoff=0.05, backoff_cap=1.0,
                        jitter=0.5),
@@ -137,19 +160,90 @@ class CompileConfig:
 
 
 @dataclass
+class SloConfig:
+    """One service-level objective over the metrics-history rings
+    (utils/profiling.MetricsHistory), alerted on by burn rate
+    (utils/slo.SloTracker).
+
+    - `availability` / `ratio`: `good_sensor` / `bad_sensor` counters;
+      the SLI over a window is bad / (good + bad) from their deltas.
+    - `latency`: a histogram `sensor` and `bound_ms`; observations above
+      the tightest bucket bound containing `bound_ms` are the errors.
+    - `tags`: subset filter on the series (empty sums every series).
+
+    Burn rate = error_rate / (1 - objective). The alert fires when the
+    fast and the slow window both exceed `burn_threshold`, and resolves
+    once the fast window recovers."""
+
+    kind: str = "availability"
+    sensor: str = ""
+    good_sensor: str = ""
+    bad_sensor: str = ""
+    tags: dict = field(default_factory=dict)
+    objective: float = 0.99
+    bound_ms: float = 0.0
+    fast_window: float = 300.0
+    slow_window: float = 3600.0
+    burn_threshold: float = 10.0
+
+    def __post_init__(self):
+        if self.kind not in ("availability", "ratio", "latency"):
+            raise _invalid(f"SLO kind {self.kind!r} not one of "
+                           "['availability', 'latency', 'ratio']")
+        _check("objective", self.objective, ge=0.0, le=1.0)
+        for name in ("bound_ms", "fast_window", "slow_window",
+                     "burn_threshold"):
+            _check(name, getattr(self, name), ge=0.0)
+        self.tags = _str_keys(self.tags)
+        if self.kind == "latency":
+            if not self.sensor or self.bound_ms <= 0:
+                raise _invalid(
+                    "latency SLO requires `sensor` (a histogram) and a "
+                    "positive `bound_ms`")
+        elif not self.good_sensor or not self.bad_sensor:
+            raise _invalid(f"{self.kind} SLO requires `good_sensor` and "
+                           f"`bad_sensor` counters")
+
+
+@dataclass
 class TelemetryConfig:
-    """- `mesh_telemetry`: stack the mesh telemetry lanes (per-shard rows,
+    """- `enabled` / `sample_period`: the sampler thread snapshots every
+      registered sensor this often into the history rings (0 disables
+      sampling; tests drive `sample_once()` with synthetic timestamps).
+    - `fine_capacity` / `coarse_every` / `coarse_capacity`: the ring
+      tiers (1 h at 10 s plus 24 h at 5 min by default).
+    - `slos`: name -> SloConfig (or its map), evaluated after every
+      sample.
+    - `mesh_telemetry`: stack the mesh telemetry lanes (per-shard rows,
       transfer matrices, quota demand) onto the whole-plan rung's one
       host read, and publish the block.
     - `mesh_max_imbalance`: max-shard / mean-shard output rows above
       which an execution counts as skewed (the MESH_SKEW_SLO's bad
       events)."""
 
+    enabled: bool = True
+    sample_period: float = 10.0
+    fine_capacity: int = 360
+    coarse_every: int = 30
+    coarse_capacity: int = 288
+    slos: dict = field(default_factory=dict)
     mesh_telemetry: bool = True
     mesh_max_imbalance: float = 4.0
 
     def __post_init__(self):
+        _check("sample_period", self.sample_period, ge=0.0)
+        _check("fine_capacity", self.fine_capacity, ge=1)
+        _check("coarse_every", self.coarse_every, ge=1)
+        _check("coarse_capacity", self.coarse_capacity, ge=1)
         _check("mesh_max_imbalance", self.mesh_max_imbalance, ge=1.0)
+        parsed = {}
+        for name, spec in _str_keys(self.slos).items():
+            if isinstance(spec, dict):
+                spec = _dataclass_from_dict(SloConfig, spec, f"slos/{name}")
+            elif not isinstance(spec, SloConfig):
+                raise _invalid(f"SLO {name!r}: expected map, got {spec!r}")
+            parsed[name] = spec
+        self.slos = parsed
 
 
 _COMPILE_CONFIG: Optional[CompileConfig] = None
@@ -177,9 +271,15 @@ def telemetry_config() -> TelemetryConfig:
 
 
 def set_telemetry_config(config: Optional[TelemetryConfig]) -> None:
-    """Install a process-wide telemetry config (None restores defaults)."""
+    """Install a process-wide telemetry config (None restores defaults);
+    rebuilds the global history rings and SLO tracker to its shape."""
     global _TELEMETRY_CONFIG
     _TELEMETRY_CONFIG = config
+    from ytsaurus_tpu_torch.utils import profiling, slo
+    # The tracker first: configure_telemetry restarts a running sampler,
+    # whose new thread must hook the new tracker's evaluate.
+    slo.configure(config)
+    profiling.configure_telemetry(config)
 
 
 @dataclass
@@ -279,6 +379,21 @@ def set_views_config(config: Optional[ViewsConfig]) -> None:
     """Install a process-wide views config (None restores defaults)."""
     global _VIEWS_CONFIG
     _VIEWS_CONFIG = config
+
+
+def view_lag_slo(view: Optional[str] = None, objective: float = 0.99,
+                 burn_threshold: float = 10.0, fast_window: float = 300.0,
+                 slow_window: float = 3600.0) -> SloConfig:
+    """The view-freshness SLO: a ratio SLI over the per-view lag votes
+    (`/views/lag_ok` vs `/views/lag_breach`, cast against
+    `ViewsConfig.lag_slo_rows` by every refresh pass); `view=None` sums
+    every view's series."""
+    return SloConfig(
+        kind="ratio", good_sensor="/views/lag_ok",
+        bad_sensor="/views/lag_breach",
+        tags={"view": view} if view else {},
+        objective=objective, burn_threshold=burn_threshold,
+        fast_window=fast_window, slow_window=slow_window)
 
 
 @dataclass
@@ -500,3 +615,328 @@ class ServingConfig:
         if self.brownout_rung2_seconds < self.brownout_rung1_seconds:
             raise _invalid("Serving brownout_rung2_seconds must be >= "
                            "brownout_rung1_seconds")
+
+
+# ---------------------------------------------------------------------------
+# The declarative layer and the daemons' configs.
+# ---------------------------------------------------------------------------
+
+
+def _dataclass_from_dict(cls, data: dict, path: str):
+    """A plain config from a map of its fields; unknown keys and values
+    its checks refuse raise InvalidConfig naming the path."""
+    data = _str_keys(data)
+    names = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(data) - names)
+    if unknown:
+        raise _invalid(f"Unrecognized config keys at {path or '/'}: "
+                       f"{unknown!r}")
+    kwargs = {k: (v.decode("utf-8") if isinstance(v, bytes) else v)
+              for k, v in data.items() if v is not None}
+    try:
+        return cls(**kwargs)
+    except YtError as err:
+        raise _invalid(f"Config {path}: {err.message}") from err
+    except TypeError as err:
+        raise _invalid(f"Config {path}: {err}") from err
+
+
+def _is_struct(kind) -> bool:
+    return isinstance(kind, type) and issubclass(kind, YsonStruct)
+
+
+def _is_plain(kind) -> bool:
+    return isinstance(kind, type) and dataclasses.is_dataclass(kind)
+
+
+class _Param:
+    """One declared parameter: default, type, constraints."""
+
+    __slots__ = ("name", "default", "default_factory", "type", "ge", "le",
+                 "choices", "validator")
+
+    def __init__(self, default=None, *, default_factory=None, type=None,
+                 ge=None, le=None, choices=None, validator=None):
+        self.name: str = ""            # filled by __set_name__
+        self.default = default
+        self.default_factory = default_factory
+        self.type = type
+        self.ge = ge
+        self.le = le
+        self.choices = choices
+        self.validator = validator
+
+    def __set_name__(self, owner, name):
+        self.name = name
+
+    def make_default(self):
+        if self.default_factory is not None:
+            return self.default_factory()
+        if (_is_struct(self.type) or _is_plain(self.type)) \
+                and self.default is None:
+            return self.type()
+        return self.default
+
+    def check(self, value, path: str) -> Any:
+        if value is None:
+            # An explicit null resets to the default (it must not bypass
+            # validation and hand consumers an unexpected None).
+            return self.make_default()
+        if self.type is not None:
+            if _is_struct(self.type) or _is_plain(self.type):
+                if isinstance(value, dict):
+                    value = self.type.from_dict(value, path=path) \
+                        if _is_struct(self.type) \
+                        else _dataclass_from_dict(self.type, value, path)
+                elif not isinstance(value, self.type):
+                    raise _invalid(f"Config {path}: expected map for "
+                                   f"{self.type.__name__}, got {value!r}")
+            elif self.type is float and isinstance(value, int) \
+                    and not isinstance(value, bool):
+                value = float(value)
+            elif self.type is str and isinstance(value, bytes):
+                value = value.decode("utf-8")
+            elif not isinstance(value, self.type) \
+                    or (self.type is int and isinstance(value, bool)):
+                raise _invalid(f"Config {path}: expected "
+                               f"{self.type.__name__}, got {value!r}")
+        if self.ge is not None and value < self.ge:
+            raise _invalid(f"Config {path}: {value!r} < minimum {self.ge!r}")
+        if self.le is not None and value > self.le:
+            raise _invalid(f"Config {path}: {value!r} > maximum {self.le!r}")
+        if self.choices is not None and value not in self.choices:
+            raise _invalid(f"Config {path}: {value!r} not one of "
+                           f"{sorted(self.choices)!r}")
+        if self.validator is not None:
+            self.validator(value)
+        return value
+
+
+def param(default=None, **kwargs) -> Any:
+    """Declare a config parameter on a YsonStruct subclass."""
+    return _Param(default, **kwargs)
+
+
+class YsonStruct:
+    """Base for declarative configs. Subclasses declare parameters:
+
+        class StoreConfig(YsonStruct):
+            capacity_bytes = param(1 << 30, type=int, ge=0)
+            codec = param("lz4", type=str, choices={"none", "lz4", "zstd"})
+
+    Unknown keys raise; set `keep_unrecognized = True` to keep them
+    (in `.unrecognized`)."""
+
+    keep_unrecognized = False
+    _params: dict[str, _Param] = {}
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        merged: dict[str, _Param] = dict(cls.__mro__[1]._params) \
+            if hasattr(cls.__mro__[1], "_params") else {}
+        for name, value in list(vars(cls).items()):
+            if isinstance(value, _Param):
+                merged[name] = value
+        cls._params = merged
+
+    def __init__(self, **overrides):
+        self.unrecognized: dict[str, Any] = {}
+        for name, p in self._params.items():
+            setattr(self, name, p.make_default())
+        for name, value in overrides.items():
+            if name not in self._params:
+                raise _invalid(f"Unknown config parameter {name!r}")
+            setattr(self, name, self._params[name].check(value, name))
+        self.postprocess()
+
+    def postprocess(self) -> None:
+        """Cross-field validation; override in subclasses."""
+
+    @classmethod
+    def from_dict(cls, data: dict, path: str = "") -> "YsonStruct":
+        self = cls.__new__(cls)
+        self.unrecognized = {}
+        data = _str_keys(data)
+        for name, p in cls._params.items():
+            here = f"{path}/{name}" if path else name
+            if name in data:
+                setattr(self, name, p.check(data.pop(name), here))
+            else:
+                setattr(self, name, p.make_default())
+        if data:
+            if cls.keep_unrecognized:
+                self.unrecognized = data
+            else:
+                raise _invalid(f"Unrecognized config keys at {path or '/'}: "
+                               f"{sorted(data)!r}")
+        self.postprocess()
+        return self
+
+    def to_dict(self) -> dict:
+        out = {}
+        for name in self._params:
+            value = getattr(self, name)
+            if isinstance(value, YsonStruct):
+                value = value.to_dict()
+            elif dataclasses.is_dataclass(value):
+                value = dataclasses.asdict(value)
+            out[name] = value
+        out.update(self.unrecognized)
+        return out
+
+    def merge(self, patch: Optional[dict]) -> "YsonStruct":
+        """Recursive merge into a NEW validated instance; `self` is
+        untouched (the dynamic-config manager keeps the old config when
+        the merged one fails validation)."""
+        return type(self).from_dict(_deep_merge(self.to_dict(), patch or {}))
+
+    def __eq__(self, other):
+        return type(other) is type(self) and other.to_dict() == self.to_dict()
+
+    def __repr__(self):
+        inner = ", ".join(f"{k}={getattr(self, k)!r}" for k in self._params)
+        return f"{type(self).__name__}({inner})"
+
+
+def _deep_merge(base: dict, patch: dict) -> dict:
+    out = dict(base)
+    for key, value in patch.items():
+        if isinstance(key, bytes):
+            key = key.decode("utf-8")
+        if isinstance(value, dict) and isinstance(out.get(key), dict):
+            out[key] = _deep_merge(out[key], value)
+        else:
+            out[key] = value
+    return out
+
+
+class RpcConfig(YsonStruct):
+    bind_host = param("127.0.0.1", type=str)
+    port = param(0, type=int, ge=0, le=65535)
+    max_workers = param(16, type=int, ge=1)
+    call_timeout = param(30.0, type=float, ge=0.0)
+    retry_attempts = param(2, type=int, ge=1)
+    retry_backoff = param(0.1, type=float, ge=0.0)
+
+
+class ChunkStoreConfig(YsonStruct):
+    cache_capacity_bytes = param(1 << 30, type=int, ge=0)
+    replication_factor = param(2, type=int, ge=1)
+    erasure_codec = param("none", type=str,
+                          choices={"none", "rs_6_3", "rs_3_2"})
+
+
+class MasterConfig(YsonStruct):
+    snapshot_every = param(1024, type=int, ge=1)
+    journal_nodes = param(2, type=int, ge=0)
+    bootstrap_timeout = param(60.0, type=float, ge=0.0)
+
+
+class SchedulerConfig(YsonStruct):
+    fair_share_update_period = param(0.1, type=float, ge=0.0)
+    max_running_jobs = param(8, type=int, ge=1)
+    speculative_after = param(5.0, type=float, ge=0.0)
+
+
+class DaemonConfig(YsonStruct):
+    """Top-level daemon config (`--config file.yson`). `device` is where
+    the primary and scheduler roles run their evaluator, chunk cache and
+    operation controllers."""
+
+    role = param("primary", type=str, choices={"primary", "node", "proxy"})
+    root = param(None, type=str)
+    device = param("cuda", type=str)
+    rpc = param(type=RpcConfig)
+    chunk_store = param(type=ChunkStoreConfig)
+    master = param(type=MasterConfig)
+    scheduler = param(type=SchedulerConfig)
+    serving = param(type=ServingConfig)
+    tablet = param(type=TabletConfig)
+    tracing = param(type=TracingConfig)
+    telemetry = param(type=TelemetryConfig)
+    workload = param(type=WorkloadConfig)
+    compile = param(type=CompileConfig)
+
+    def postprocess(self):
+        if self.role == "node" and self.chunk_store.replication_factor < 1:
+            raise _invalid("node role requires replication_factor >= 1")
+
+    @classmethod
+    def load(cls, path: str) -> "DaemonConfig":
+        from ytsaurus_tpu_torch import yson
+        with open(path, "rb") as f:
+            return cls.from_dict(yson.loads(f.read()))
+
+
+class DynamicConfigManager:
+    """Polls a patch source (a Cypress document, as a rule) and applies
+    it: fetch, merge onto the base config, validate, fire the
+    subscribers on change; a bad patch keeps the last good config and
+    shows in `last_error`."""
+
+    def __init__(self, fetch: Callable[[], Optional[dict]],
+                 base_config: YsonStruct, period: float = 1.0):
+        self._fetch = fetch
+        self._base = base_config
+        self._period = period
+        self._lock = threading.Lock()
+        self._current = base_config
+        self._last_patch: Optional[dict] = None
+        self.last_error: Optional[YtError] = None
+        self.update_count = 0
+        self._subscribers: list[Callable[[YsonStruct], None]] = []
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def config(self) -> YsonStruct:
+        with self._lock:
+            return self._current
+
+    def subscribe(self, callback: Callable[[YsonStruct], None]) -> None:
+        self._subscribers.append(callback)
+
+    def poll_once(self) -> bool:
+        """One fetch + merge + apply cycle; True if the config changed."""
+        try:
+            patch = self._fetch()
+        except Exception as exc:   # noqa: BLE001 — the fetch is an RPC
+            # boundary; the poll loop outlives transport errors.
+            self.last_error = exc if isinstance(exc, YtError) else \
+                YtError(f"dynamic config fetch failed: {exc!r}")
+            return False
+        if patch == self._last_patch:
+            return False
+        try:
+            new_config = self._base.merge(patch)
+        except YtError as exc:
+            self.last_error = exc
+            logger.warning("rejecting dynamic config patch: %s", exc)
+            return False
+        self._last_patch = patch
+        self.last_error = None
+        with self._lock:
+            if new_config == self._current:
+                return False
+            self._current = new_config
+        self.update_count += 1
+        for callback in self._subscribers:
+            try:
+                callback(new_config)
+            except Exception as exc:   # noqa: BLE001 — subscriber boundary
+                logger.error("dynamic config subscriber failed: %r", exc)
+        return True
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="dynamic-config")
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(self._period):
+            self.poll_once()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)

@@ -16,9 +16,8 @@ Python threads do not serialize the real work; each job names the
 cluster's device itself and never relies on a thread's current CUDA
 device.
 
-Not ported yet: the dispatch to remote exec nodes
-(`run_remote_command_job`), which waits for the exec nodes
-(`server/exec_service.py`).
+`run_remote_command_job` dispatches a command job to an exec node
+(`server/exec_service.py`) and polls it to completion.
 Python-callable jobs cannot be killed, so they are neither preemptible
 nor speculated; command jobs are both.
 """
@@ -111,6 +110,8 @@ class Job:
     # publish and clear the operation's snapshot while the observer was
     # still to record into it.
     _settled: bool = False
+    # (address, remote job id) while running on an exec node
+    _remote: "Optional[tuple[str, str]]" = None
     _done: threading.Event = field(default_factory=threading.Event)
     _lost: bool = False              # lost the speculative race
     _preempted: bool = False         # killed for fairness; will requeue
@@ -662,7 +663,9 @@ class JobManager:
 def _kill_job_process(job: Job) -> None:
     """Kill the WHOLE process group of a job that runs a child process
     (`job._proc`): killing only the shell leaves its children holding
-    the stdout pipe. A job without one is left to finish."""
+    the stdout pipe. A job running on an exec node gets a best-effort
+    remote abort (its poll loop also aborts on the _lost/_preempted
+    flags). A job without either is left to finish."""
     import os
     import signal
     proc = job._proc
@@ -674,6 +677,88 @@ def _kill_job_process(job: Job) -> None:
                 proc.kill()
             except OSError:
                 pass
+    remote = job._remote
+    if remote is not None:
+        def _abort(addr=remote[0], rid=remote[1]):
+            from ytsaurus_tpu_torch.rpc import Channel
+            channel = Channel(addr, timeout=10)
+            try:
+                channel.call("exec_node", "abort_job", {"job_id": rid})
+            except YtError:
+                pass
+            finally:
+                channel.close()
+        threading.Thread(target=_abort, daemon=True).start()
+
+
+def run_remote_command_job(job: Job, address: str, body: dict,
+                           input_blob: Optional[bytes] = None,
+                           timeout: Optional[float] = None) -> bytes:
+    """Dispatch one command job to an exec node and poll to completion;
+    returns the job's stdout blob.
+
+    Ref: the scheduler->exec-node allocation + job-proxy supervision
+    hop (server/scheduler/node_shard.cpp, server/node/exec_node/job
+    controller), collapsed to start/poll/abort RPCs."""
+    from ytsaurus_tpu_torch.rpc import Channel, RetryingChannel
+    from ytsaurus_tpu_torch.rpc.wire import wire_text as _text
+    if job._lost or job._preempted:
+        raise YtError("job canceled before start", code=EErrorCode.Canceled)
+    # Attempts/backoff come from the process retry policy (config.py
+    # "job_rpc"), not per-call-site constants: fail fast so the job
+    # revives on another node.
+    channel = RetryingChannel(Channel(address, timeout=30),
+                              policy="job_rpc")
+    remote_id = None
+    delivered = False
+    # Dedup key: a transport retry of start_job must not double-start
+    # the command on the node (ExecNodeService keys running jobs by it).
+    body = dict(body)
+    body["job_key"] = f"{job.id}:{job.attempt}"
+    try:
+        res, _ = channel.call(
+            "exec_node", "start_job", body,
+            attachments=[input_blob] if input_blob is not None else (),
+            idempotent=False)
+        remote_id = _text(res["job_id"])
+        job._remote = (address, remote_id)
+        deadline = time.monotonic() + timeout if timeout else None
+        interval = 0.1
+        while True:
+            if job._lost or job._preempted:
+                raise YtError("job canceled", code=EErrorCode.Canceled)
+            poll, attachments = channel.call(
+                "exec_node", "poll_job", {"job_id": remote_id})
+            state = _text(poll["state"])
+            if state == "completed":
+                delivered = True
+                return attachments[0]
+            if state in ("failed", "aborted"):
+                raise YtError(
+                    f"remote job failed on {address}: "
+                    f"{_text(poll.get('error') or '')}",
+                    code=EErrorCode.OperationFailed,
+                    attributes={
+                        "stderr": _text(poll.get("stderr_tail") or ""),
+                        "exit_code": poll.get("exit_code")})
+            if deadline is not None and time.monotonic() > deadline:
+                raise YtError(f"remote job on {address} timed out",
+                              code=EErrorCode.Timeout)
+            time.sleep(interval)
+            interval = min(interval * 1.6, 1.5)
+    finally:
+        if remote_id is not None and not delivered:
+            # ANY non-success exit (cancel, poll-retry exhaustion, poll
+            # timeout) must stop the remote process: the caller may
+            # revive the job elsewhere, and an orphan would keep a slot
+            # busy and re-run user side effects.
+            try:
+                channel.call("exec_node", "abort_job",
+                             {"job_id": remote_id})
+            except YtError:
+                pass
+        job._remote = None
+        channel.close()
 
 
 def run_command_job(job: Job, command: str, input_blob: bytes,

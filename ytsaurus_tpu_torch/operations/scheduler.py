@@ -37,9 +37,11 @@ failed device sort never turns into a completed operation: only ragged
 rows that the columnar planes refuse fall back to a host sort, never a
 kernel that fails to build or launch. Command operations whose input has
 a stable chunk list record a per-job @snapshot, so
-`revive_operations` resumes them after a crash. Not ported yet: the
-remote-copy controller and the dispatch of command jobs to exec nodes,
-which raise or stay in-process.
+`revive_operations` resumes them after a crash. Command maps dispatch to
+the exec nodes of a multi-process cluster when it has any
+(`client.exec_node_addresses()`), and `_remote_copy_controller` pulls a
+table from another cluster through `remote_client.connect_remote`, onto
+this client's device.
 """
 
 from __future__ import annotations
@@ -388,7 +390,7 @@ def _sort_controller(client, spec: dict, op=None, job_manager=None) -> dict:
             outs = list(external_sort(chunks, sort_by,
                                       budget_bytes=budget,
                                       descending=descending, stats=stats,
-                                      device=client.cluster.device))
+                                      device=client.device))
         client._write_table_chunks(
             output_path, outs, sorted_by=sort_by,
             schema=outs[0].schema if outs else None)
@@ -398,7 +400,7 @@ def _sort_controller(client, spec: dict, op=None, job_manager=None) -> dict:
     with child_span("sort.device_sort", chunks=len(chunks),
                     bytes=total_weight):
         out = sort_chunks(chunks, sort_by, descending=descending,
-                          device=client.cluster.device)
+                          device=client.device)
     client._write_table_chunks(output_path, [out], sorted_by=sort_by,
                                schema=out.schema)
     return {"rows": out.row_count}
@@ -425,7 +427,7 @@ def _merge_controller(client, spec: dict, op=None, job_manager=None) -> dict:
             chunks[0].schema.key_column_names
         if not key_names:
             raise YtError("sorted merge requires merge_by or sorted input")
-        out = sort_chunks(chunks, key_names, device=client.cluster.device)
+        out = sort_chunks(chunks, key_names, device=client.device)
         client._write_table_chunks(output_path, [out], sorted_by=key_names,
                                    schema=out.schema)
     else:
@@ -445,12 +447,17 @@ def _map_controller(client, spec: dict, op=None, job_manager=None) -> dict:
                         (default json lines), stderr tail kept on errors.
     Input slices into stripes via the chunk pool, jobs run concurrently
     on the shared JobManager under spec["pool"] fair share; stragglers
-    get speculative twins and are split in halves (command jobs). Every
-    command job runs in this process's job slots: the dispatch to exec
-    nodes waits for server/exec_service.py."""
+    get speculative twins and are split in halves (command jobs). Command
+    jobs dispatch to the exec nodes of the data-node daemons
+    (server/exec_service.py) whenever the cluster has any, and run in
+    this process's job slots otherwise."""
     from ytsaurus_tpu_torch.formats import dumps_rows, loads_rows
     from ytsaurus_tpu_torch.operations.chunk_pools import build_stripes, split_stripe
-    from ytsaurus_tpu_torch.operations.jobs import Job, run_command_job
+    from ytsaurus_tpu_torch.operations.jobs import (
+        Job,
+        run_command_job,
+        run_remote_command_job,
+    )
 
     mapper: Optional[Callable] = spec.get("mapper")
     command: Optional[str] = spec.get("command")
@@ -471,7 +478,8 @@ def _map_controller(client, spec: dict, op=None, job_manager=None) -> dict:
     input_chunk_ids = list(attr("chunk_ids", []))
     # Snapshots are plan-keyed by the input chunk list; dynamic tables
     # have no stable chunk list, so their operations restart from scratch
-    # on revival rather than risk stale per-stripe outputs.
+    # on revival rather than risk stale per-stripe outputs.  Remote thin
+    # clients have no direct chunk store either: local controllers only.
     snapshot_ok = not attr("dynamic", False) and hasattr(client, "cluster")
     rows_per_job = spec.get("rows_per_job")
     if rows_per_job is None and spec.get("job_count"):
@@ -488,11 +496,89 @@ def _map_controller(client, spec: dict, op=None, job_manager=None) -> dict:
 
     op_id = op.id if op is not None else uuid.uuid4().hex
 
+    # Distributed exec plane (ref server/node/exec_node/): command jobs
+    # dispatch to job slots on data-node daemons whenever the cluster
+    # has any, reading their input chunks LOCAL-FIRST on the node; the
+    # in-process path remains for pure local mode and Python mappers.
+    exec_nodes: dict = {}
+    if command is not None and spec.get("remote_jobs", True):
+        try:
+            exec_nodes = dict(client.exec_node_addresses())
+        except Exception:   # noqa: BLE001 — directory is advisory
+            exec_nodes = {}
+    chunk_to_id: dict[int, str] = {}
+    if exec_nodes and len(input_chunk_ids) == len(chunks):
+        chunk_to_id = {id(c): cid for c, cid in
+                       zip(chunks, input_chunk_ids)}
+
     def make_run(stripe):
         if mapper is not None:
             def run_py(job):
                 return list(mapper(stripe.materialize().to_rows()))
             return run_py, False
+
+        if exec_nodes:
+            def run_remote(job):
+                from ytsaurus_tpu_torch.server.remote_store import placement_rank
+                addrs = list(dict(exec_nodes).values())
+                by_id = all(id(c) in chunk_to_id
+                            for c, _, _ in stripe.slices)
+                from ytsaurus_tpu_torch.operations.job_environment import (
+                    limits_from_spec,
+                )
+                body = {"command": command, "format": fmt,
+                        "op_id": op_id, "job_id": job.id,
+                        "time_limit": spec.get("job_time_limit"),
+                        "limits": limits_from_spec(spec),
+                        "env": spec.get("environment") or {}}
+                blob = None
+                if by_id:
+                    # Node-side materialization: rank by the first
+                    # slice's chunk placement so a replica holder runs
+                    # the job (local read); rotate within the replica
+                    # set by index for spread, and past it on retries
+                    # (node-death revival).
+                    first = chunk_to_id[id(stripe.slices[0][0])]
+                    ranked = placement_rank(first, addrs)
+                    body["slices"] = [
+                        {"chunk_id": chunk_to_id[id(c)],
+                         "start": s, "end": e}
+                        for c, s, e in stripe.slices]
+                    body["peers"] = addrs
+                    spread = min(2, len(ranked))
+                    offset = (job.index + job.attempt) % spread \
+                        if job.attempt == 0 else \
+                        (job.index + job.attempt) % len(ranked)
+                    order = ranked[offset:] + ranked[:offset]
+                else:
+                    # No stable chunk ids (e.g. dynamic input): ship the
+                    # formatted rows with the spec.
+                    blob = dumps_rows(stripe.materialize().to_rows(),
+                                      fmt)
+                    offset = (job.index + job.attempt) % len(addrs)
+                    order = addrs[offset:] + addrs[:offset]
+                time_limit = spec.get("job_time_limit")
+                poll_timeout = time_limit + 60 if time_limit else None
+                last: "YtError | None" = None
+                for addr in order:
+                    try:
+                        out = run_remote_command_job(
+                            job, addr, dict(body), input_blob=blob,
+                            timeout=poll_timeout)
+                        return loads_rows(out, fmt)
+                    except YtError as err:
+                        if err.code in (EErrorCode.TransportError,
+                                        EErrorCode.PeerUnavailable,
+                                        EErrorCode.RpcTimeout,
+                                        EErrorCode.NoSuchOperation):
+                            # Node died or restarted mid-job: revive the
+                            # job on the next node.
+                            last = err
+                            continue
+                        raise
+                raise last or YtError("no exec node accepted the job",
+                                      code=EErrorCode.PeerUnavailable)
+            return run_remote, True
 
         def run_cmd(job):
             from ytsaurus_tpu_torch.operations.job_environment import (
@@ -795,7 +881,7 @@ def _reduce_controller(client, spec: dict, op=None, job_manager=None) -> dict:
                            schema=spec.get("output_schema"))
         return {"rows": 0, "jobs": 0}
     merged = sort_chunks(_align_schemas(chunks), sort_by,
-                         device=client.cluster.device)
+                         device=client.device)
     n = merged.row_count
     rows_per_job = spec.get("rows_per_job") or 4_000_000
     if spec.get("job_count"):
@@ -938,7 +1024,7 @@ def _map_reduce_controller(client, spec: dict, op=None,
         # the controller thread.
         return make_reduce_base(
             lambda: _sort_rows_for_reduce(rows, sort_by,
-                                          client.cluster.device))
+                                          client.device))
 
     outputs, revived = _run_user_jobs(
         client, op, job_manager, spec, partitions, make_reduce,
@@ -1110,8 +1196,55 @@ def _one(spec: dict, key: str) -> str:
 
 def _remote_copy_controller(client, spec: dict, op=None,
                             job_manager=None) -> dict:
-    raise YtError("The remote_copy operation is not ported yet (waits for "
-                  "remote_client.py)", code=EErrorCode.OperationFailed)
+    """Remote copy (ref controllers/remote_copy_controller.cpp): pull a
+    table from ANOTHER cluster into this one through the remote thin
+    client — chunk-shaped reads on the source, ordinary chunk publishes
+    on the destination, schema + sort order preserved."""
+    from ytsaurus_tpu_torch.remote_client import connect_remote
+
+    cluster_address = spec.get("cluster_address") or \
+        spec.get("cluster_connection")
+    if not cluster_address:
+        raise YtError("remote_copy spec requires cluster_address")
+    input_path = _one(spec, "input_table_path")
+    output_path = _one(spec, "output_table_path")
+    src = connect_remote(cluster_address, device=client.device)
+    try:
+        chunks = src._read_table_chunks(input_path)
+        schema = None
+        sorted_by = None
+        try:
+            schema_dict = src.get(input_path + "/@schema")
+            if schema_dict:
+                from ytsaurus_tpu_torch.schema import TableSchema
+                schema = TableSchema.from_dict(schema_dict)
+        except YtError:
+            pass
+        try:
+            sorted_by = src.get(input_path + "/@sorted_by")
+        except YtError:
+            sorted_by = None
+        chunks = [c for c in chunks if c.row_count > 0]
+        client._write_table_chunks(output_path, chunks,
+                                   sorted_by=sorted_by, schema=schema)
+        # User attributes ride along (ref remote copy attribute keys).
+        # They were requested EXPLICITLY: a missing one is an error, not
+        # a silent drop.
+        missing = []
+        for key in spec.get("attribute_keys") or []:
+            try:
+                client.set(f"{output_path}/@{key}",
+                           src.get(f"{input_path}/@{key}"))
+            except YtError:
+                missing.append(key)
+        if missing:
+            raise YtError(
+                f"remote_copy: requested attribute_keys {missing} absent "
+                f"on {input_path!r}", code=EErrorCode.ResolveError)
+        return {"rows": sum(c.row_count for c in chunks),
+                "chunks": len(chunks)}
+    finally:
+        src.close()
 
 
 _CONTROLLERS = {

@@ -1190,6 +1190,16 @@ class QueryGateway:
         self.nearest_batcher.config = config
         self.admission.apply_config(config)
 
+    def attach_dynamic_config(self, manager) -> None:
+        """Subscribe this gateway to a config.DynamicConfigManager whose
+        merged config is (or carries) a ServingConfig: the live pool
+        create / resize path."""
+        def _on_update(cfg):
+            serving = getattr(cfg, "serving", cfg)
+            if isinstance(serving, ServingConfig):
+                self.apply_config(serving)
+        manager.subscribe(_on_update)
+
     def snapshot(self) -> dict:
         admission = self.admission.snapshot()
         return {"enabled": self.enabled,

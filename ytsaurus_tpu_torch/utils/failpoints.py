@@ -23,9 +23,10 @@ crash-once defaults to 1), `after` (skip the first n hits), `ms` (delay
 length). Activation is `active(spec, seed)` (a context manager),
 `activate` / `deactivate`, or `configure(config.FailpointsConfig)`;
 `is_active()` and `active_spec()` read the schedule, `counters()` the
-per-site hits and triggers. The reference's environment activation
-(spawned daemons) and its sensors are not ported: the port spawns no
-daemon.
+per-site hits and triggers, and `schedule_snapshot()` the active rules.
+Spawned daemons arm from the `YT_FAILPOINTS` / `YT_FAILPOINTS_SEED`
+environment at import; per-site hits and triggers mirror into the
+profiling registry under `/failpoints` (the monitoring `/metrics`).
 
 On a mesh every rank holds its own schedule: give every rank the same
 spec, and the sites (hit before any collective of their step) trigger on
@@ -37,6 +38,7 @@ The disabled fast path is one module-global read per hit.
 from __future__ import annotations
 
 import contextlib
+import os
 import random
 import time
 from typing import Callable, Optional
@@ -106,7 +108,8 @@ _SITES: "dict[str, FailpointSite]" = {}
 class FailpointSite:
     """A named fault site; `hit()` is its probe."""
 
-    __slots__ = ("name", "error_factory", "hits", "triggers")
+    __slots__ = ("name", "error_factory", "hits", "triggers",
+                 "_prof_hits", "_prof_triggers")
 
     def __init__(self, name: str,
                  error: Optional[Callable[[str], BaseException]] = None):
@@ -114,6 +117,8 @@ class FailpointSite:
         self.error_factory = error or _default_error
         self.hits = 0        # cumulative, only counted while active
         self.triggers = 0
+        self._prof_hits = None
+        self._prof_triggers = None
 
     def fire(self, write: bool = False) -> "Optional[tuple[str, float]]":
         """Evaluate the schedule for one hit: (mode, ms) when a fault
@@ -122,6 +127,16 @@ class FailpointSite:
         state = _STATE
         if state is None:
             return None
+        result = self._fire_locked(state, write)
+        # Mirror on every active hit, not just on triggers, or /metrics
+        # would show a site as dead while it counts toward `after`.
+        self._ensure_sensors()
+        self._prof_hits.set(self.hits)
+        if result is not None:
+            self._prof_triggers.increment()
+        return result
+
+    def _fire_locked(self, state, write: bool):
         with _LOCK:
             self.hits += 1
             rule = state.rules.get(self.name)
@@ -141,6 +156,16 @@ class FailpointSite:
             rule.triggered += 1
             self.triggers += 1
         return rule.mode, rule.ms
+
+    def _ensure_sensors(self) -> None:
+        # Lazy: the profiling import stays off the fast path. Hits mirror
+        # as a gauge: a computed increment would double-count under
+        # concurrent hits.
+        if self._prof_triggers is None:
+            from ytsaurus_tpu_torch.utils.profiling import Profiler
+            prof = Profiler("/failpoints").with_tags(site=self.name)
+            self._prof_hits = prof.gauge("hits")
+            self._prof_triggers = prof.counter("triggers")
 
     def hit(self) -> None:
         """The probe: may sleep (delay), raise the site's error (error)
@@ -289,3 +314,22 @@ def reset_counters() -> None:
         for site in _SITES.values():
             site.hits = 0
             site.triggers = 0
+
+
+def schedule_snapshot() -> "dict[str, dict]":
+    """Per-rule live state of the active schedule (the monitoring view)."""
+    state = _STATE
+    if state is None:
+        return {}
+    with _LOCK:
+        return {name: {"mode": r.mode, "p": r.p, "one_in": r.one_in,
+                       "times": r.times, "after": r.after, "ms": r.ms,
+                       "hits": r.hits, "triggered": r.triggered}
+                for name, r in state.rules.items()}
+
+
+# Environment activation: daemons spawned under a chaos harness inherit
+# YT_FAILPOINTS and arm themselves on import.
+_env_spec = os.environ.get("YT_FAILPOINTS", "")
+if _env_spec:
+    activate(_env_spec, seed=int(os.environ.get("YT_FAILPOINTS_SEED", "0")))

@@ -1,19 +1,23 @@
 """Typed sensors on a tag tree + Prometheus-format export.
 
 Own copy of the JAX package's `utils/profiling.py` (ref library/profiling
-TProfiler: counters, gauges, summaries and histograms under a tag tree):
-one process-wide
-`ProfilerRegistry`, a `Profiler` as a (prefix, tags) view onto it,
-`Timer`, and `PoolSensorCache` (per-pool counter sets). The reference's
-Prometheus rendering, metrics-history rings and their sampler thread are
-not ported: no daemon of the port serves them.
+TProfiler: counters, gauges, summaries and histograms under a tag tree,
+library/profiling/solomon/exporter.h:25 for the pull endpoint): one
+process-wide `ProfilerRegistry`, a `Profiler` as a (prefix, tags) view
+onto it, `Timer`, `PoolSensorCache` (per-pool counter sets), the
+Prometheus text rendering that the daemons' monitoring servers serve,
+and the bounded metrics-history rings (`MetricsHistory`) with the
+sampler thread that fills them and runs the SLO evaluation
+(`TelemetrySampler`, `start_telemetry`).
 """
 
 from __future__ import annotations
 
 import bisect
 import random
+import threading
 import time
+from collections import deque
 from typing import Optional
 
 from ytsaurus_tpu_torch.utils import sanitizers
@@ -60,6 +64,9 @@ class Counter:
     def samples(self):
         yield "counter", "", self._value
 
+    def history_sample(self):
+        return self._value
+
 
 class Gauge:
     """Last-set value."""
@@ -78,6 +85,9 @@ class Gauge:
     def samples(self):
         yield "gauge", "", self._value
 
+    def history_sample(self):
+        return self._value
+
 
 class Summary:
     """Count/sum/min/max/last of observed values, plus a BOUNDED
@@ -86,7 +96,7 @@ class Summary:
     The reservoir is Vitter's algorithm R: a fixed-size uniform sample
     of every observation so far, so a month-long daemon's sensor memory
     stays O(RESERVOIR_CAPACITY) no matter how many values it records
-    (the an unbounded per-sensor value list would
+    (an unbounded per-sensor value list would
     grow without bound at serving rates).  `quantile()` reads it for
     p50/p99-style estimates."""
 
@@ -133,6 +143,9 @@ class Summary:
             yield "summary", ".min", self.min
             yield "summary", ".max", self.max
 
+    def history_sample(self):
+        return (self.count, self.sum)
+
 
 class Histogram:
     """Fixed-bucket histogram (upper bounds; +Inf implicit)."""
@@ -165,6 +178,11 @@ class Histogram:
         yield "histogram", '.bucket{le="+Inf"}', self.count
         yield "histogram", ".sum", self.sum
         yield "histogram", ".count", self.count
+
+    def history_sample(self):
+        # Raw per-bucket counts (NOT cumulative): window deltas then
+        # subtract elementwise and quantile math cumsums the result.
+        return (self.count, self.sum, tuple(self.buckets))
 
 
 class Timer:
@@ -199,6 +217,28 @@ class ProfilerRegistry:
                 sensor = self._sensors[key] = factory()
             return sensor
 
+    def render_prometheus(self) -> str:
+        """Text exposition format, stable ordering."""
+        lines = []
+        with self._lock:
+            items = sorted(self._sensors.items(),
+                           key=lambda kv: (kv[0][0], kv[0][1]))
+        for (name, tags), sensor in items:
+            metric = _sanitize(name)
+            tag_str = _format_tags(dict(tags))
+            for _kind, suffix, value in sensor.samples():
+                if suffix.startswith(".bucket"):
+                    # merge histogram le-tag with sensor tags
+                    le = suffix[len(".bucket"):]
+                    base = tag_str[:-1] + "," + le[1:] if tag_str \
+                        else le
+                    lines.append(f"{metric}_bucket{base} {value}")
+                else:
+                    lines.append(
+                        f"{metric}{suffix.replace('.', '_')}{tag_str} "
+                        f"{value}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
     def collect(self) -> dict:
         """Live snapshot as a plain dict (Orchid's data source)."""
         out = {}
@@ -218,6 +258,309 @@ _global_registry = ProfilerRegistry()
 
 def get_registry() -> ProfilerRegistry:
     return _global_registry
+
+
+# ---------------------------------------------------------------------------
+# Metrics history: bounded in-process time-series rings.
+#
+# Ref shape: Solomon-style metrics history — the reference's monitoring
+# system keeps per-sensor time series the dashboards and alerts read;
+# here each process keeps its own bounded rings (a sampler thread
+# snapshots every registered sensor at TelemetryConfig.sample_period)
+# served via /metrics/history and orchid /telemetry/history, and the
+# primary's /cluster roll-up scrapes every daemon's rings for the fleet
+# view.  Two tiers bound memory while keeping both resolutions: fine
+# (sample_period x fine_capacity, default 10s x 360 = 1h) and coarse
+# (every coarse_every-th sample, default 5min x 288 = 24h).
+# ---------------------------------------------------------------------------
+
+
+class _SeriesRing:
+    """One sensor's bounded history: (timestamp, history_sample) points
+    in two fixed-size deques.  Counter/gauge points carry a float;
+    summaries (count, sum); histograms (count, sum, raw buckets)."""
+
+    __slots__ = ("kind", "bounds", "fine", "coarse")
+
+    def __init__(self, kind: str, bounds, fine_capacity: int,
+                 coarse_capacity: int):
+        self.kind = kind
+        self.bounds = bounds            # histogram upper bounds, else None
+        self.fine: deque = deque(maxlen=fine_capacity)
+        self.coarse: deque = deque(maxlen=coarse_capacity)
+
+    def points(self, tier: str) -> list:
+        return list(self.coarse if tier == "coarse" else self.fine)
+
+    def at_or_before(self, ts: float):
+        """Newest point with timestamp <= ts, preferring fine resolution
+        and falling back to the coarse tier for older horizons."""
+        for tier in (self.fine, self.coarse):
+            best = None
+            for point in tier:
+                if point[0] <= ts:
+                    best = point
+                else:
+                    break
+            if best is not None:
+                return best
+        # Nothing old enough: the oldest point we still hold (best
+        # effort — a window larger than retention reads what's left).
+        if self.coarse:
+            return self.coarse[0]
+        return self.fine[0] if self.fine else None
+
+    def latest(self):
+        if self.fine:
+            return self.fine[-1]
+        return self.coarse[-1] if self.coarse else None
+
+
+class MetricsHistory:
+    """Bounded history of every sensor in one registry.
+
+    `sample_once(now)` snapshots all sensors (tests drive it with a
+    synthetic timeline; daemons run a TelemetrySampler thread).  Memory
+    is bounded by construction: one _SeriesRing of fixed-size deques per
+    live sensor, no per-event storage."""
+
+    def __init__(self, registry: Optional[ProfilerRegistry] = None,
+                 fine_capacity: int = 360, coarse_every: int = 30,
+                 coarse_capacity: int = 288,
+                 sample_period: float = 10.0):
+        self.registry = registry or _global_registry
+        self.fine_capacity = fine_capacity
+        self.coarse_every = max(coarse_every, 1)
+        self.coarse_capacity = coarse_capacity
+        self.sample_period = sample_period
+        # guards: _series, samples_taken
+        self._lock = sanitizers.register_lock(
+            "profiling.MetricsHistory._lock")
+        self._series: dict[tuple, _SeriesRing] = {}
+        self.samples_taken = 0
+
+    @classmethod
+    def from_config(cls, cfg,
+                    registry: Optional[ProfilerRegistry] = None
+                    ) -> "MetricsHistory":
+        return cls(registry=registry, fine_capacity=cfg.fine_capacity,
+                   coarse_every=cfg.coarse_every,
+                   coarse_capacity=cfg.coarse_capacity,
+                   sample_period=cfg.sample_period)
+
+    def sample_once(self, now: Optional[float] = None) -> float:
+        now = time.time() if now is None else now
+        with self.registry._lock:
+            items = list(self.registry._sensors.items())
+        with self._lock:
+            self.samples_taken += 1
+            fold = self.samples_taken % self.coarse_every == 0
+            for key, sensor in items:
+                ring = self._series.get(key)
+                if ring is None:
+                    ring = self._series[key] = _SeriesRing(
+                        getattr(sensor, "kind", "gauge"),
+                        getattr(sensor, "bounds", None),
+                        self.fine_capacity, self.coarse_capacity)
+                point = (now, sensor.history_sample())
+                ring.fine.append(point)
+                if fold:
+                    ring.coarse.append(point)
+        return now
+
+    # -- queries ---------------------------------------------------------------
+
+    def _matching(self, name: Optional[str], tags: Optional[dict]):
+        with self._lock:
+            items = list(self._series.items())
+        for (sname, stags), ring in items:
+            if name is not None and sname != name:
+                continue
+            if tags:
+                stag_dict = dict(stags)
+                if any(stag_dict.get(k) != v for k, v in tags.items()):
+                    continue
+            yield (sname, stags), ring
+
+    def series_names(self) -> list[str]:
+        with self._lock:
+            return sorted({name for name, _tags in self._series})
+
+    def query(self, name: Optional[str] = None,
+              tags: Optional[dict] = None,
+              since: Optional[float] = None,
+              tier: str = "fine") -> list[dict]:
+        """Matching series as JSON-shaped dicts (the /metrics/history
+        payload).  `tags` is a subset filter; `since` drops points at or
+        before that timestamp; `tier` picks fine or coarse."""
+        out = []
+        for (sname, stags), ring in self._matching(name, tags):
+            points = ring.points(tier)
+            if since is not None:
+                points = [p for p in points if p[0] > since]
+            out.append({
+                "name": sname, "tags": dict(stags), "kind": ring.kind,
+                "tier": tier,
+                "points": [[ts, value] for ts, value in points],
+            })
+        out.sort(key=lambda s: (s["name"], sorted(s["tags"].items())))
+        return out
+
+    def window_delta(self, name: str, tags: Optional[dict] = None,
+                     window: float = 300.0,
+                     now: Optional[float] = None):
+        """Cumulative-series change over the trailing window, summed
+        across matching series: counters return a float; summaries
+        (d_count, d_sum); histograms (d_count, d_sum, [d_buckets],
+        bounds).  None when no matching series holds two points yet.
+        Gauges return the latest value (deltas are meaningless)."""
+        total = None
+        for _key, ring in self._matching(name, tags):
+            latest = ring.latest()
+            if latest is None:
+                continue
+            t_latest = latest[0]
+            horizon = (now if now is not None else t_latest) - window
+            base = ring.at_or_before(horizon)
+            if base is None or base[0] >= t_latest:
+                continue
+            if ring.kind == "gauge":
+                delta = latest[1]
+            elif ring.kind == "counter":
+                delta = latest[1] - base[1]
+            elif ring.kind == "summary":
+                delta = (latest[1][0] - base[1][0],
+                         latest[1][1] - base[1][1])
+            else:                                   # histogram
+                delta = (latest[1][0] - base[1][0],
+                         latest[1][1] - base[1][1],
+                         [a - b for a, b in zip(latest[1][2],
+                                                base[1][2])],
+                         ring.bounds)
+            total = delta if total is None else _merge_delta(total, delta)
+        return total
+
+    def dump(self) -> dict:
+        """Orchid /telemetry/history producer: every series keyed the
+        same way registry.collect keys sensors."""
+        series = {}
+        for (sname, stags), ring in self._matching(None, None):
+            series[sname + _format_tags(dict(stags))] = {
+                "kind": ring.kind,
+                "fine": [[ts, value] for ts, value in ring.points("fine")],
+                "coarse": [[ts, value]
+                           for ts, value in ring.points("coarse")],
+            }
+        return {"samples_taken": self.samples_taken,
+                "sample_period": self.sample_period,
+                "series": series}
+
+
+def _merge_delta(a, b):
+    if isinstance(a, tuple) and isinstance(b, tuple):
+        if len(a) >= 3:            # histogram: merge buckets elementwise
+            return (a[0] + b[0], a[1] + b[1],
+                    [x + y for x, y in zip(a[2], b[2])], a[3])
+        return tuple(x + y for x, y in zip(a, b))
+    return a + b
+
+
+class TelemetrySampler:
+    """The sampler thread: snapshots the registry into a MetricsHistory
+    at a fixed cadence, then runs the follow-up hooks (SLO evaluation)."""
+
+    def __init__(self, history: MetricsHistory,
+                 period: Optional[float] = None, hooks=()):
+        self.history = history
+        self.period = history.sample_period if period is None else period
+        self.hooks = list(hooks)
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "TelemetrySampler":
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="telemetry-sampler")
+        self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.period):
+            self.tick()
+
+    def tick(self) -> None:
+        now = self.history.sample_once()
+        for hook in self.hooks:
+            try:
+                hook(now)
+            except Exception:   # noqa: BLE001 — one bad SLO config must
+                # not kill the sampling cadence for every other series.
+                pass
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+
+
+_global_history: Optional[MetricsHistory] = None
+_global_sampler: Optional[TelemetrySampler] = None
+# guards: _global_history, _global_sampler
+_history_lock = sanitizers.register_lock("profiling._history_lock",
+                                         hot=False)
+
+
+def get_history() -> MetricsHistory:
+    """The process-wide history rings (lazily built from
+    config.telemetry_config)."""
+    global _global_history
+    if _global_history is None:
+        with _history_lock:
+            if _global_history is None:
+                from ytsaurus_tpu_torch.config import telemetry_config
+                _global_history = MetricsHistory.from_config(
+                    telemetry_config())
+    return _global_history
+
+
+def configure_telemetry(cfg) -> None:
+    """Rebuild the global history to a new config's ring shape (called
+    by config.set_telemetry_config; None restores lazy defaults).  A
+    RUNNING sampler is restarted against the new rings + SLO tracker —
+    otherwise a live daemon's reconfigure would leave the old thread
+    sampling orphaned rings forever (set_telemetry_config rebinds the
+    SLO tracker BEFORE calling here, so the restart hooks the new one)."""
+    global _global_history, _global_sampler
+    with _history_lock:
+        _global_history = None if cfg is None \
+            else MetricsHistory.from_config(cfg)
+        sampler = _global_sampler
+        _global_sampler = None
+    if sampler is not None:
+        sampler.stop()
+        start_telemetry(cfg)
+
+
+def start_telemetry(config=None) -> Optional[TelemetrySampler]:
+    """Start (once) the process-wide sampler + SLO evaluation — the
+    daemon entry point's one-call telemetry bring-up.  Returns the
+    sampler, or None when sampling is disabled."""
+    global _global_sampler
+    if config is None:
+        from ytsaurus_tpu_torch.config import telemetry_config
+        config = telemetry_config()
+    if not config.enabled or config.sample_period <= 0:
+        return None
+    with _history_lock:
+        if _global_sampler is not None:
+            return _global_sampler
+    from ytsaurus_tpu_torch.utils.slo import get_slo_tracker
+    tracker = get_slo_tracker()
+    sampler = TelemetrySampler(get_history(), config.sample_period,
+                               hooks=[tracker.evaluate])
+    with _history_lock:
+        if _global_sampler is None:
+            _global_sampler = sampler.start()
+    return _global_sampler
 
 
 class Profiler:

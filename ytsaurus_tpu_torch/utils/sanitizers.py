@@ -4,7 +4,8 @@ Own copy of the JAX package's `utils/sanitizers.py::register_lock` and
 `register_rlock` / `register_condition` as far as they name a lock: the reference's concurrency
 sanitizer (lock-order edges, hold budgets, sync-under-lock checks) has no
 counterpart, so the calls return a plain `threading.Lock` / `RLock` /
-`Condition` and record its name.
+`Condition` and record its name, and `snapshot()` reports the sanitizer
+as off, as the reference's does when it is not enabled.
 """
 
 from __future__ import annotations
@@ -35,3 +36,9 @@ def register_condition(name: str, cond=None, *, hot: bool = True):
     effect."""
     _names.add(name)
     return cond if cond is not None else threading.Condition()
+
+
+def snapshot() -> dict:
+    """The monitoring `/sanitizer` and orchid report: off, with the
+    registered lock names."""
+    return {"enabled": False, "registered_sites": sorted(_names)}

@@ -386,3 +386,12 @@ def span_tree(trace_id: str) -> list[dict]:
     by start time); [] when the trace is unknown/evicted."""
     spans = _collector.find(trace_id)
     return _build_tree(spans) if spans else []
+
+
+def all_span_trees() -> dict:
+    """{trace_id: span tree} for every trace retained in the ring, built
+    in one snapshot pass (the orchid `/tracing/traces` producer)."""
+    by_trace: dict[str, list[SpanRecord]] = {}
+    for span in _collector.snapshot():
+        by_trace.setdefault(span.trace_id, []).append(span)
+    return {tid: _build_tree(group) for tid, group in by_trace.items()}
