@@ -81,7 +81,7 @@ Phases (any failure exits non-zero and prints no result line):
      written
      through FsChunkStore.write_chunk at zlib_6 into a temporary
      directory, then mounted in a Tablet on the card by their chunk ids;
-     250,000 writes through TransactionManager in 250 transactions
+     125,000 writes through TransactionManager in 125 transactions
      (90% partial writes of v to existing keys, 9% new keys writing g and
      v, 1% deletes; writes/s on the host); flush() once under the
      profiler (the store's device sort and the serialize + write apart);
@@ -134,7 +134,7 @@ Phases (any failure exits non-zero and prints no result line):
      queried on the card by a GROUP BY producer under
      WHERE $row_index >= 1600000 (counts exact, sums to rtol 1e-9) and
      an ORDER BY seq DESC, producer LIMIT 100 (rows and order exact);
-     the first 80,000 consumed rows through dumps_rows / loads_rows in yson,
+     the first 40,000 consumed rows through dumps_rows / loads_rows in yson,
      json, dsv and schemaful_dsv and dumps_skiff / loads_skiff, each
      giving back the same rows (host seconds and bytes per format);
      CLIENT: the slice through ytsaurus_tpu_torch.client.connect(tmp,
@@ -152,10 +152,14 @@ Phases (any failure exits non-zero and prints no result line):
      of the result; a master snapshot; a dynamic table (k key, g, v)
      mounted and written with 500,000 rows in 500 tablet transactions,
      4,096 lookups from 16 threads (fewer gateway batches than calls),
-     a GROUP BY g, unmount; a restart (connect(..., fresh=True) in this
+     a GROUP BY g; then EDGE's balancer stage: @desired_tablet_row_count
+     set to 125,000, TabletBalancer.compute_pivots (both radix kernels in
+     this process) equal to numpy's quantile keys, and
+     TabletBalancer(client).step() resharding the table into 4 tablets
+     at those pivots (every row kept); unmount; a restart (connect(..., fresh=True) in this
      process: the master recovers from its snapshot and changelog), then
      mount, the same lookups and selects, and every acknowledged write
-     read back; 131,072 vectors at dim 256 written, flushed and remounted,
+     read back; 65,536 vectors at dim 256 written, flushed and remounted,
      then nearest_rows from 16 threads through the vector batcher (fewer
      batches than callers), each held to batched_nearest's. Each device
      stage runs once under the profiler, after 1,000 tiny kernels: host
@@ -211,8 +215,8 @@ Phases (any failure exits non-zero and prints no result line):
      replica disabled, written past, enabled and caught up; one chaos era
      switch with rows committed on both sides of it, looked up on each
      replica; a secondary index on v serving 64 selects (each through
-     fetch_via_index, each equal to the scan's oracle); a 262,144-row
-     queue appended in 16 batches of 16,384 with a GROUP BY view
+     fetch_via_index, each equal to the scan's oracle); a 131,072-row
+     queue appended in 8 batches of 16,384 with a GROUP BY view
      refreshed after each (both radix kernels must launch), equal to the
      full GROUP BY, and a consumer's 64 pulls and advances; backup_table
      at a timestamp, 10,000 more rows, restore_table_backup equal to the
@@ -251,7 +255,8 @@ Phases (any failure exits non-zero and prints no result line):
      transaction, verify() empty. Each stage runs as CLIENT's do and also
      records the RPC requests and bytes of every server;
      CLUSTER: the multi-process cluster (environment/local.py): a
-     LocalCluster of a primary daemon on the card (--device cuda) and
+     LocalCluster of a primary daemon on the card (--device cuda, with
+     --kafka and its continuous profiler at the default 0.05 s) and
      three data-node daemons (2 replicas), this process its client
      through connect_remote(..., device="cuda"); it fails if the card's
      compute mode is Exclusive_Process. Bring-up (spawn to ready);
@@ -265,14 +270,34 @@ Phases (any failure exits non-zero and prints no result line):
      replicas) held to numpy's lexsort, then GROUP BY g ORDER BY sum(v)
      DESC, g LIMIT 100 over the sorted table through the primary; node 3
      and the primary restarted together (restart_node(..., wait=False),
-     restart_primary()); a dynamic table over RPC (100,000 rows in 100
+     restart_primary()); a dynamic table over RPC (50,000 rows in 50
      transactions) and a command map ("cat") of 65,536 rows run by the
      nodes' exec service, while the new primary's tracer warms up; then
      SELECT_8 cold on the new primary process (its metadata from its WAL,
      the chunks decoded anew onto the card, both kernels launched there
      again); then the dynamic table's 4,096 lookups from 16 threads and
-     its read-back select. The daemons start while this process makes
-     the data and oracles. Each stage records host s; a stage whose
+     its read-back select. Then EDGE, against the same primary:
+     cli_select (the yt CLI's select-rows of "g, sum(v) GROUP BY g ORDER
+     BY sum(v) DESC, g LIMIT 100" through cli.run in this process, then
+     once through `python -m ytsaurus_tpu_torch.cli` in a subprocess on
+     its default device, both equal to numpy's top 100); replay (a
+     synthesize_mix of 64 queries over two shapes, a top-10 under v < x
+     and a count under g = x, distinct 16, seed --seed, written with
+     write_capture and run by `yt replay --json` at 16 workers: every
+     outcome ok, every answer equal to numpy's for its literal, the
+     latencies and the slowest queries' trace ids present); kafka (this
+     script's own v0/v1 Kafka client against the primary's kafka.port:
+     262,144 messages of a 16-character hex key and a 112-byte printable
+     value to 4 topics in Produce v1 batches of 1,024; a group of 2
+     consumers that join, sync (the leader gives each 2 topics), fetch
+     and commit; one stops heartbeating (session 3,000 ms) and the
+     survivor rebalances and resumes from the committed offsets: every
+     message fetched once, offsets gapless from 0, bytes equal; then
+     count(*) over //kafka/t0 through the CLI reads 65,536); profiler
+     (yt orchid /profiler and /profiler/collapsed: samples taken, at most
+     4,096 stacks, hotspots present; <root>/primary/traces.jsonl holding
+     the replayed queries' trace ids). The daemons start while this
+     process makes the data and oracles. Each stage records host s; a stage whose
      kernels run in this process runs as CLIENT's device stages do (device
      ms, idle share, the trace holding every launch); a stage served by
      the primary records the primary's launches (the difference of its
@@ -1668,10 +1693,10 @@ def phase_tablet(seed: int, hr, rx, port, ahead: _Ahead) -> dict:
 DYN_KEYS = 6_000_000         # keys, each with one base version (g and v)
 DYN_LATER = 2_000_000        # later versions on random keys
 DYN_CHUNK = 2_000_000        # versions per mounted chunk, cut by timestamp
-# Writes into the store: a quarter of max_dynamic_store_row_count's
-# default (1,000,000), cut to fit FRONT, then CELLS, in the check's time
-# (as CLIENT's were).
-DYN_WRITES = 250_000
+# Writes into the store: an eighth of max_dynamic_store_row_count's
+# default (1,000,000), cut to fit FRONT, then CELLS, then the last
+# modules, in the check's time (as CLIENT's were).
+DYN_WRITES = 125_000
 DYN_TX_ROWS = 1_000          # rows per transaction
 DYN_NEW_SHARE = 0.09         # writes that add a key (g and v)
 DYN_WRITE_DELETES = 0.01     # writes that delete a key; the rest write v
@@ -2366,9 +2391,9 @@ QUEUE_PRODUCERS = 64
 QUEUE_PAYLOADS = 65_536        # distinct 24-byte payloads
 QUEUE_CONSUMERS = 64
 QUEUE_READ = 10_000            # rows per consumer read
-QUEUE_FORMAT_ROWS = 80_000     # consumed rows through the formats (cut from
-                               # all 640,000 to 320,000, then to 160,000 and
-                               # 80,000, to fit the new phases)
+QUEUE_FORMAT_ROWS = 40_000     # consumed rows through the formats (cut from
+                               # all 640,000 to 320,000, then to 160,000,
+                               # 80,000 and 40,000, to fit the new phases)
 QUEUE_TRIM = 1_500_000
 QUEUE_SNAPSHOT_ROW = 1_800_000  # snapshot(ts) at this row's timestamp
 QUEUE_GROUP_FROM = 1_600_000   # the GROUP BY's least $row_index
@@ -2636,13 +2661,15 @@ CLIENT_RANGE = (24_000_000, 24_001_000)   # k range inside SELECT's chunk 3
 # default (1,000,000), cut because CLIENT took 187 s on the card at the
 # full store, above the 180 s it may take.
 CLIENT_DYN_ROWS = 500_000
+CLIENT_BALANCE_ROWS = 125_000  # @desired_tablet_row_count: 4 tablets
 CLIENT_DYN_TX_ROWS = 1_000     # rows per tablet transaction
 CLIENT_DYN_KEYS = 4_000_000    # keys drawn without repeats from [0, this)
 CLIENT_LOOKUPS = 4_096
 CLIENT_THREADS = 16            # lookup and NEAREST caller threads
 CLIENT_LOOKUP_BATCH = 16       # keys per lookup_rows call
-CLIENT_VEC_ROWS = 131_072      # 128 MB of float32 vectors at dim 256 (cut
-                               # from 262,144 to fit the new phases)
+CLIENT_VEC_ROWS = 65_536       # 64 MB of float32 vectors at dim 256 (cut
+                               # from 262,144 and 131,072 to fit the new
+                               # phases)
 CLIENT_VEC_DIM = 256           # VECTOR's headline width
 CLIENT_VEC_TX_ROWS = 16_384
 CLIENT_VEC_K = 8
@@ -3039,7 +3066,42 @@ def phase_client(seed: int, hr, rx, port, front: bool = False) -> dict:
         rows = stage("select_acc", lambda: client.select_rows(
             CLIENT_ACC_GROUP))
         _client_check_groups("CLIENT select_acc", rows, "g", *acc_oracle)
-        stage("unmount", lambda: client.unmount_table("//bench/acc"))
+
+        # EDGE's balancer stage: the tablet balancer splits //bench/acc
+        # into CLIENT_DYN_ROWS / CLIENT_BALANCE_ROWS tablets at numpy's
+        # quantile keys, its pivots sorted by the radix kernels here.
+        from ytsaurus_tpu_torch.tablet.balancer import TabletBalancer
+        client.set("//bench/acc/@desired_tablet_row_count",
+                   CLIENT_BALANCE_ROWS)
+        balancer = TabletBalancer(client)
+        n_tablets = -(-CLIENT_DYN_ROWS // CLIENT_BALANCE_ROWS)
+        sorted_k = np.sort(d["acc_k"])
+        want_pivots = [(int(sorted_k[i * CLIENT_DYN_ROWS // n_tablets]),)
+                       for i in range(1, n_tablets)]
+        del sorted_k
+        pivots = stage("balancer_pivots", lambda: balancer.compute_pivots(
+            "//bench/acc", CLIENT_BALANCE_ROWS), radix=True)
+        if pivots != want_pivots:
+            raise AssertionError(f"CLIENT balancer: pivots {pivots}, numpy "
+                                 f"{want_pivots}")
+        balanced = stage("balancer_step", balancer.step, radix=True)
+        counts = [t.read_snapshot().row_count
+                  for t in client._mounted_tablets("//bench/acc")]
+        if balanced.get("//bench/acc") is not True or \
+                len(counts) != n_tablets or \
+                sum(counts) != CLIENT_DYN_ROWS or \
+                client.get("//bench/acc/@pivot_keys") != \
+                [list(p) for p in want_pivots]:
+            raise AssertionError(f"CLIENT balancer: step {balanced}, tablet "
+                                 f"rows {counts}, pivots "
+                                 f"{client.get('//bench/acc/@pivot_keys')}")
+        out["stages"]["balancer"] = {"pivots": [p[0] for p in pivots],
+                                     "tablet_rows": counts}
+        _log(f"client balancer: {json.dumps(out['stages']['balancer'])}")
+        # The reshard flushed the store (inside balancer_step's trace):
+        # this unmount writes no chunk, so it runs on the host's clock.
+        stage("unmount", lambda: client.unmount_table("//bench/acc"),
+              host_only=True)
         if client.get("//bench/acc/@tablet_state") != "unmounted":
             raise AssertionError("CLIENT: //bench/acc is still mounted")
 
@@ -3968,7 +4030,7 @@ DER_TX_ROWS = 1_000
 DER_PIVOT = 1 << 29           # the table's 2 tablets split k here
 DER_LOOKUPS = 4_096
 DER_INDEX_SELECTS = 64
-DER_QUEUE_ROWS = 262_144     # cut from 1,048,576 (16 batches of 65,536)
+DER_QUEUE_ROWS = 131_072     # cut from 1,048,576, then 262,144
 DER_QUEUE_BATCH = 16_384
 DER_PULLS = 64
 DER_BACKUP_LATE = 10_000
@@ -4026,7 +4088,7 @@ def phase_derived(seed: int, hr, rx, port) -> dict:
     caught up; one chaos era switch (the async replica becomes the sync
     one) with rows committed across it read back from each replica; a
     secondary index on v serving 64 selects (fetch_via_index must run;
-    each equal to the scan's oracle); a 262,144-row queue appended in 16
+    each equal to the scan's oracle); a 131,072-row queue appended in 8
     batches of 16,384 with a GROUP BY view refreshed after each (both
     radix kernels must launch) and equal to the full GROUP BY, and a
     consumer's 64 pulls and advances; backup_table at a timestamp, 10,000
@@ -5012,7 +5074,8 @@ CLUSTER_NODES = 3              # data-node daemons
 CLUSTER_RF = 2                 # replicas of a chunk
 CLUSTER_WARM = 5               # warm runs of SELECT_8 after the cold one
 CLUSTER_TOP = 100
-CLUSTER_DYN_ROWS = 100_000     # rows of the dynamic table, in
+CLUSTER_DYN_ROWS = 50_000      # rows of the dynamic table (cut from
+                               # 100,000 to fit the last modules), in
 CLUSTER_TX_ROWS = 1_000        # transactions of this many rows
 CLUSTER_DYN_KEYS = 1_000_000   # keys drawn without repeats from [0, this)
 CLUSTER_LOOKUPS = 4_096
@@ -5127,7 +5190,8 @@ def phase_cluster(seed: int, hr, rx, port) -> dict:
     # The daemons start while this process makes the data and oracles.
     root = tempfile.mkdtemp(prefix="cluster-")
     cluster = LocalCluster(os.path.join(root, "c"), n_nodes=CLUSTER_NODES,
-                           replication_factor=CLUSTER_RF, device="cuda")
+                           replication_factor=CLUSTER_RF, kafka_proxy=True,
+                           device="cuda")
     spawn: dict = {}
 
     def start():
@@ -5337,6 +5401,7 @@ def _cluster_stages(seed, hr, rx, port, cluster, starter, spawn, card,
         # journal membership waits for all three nodes.
         cluster.restart_node(CLUSTER_NODES - 1, wait=False)
         cluster.restart_primary()
+    restarted_at = time.time()
     stage("restart", restart, host_only=True)
     client.close()
     holder["client"] = client = connect_remote(
@@ -5430,10 +5495,568 @@ def _cluster_stages(seed, hr, rx, port, cluster, starter, spawn, card,
                              "dynamic table was not read back")
     del rows
     out["stages"]["map_jobs_on_nodes"] = ran
+
+    # --- 9. EDGE: the CLI, replay, Kafka and the profiler ----------
+    out["edge"] = _edge_stages(seed, stage, cluster, d, top, restarted_at)
+    _log(f"phase edge: {out['edge']['seconds']:.1f} s (inside CLUSTER)")
     client.close()
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     _log(f"cluster: {out['seconds']:.1f} s in all")
+    return out
+
+
+# --- EDGE: the last modules, against CLUSTER's primary ----------------------
+
+EDGE_TOP = 100
+EDGE_CLI_QUERY = (f"g, sum(v) AS s FROM [{CLUSTER_T}] GROUP BY g "
+                  f"ORDER BY sum(v) DESC, g LIMIT {EDGE_TOP}")
+# The replayed mix's two shapes (`{}` a literal slot); the second has the
+# GROUP BY 1 that QL asks of an aggregate without grouping columns.
+EDGE_SHAPES = (f"g, sum(v) AS s FROM [{CLUSTER_T}] WHERE v < {{}} GROUP BY g "
+               f"ORDER BY sum(v) DESC, g LIMIT 10",
+               f"count(*) AS c FROM [{CLUSTER_T}] WHERE g = {{}} GROUP BY 1")
+EDGE_MIX = 64                  # queries of the replayed mix
+EDGE_DISTINCT = 16             # literal values each slot draws from
+EDGE_WORKERS = 16              # yt replay --workers
+EDGE_TOPICS = 4
+EDGE_MESSAGES = 262_144        # 65,536 a topic
+EDGE_BATCH = 1_024             # messages a Produce v1 request
+EDGE_KEY_HEX = 16              # characters of a message's hex key
+EDGE_VALUE_BYTES = 112         # printable bytes of a message's value
+EDGE_GROUP = "edge"
+EDGE_SESSION_MS = 3_000        # the consumers' session timeout
+EDGE_DIE_AFTER = 24            # fetches the second consumer commits, then stops
+EDGE_FETCH_BYTES = 1 << 20     # a Fetch's partition max_bytes
+
+
+class _KafkaWire:
+    """A minimal Kafka client of this script's own (v0/v1 request framing
+    over one TCP connection), independent of the proxy's codec."""
+
+    def __init__(self, host: str, port: int, client_id: str):
+        import socket
+        self.sock = socket.create_connection((host, port), timeout=60)
+        self.client_id = client_id.encode()
+        self.correlation = 0
+
+    @staticmethod
+    def s(text: str) -> bytes:
+        raw = text.encode()
+        return len(raw).to_bytes(2, "big", signed=True) + raw
+
+    @staticmethod
+    def b(raw) -> bytes:
+        if raw is None:
+            return (-1).to_bytes(4, "big", signed=True)
+        return len(raw).to_bytes(4, "big", signed=True) + raw
+
+    @staticmethod
+    def arr(items: list) -> bytes:
+        return len(items).to_bytes(4, "big", signed=True) + b"".join(items)
+
+    @staticmethod
+    def i(value: int, width: int) -> bytes:
+        return value.to_bytes(width, "big", signed=True)
+
+    def call(self, api: int, version: int, body: bytes) -> "_KafkaRead":
+        self.correlation += 1
+        head = self.i(api, 2) + self.i(version, 2) + \
+            self.i(self.correlation, 4) + self.i(len(self.client_id), 2) + \
+            self.client_id
+        frame = head + body
+        self.sock.sendall(self.i(len(frame), 4) + frame)
+        size = int.from_bytes(self._exact(4), "big", signed=True)
+        r = _KafkaRead(self._exact(size))
+        if r.int(4) != self.correlation:
+            raise AssertionError("EDGE kafka: a response's correlation id "
+                                 "differs from its request's")
+        return r
+
+    def _exact(self, n: int) -> bytes:
+        out = bytearray()
+        while len(out) < n:
+            chunk = self.sock.recv(n - len(out))
+            if not chunk:
+                raise AssertionError("EDGE kafka: the proxy closed the "
+                                     "connection")
+            out += chunk
+        return bytes(out)
+
+    def close(self) -> None:
+        self.sock.close()
+
+
+class _KafkaRead:
+    def __init__(self, data: bytes):
+        self.data, self.pos = data, 0
+
+    def take(self, n: int) -> bytes:
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def int(self, width: int) -> int:
+        return int.from_bytes(self.take(width), "big", signed=True)
+
+    def str(self) -> "str | None":
+        n = self.int(2)
+        return None if n < 0 else self.take(n).decode()
+
+    def bytes(self) -> "bytes | None":
+        n = self.int(4)
+        return None if n < 0 else self.take(n)
+
+
+def _kafka_message_set(keys: list, values: list) -> bytes:
+    """A v0 MessageSet: offset | size | crc32 | magic 0 | attributes 0 |
+    key | value per message."""
+    import zlib
+    w = _KafkaWire
+    out = bytearray()
+    for key, value in zip(keys, values):
+        body = b"\x00\x00" + w.b(key) + w.b(value)
+        crc = zlib.crc32(body) & 0xFFFFFFFF
+        out += w.i(0, 8) + w.i(len(body) + 4, 4) + \
+            crc.to_bytes(4, "big") + body
+    return bytes(out)
+
+
+def _kafka_messages(blob: bytes) -> list:
+    """(offset, key, value) of each whole message of a MessageSet, its
+    crc checked."""
+    import zlib
+    r = _KafkaRead(blob)
+    out = []
+    while r.pos + 12 <= len(blob):
+        offset, size = r.int(8), r.int(4)
+        if r.pos + size > len(blob):
+            break
+        msg = _KafkaRead(r.take(size))
+        crc = msg.int(4) & 0xFFFFFFFF
+        if zlib.crc32(msg.data[4:]) & 0xFFFFFFFF != crc:
+            raise AssertionError(f"EDGE kafka: message {offset}'s crc")
+        msg.take(2)
+        out.append((offset, msg.bytes(), msg.bytes()))
+    return out
+
+
+def _edge_data(seed: int) -> dict:
+    """The Kafka stage's messages: 16-character hex keys and 112-byte
+    printable values, from --seed."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 47)
+    raw = rng.integers(0, 1 << 63, EDGE_MESSAGES, dtype=np.int64)
+    keys = [f"{k:016x}".encode() for k in raw.tolist()]
+    printable = rng.integers(33, 127, (EDGE_MESSAGES, EDGE_VALUE_BYTES),
+                             dtype=np.uint8)
+    values = [row.tobytes() for row in printable]
+    return {"keys": keys, "values": values}
+
+
+def _edge_kafka(address: str, data: dict, log) -> dict:
+    """Produce, a group of two consumers, one consumer's death and the
+    survivor's rebalance; every message fetched once past the committed
+    offsets, offsets gapless from 0, bytes equal to what was produced."""
+    host, port = address.rsplit(":", 1)
+    port = int(port)
+    per = EDGE_MESSAGES // EDGE_TOPICS
+    topics = [f"t{i}" for i in range(EDGE_TOPICS)]
+    w = _KafkaWire
+    out: dict = {}
+
+    # Produce v1, acks 1, one connection.
+    producer = _KafkaWire(host, port, "edge-producer")
+    t = time.perf_counter()
+    for ti, topic in enumerate(topics):
+        for lo in range(0, per, EDGE_BATCH):
+            at = ti * per + lo
+            body = w.i(1, 2) + w.i(30_000, 4) + w.arr([
+                w.s(topic) + w.arr([w.i(0, 4) + w.b(_kafka_message_set(
+                    data["keys"][at:at + EDGE_BATCH],
+                    data["values"][at:at + EDGE_BATCH]))])])
+            r = producer.call(0, 1, body)
+            r.int(4)
+            if r.str() != topic or r.int(4) != 1 or r.int(4) != 0:
+                raise AssertionError("EDGE kafka: a Produce response's "
+                                     "shape")
+            err, base = r.int(2), r.int(8)
+            if err != 0 or base != lo:
+                raise AssertionError(f"EDGE kafka: Produce to {topic} at "
+                                     f"{lo} answered error {err}, base "
+                                     f"{base}")
+    producer.close()
+    out["produce_s"] = time.perf_counter() - t
+    out["produce_msgs_per_s"] = EDGE_MESSAGES / out["produce_s"]
+    log(f"edge kafka produce: {EDGE_MESSAGES} messages in "
+        f"{out['produce_s']:.2f} s")
+
+    fetched: dict = {topic: {} for topic in topics}
+    lock = threading.Lock()
+    state = {"b_dead_at": None, "rebalanced_at": None, "errors": [],
+             "generations": {}}
+
+    def join(conn, member):
+        body = w.s(EDGE_GROUP) + w.i(EDGE_SESSION_MS, 4) + w.s(member) + \
+            w.s("consumer") + w.arr([w.s("range") + w.b(b"edge")])
+        r = conn.call(11, 0, body)
+        err, gen = r.int(2), r.int(4)
+        r.str()
+        leader, me = r.str(), r.str()
+        members = [(r.str(), r.bytes()) for _ in range(max(r.int(4), 0))]
+        return err, gen, leader, me, members
+
+    def sync(conn, gen, member, assignments):
+        body = w.s(EDGE_GROUP) + w.i(gen, 4) + w.s(member) + w.arr(
+            [w.s(m) + w.b(a) for m, a in assignments])
+        r = conn.call(14, 0, body)
+        return r.int(2), r.bytes() or b""
+
+    def heartbeat(conn, gen, member):
+        return conn.call(12, 0, w.s(EDGE_GROUP) + w.i(gen, 4) +
+                         w.s(member)).int(2)
+
+    def committed(conn, topic):
+        r = conn.call(9, 0, w.s(EDGE_GROUP) + w.arr(
+            [w.s(topic) + w.arr([w.i(0, 4)])]))
+        r.int(4)
+        r.str()
+        r.int(4)
+        r.int(4)
+        offset = r.int(8)
+        r.str()
+        if r.int(2) != 0:
+            raise AssertionError("EDGE kafka: OffsetFetch failed")
+        return max(offset, 0)
+
+    def commit(conn, topic, offset):
+        r = conn.call(8, 0, w.s(EDGE_GROUP) + w.arr([w.s(topic) + w.arr(
+            [w.i(0, 4) + w.i(offset, 8) + w.s("")])]))
+        r.int(4)
+        r.str()
+        r.int(4)
+        r.int(4)
+        if r.int(2) != 0:
+            raise AssertionError("EDGE kafka: OffsetCommit failed")
+
+    def fetch(conn, topic, offset):
+        r = conn.call(1, 1, w.i(-1, 4) + w.i(0, 4) + w.i(0, 4) + w.arr([
+            w.s(topic) + w.arr([w.i(0, 4) + w.i(offset, 8) +
+                                w.i(EDGE_FETCH_BYTES, 4)])]))
+        r.int(4)                     # throttle_time_ms (v1)
+        r.int(4)
+        r.str()
+        r.int(4)
+        r.int(4)
+        if r.int(2) != 0:
+            raise AssertionError(f"EDGE kafka: Fetch of {topic} failed")
+        r.int(8)
+        return _kafka_messages(r.bytes() or b"")
+
+    def consumer(name: str, die_after: "int | None"):
+        conn = _KafkaWire(host, port, f"edge-{name}")
+        member, fetches = "", 0
+        try:
+            while True:
+                err, gen, leader, member, members = join(conn, member)
+                if err == 25:
+                    member = ""
+                    continue
+                if err:
+                    continue
+                assignments = []
+                if leader == member:
+                    names = sorted(m for m, _ in members)
+                    share = -(-len(topics) // len(names))
+                    assignments = [
+                        (m, f"{len(names)}:" .encode() + ",".join(
+                            topics[i * share:(i + 1) * share]).encode())
+                        for i, m in enumerate(names)]
+                err, blob = sync(conn, gen, member, assignments)
+                if err:
+                    continue
+                size, _, mine = blob.decode().partition(":")
+                mine = [t for t in mine.split(",") if t]
+                with lock:
+                    state["generations"].setdefault(name, []).append(
+                        (gen, int(size), mine))
+                    alone = state["b_dead_at"] is not None
+                if int(size) == 1 and alone and \
+                        state["rebalanced_at"] is None:
+                    state["rebalanced_at"] = time.perf_counter()
+                # Consume only as a full group of two, or once the second
+                # consumer is gone.
+                consume = int(size) == 2 or alone
+                rejoin = False
+                while not rejoin:
+                    work = False
+                    for topic in (mine if consume else []):
+                        offset = committed(conn, topic)
+                        if offset >= per:
+                            continue
+                        work = True
+                        msgs = fetch(conn, topic, offset)
+                        if not msgs or msgs[0][0] != offset:
+                            raise AssertionError(
+                                f"EDGE kafka: {name} fetched {topic} at "
+                                f"{offset}, got "
+                                f"{msgs[0][0] if msgs else 'nothing'}")
+                        with lock:
+                            seen = fetched[topic]
+                            for off, key, value in msgs:
+                                seen.setdefault(off, []).append(
+                                    (name, key, value))
+                        commit(conn, topic, offset + len(msgs))
+                        fetches += 1
+                        if die_after is not None and fetches >= die_after:
+                            # Stop heartbeating: the session expires.
+                            with lock:
+                                state["b_dead_at"] = time.perf_counter()
+                            return
+                        if heartbeat(conn, gen, member) != 0:
+                            rejoin = True
+                            break
+                    if rejoin:
+                        break
+                    with lock:
+                        done = all(len(fetched[t]) >= per for t in topics)
+                    if done:
+                        return
+                    if not work:
+                        time.sleep(0.1)
+                        if heartbeat(conn, gen, member) != 0:
+                            rejoin = True
+        except BaseException as exc:   # noqa: BLE001 — raised below
+            with lock:
+                state["errors"].append(f"{name}: {exc!r}")
+        finally:
+            conn.close()
+
+    t = time.perf_counter()
+    threads = [threading.Thread(target=consumer, args=("a", None),
+                                name="edge-consumer-a"),
+               threading.Thread(target=consumer, args=("b", EDGE_DIE_AFTER),
+                                name="edge-consumer-b")]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    out["consume_s"] = time.perf_counter() - t
+    if state["errors"] or any(th.is_alive() for th in threads):
+        raise AssertionError(f"EDGE kafka consumers: {state['errors']}")
+    if state["b_dead_at"] is None or state["rebalanced_at"] is None:
+        raise AssertionError(f"EDGE kafka: no rebalance after the second "
+                             f"consumer stopped: {state['generations']}")
+    out["rebalance_s"] = state["rebalanced_at"] - state["b_dead_at"]
+    out["generations"] = state["generations"]
+    by_consumer = {"a": 0, "b": 0}
+    for ti, topic in enumerate(topics):
+        seen = fetched[topic]
+        if sorted(seen) != list(range(per)):
+            raise AssertionError(f"EDGE kafka: {topic}'s fetched offsets "
+                                 "are not 0..65,535 without a gap")
+        for off, hits in seen.items():
+            if len(hits) != 1:
+                raise AssertionError(f"EDGE kafka: {topic} offset {off} "
+                                     f"was fetched {len(hits)} times")
+            name, key, value = hits[0]
+            by_consumer[name] += 1
+            at = ti * per + off
+            if key != data["keys"][at] or value != data["values"][at]:
+                raise AssertionError(f"EDGE kafka: {topic} offset {off}'s "
+                                     "bytes differ from the produced")
+    if min(by_consumer.values()) <= 0:
+        raise AssertionError(f"EDGE kafka: fetches by consumer "
+                             f"{by_consumer}")
+    out["fetched_by_consumer"] = by_consumer
+    log(f"edge kafka consume: {json.dumps(out)}")
+    return out
+
+
+def _edge_stages(seed: int, stage, cluster, d: dict, top: list,
+                 kafka_after: float, device: str = "cuda") -> dict:
+    """EDGE inside CLUSTER's cluster: the yt CLI, workload replay, the
+    Kafka proxy and the primary's profiler, each stage served by the
+    primary (its launches held to its device trace). `device` is where
+    this process's clients run (the CLI's default, the card, unless it
+    is "cpu")."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from ytsaurus_tpu_torch import cli
+    from ytsaurus_tpu_torch.query import workload as wl
+    t_edge = time.perf_counter()
+    out: dict = {}
+    addr = cluster.primary_address
+
+    def yt(*argv, client_=None):
+        """`yt --proxy <primary> ...` in this process: (rc, stdout, stderr)."""
+        stdout, stderr = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(stdout), \
+                contextlib.redirect_stderr(stderr):
+            rc = cli.run(["--proxy", addr, "--device", device, *argv],
+                         client=client_)
+        return rc, stdout.getvalue(), stderr.getvalue()
+
+    # --- 1. cli_select: in this process, then the console entry ----------
+    def cli_select():
+        rc, text, err = yt("select-rows", EDGE_CLI_QUERY)
+        if rc != 0:
+            raise AssertionError(f"EDGE cli_select: rc {rc}: {err}")
+        proc = subprocess.run(
+            [sys.executable, "-m", "ytsaurus_tpu_torch.cli", "--proxy", addr,
+             "select-rows", EDGE_CLI_QUERY], capture_output=True, text=True,
+            cwd=HERE, timeout=300,
+            # The console entry on its default device: the card.
+            env={k: v for k, v in os.environ.items()
+                 if k != "YT_CLI_PLATFORM" or device == "cpu"})
+        if proc.returncode != 0:
+            raise AssertionError(f"EDGE cli_select: the console entry "
+                                 f"exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        return json.loads(text), json.loads(proc.stdout)
+    here_rows, entry_rows = stage("edge_cli_select", cli_select, radix=True,
+                                  primary=True)
+    for name, rows in (("in this process", here_rows),
+                       ("through python -m", entry_rows)):
+        if [(-r["s"], r["g"]) for r in rows] != top:
+            raise AssertionError(f"EDGE cli_select {name}: the top "
+                                 f"{EDGE_TOP} differ from numpy")
+
+    # --- 2. replay: a synthesized mix through yt replay -------------------
+    g_all = np.concatenate([c["g"] for c in d["chunks"]])
+    v_all = np.concatenate([c["v"] for c in d["chunks"]])
+    counts = np.bincount(g_all, minlength=SELECT_GROUPS)
+    want: dict = {}
+    for x in range(EDGE_DISTINCT):
+        sel = v_all < x
+        s = np.bincount(g_all[sel], weights=v_all[sel],
+                        minlength=SELECT_GROUPS).astype(np.int64)
+        n = np.bincount(g_all[sel], minlength=SELECT_GROUPS)
+        present = np.flatnonzero(n)
+        best = sorted((-int(s[g]), int(g)) for g in present)[:10]
+        for shape, rows in (
+                (EDGE_SHAPES[0], [{"g": g, "s": -ns} for ns, g in best]),
+                (EDGE_SHAPES[1], [{"c": int(counts[x])}])):
+            normalized, literals = wl.normalize_query(shape.format(x))
+            want[wl.substitute_literals(normalized, literals)] = rows
+    del g_all, v_all
+    mix = wl.synthesize_mix(list(EDGE_SHAPES), count=EDGE_MIX,
+                            distinct=EDGE_DISTINCT, seed=seed)
+    capture = os.path.join(cluster.root_dir, "edge-capture.json")
+    wl.write_capture(capture, mix)
+
+    class Recorder:
+        """The remote client, recording each select's answer."""
+
+        def __init__(self, inner):
+            self.inner, self.answers = inner, []
+            self._lock = threading.Lock()
+
+        def __getattr__(self, name):
+            return getattr(self.inner, name)
+
+        def select_rows(self, query, **kw):
+            got = self.inner.select_rows(query, **kw)
+            with self._lock:
+                self.answers.append((query, got))
+            return got
+
+    from ytsaurus_tpu_torch.remote_client import connect_remote
+    recorder = Recorder(connect_remote(addr, device=device))
+
+    def replay():
+        rc, text, err = yt("replay", "--capture", capture, "--workers",
+                           str(EDGE_WORKERS), "--json", client_=recorder)
+        if rc != 0:
+            raise AssertionError(f"EDGE replay: rc {rc}: {err}")
+        return json.loads(text)
+    try:
+        report = stage("edge_replay", replay, radix=True, primary=True)
+    finally:
+        recorder.inner.close()
+    lat = report["latency"]
+    if report["queries"] != EDGE_MIX or report["ok"] != EDGE_MIX or \
+            not 0 < lat["p50_ms"] <= lat["p99_ms"] <= lat["max_ms"] or \
+            not report["slowest"] or \
+            not all(e["trace_id"] for e in report["slowest"]):
+        raise AssertionError(f"EDGE replay: {json.dumps(report)}")
+    if len(recorder.answers) != EDGE_MIX:
+        raise AssertionError(f"EDGE replay: {len(recorder.answers)} answers")
+    for query, got in recorder.answers:
+        rows = [{k: v for k, v in r.items()} for r in got["rows"]]
+        if rows != want[query]:
+            raise AssertionError(f"EDGE replay: {query!r} answered {rows}, "
+                                 f"numpy {want[query]}")
+    out["replay"] = report
+    _log(f"edge replay: {json.dumps(report)}")
+
+    # --- 3. kafka: the wire protocol against the primary's kafka.port ----
+    path = os.path.join(cluster.root_dir, "primary", "kafka.port")
+    deadline = time.monotonic() + 120
+    while not (os.path.exists(path) and
+               os.path.getmtime(path) >= kafka_after):
+        if time.monotonic() > deadline:
+            raise AssertionError("EDGE kafka: the restarted primary wrote "
+                                 "no kafka.port")
+        time.sleep(0.1)
+    with open(path) as f:
+        kafka_address = f"127.0.0.1:{int(f.read().strip())}"
+    data = _edge_data(seed)
+
+    def kafka():
+        got = _edge_kafka(kafka_address, data, _log)
+        rc, text, err = yt("select-rows",
+                           "count(*) AS c FROM [//kafka/t0] GROUP BY 1")
+        if rc != 0 or json.loads(text) != [
+                {"c": EDGE_MESSAGES // EDGE_TOPICS}]:
+            raise AssertionError(f"EDGE kafka: count(*) over //kafka/t0 "
+                                 f"read {text or err}")
+        return got
+    out["kafka"] = stage("edge_kafka", kafka, primary=True)
+    del data
+
+    # --- 4. profiler: the primary's orchid and its span export -----------
+    def profiler():
+        rc, text, err = yt("orchid", "/profiler")
+        state = json.loads(text) if rc == 0 else err
+        rc2, text2, err2 = yt("orchid", "/profiler/collapsed")
+        collapsed = json.loads(text2) if rc2 == 0 else err2
+        traces = os.path.join(cluster.root_dir, "primary", "traces.jsonl")
+        ids = {e["trace_id"] for e in report["slowest"]}
+        found: set = set()
+        spans = 0
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            found, spans = set(), 0
+            if os.path.exists(traces):
+                with open(traces) as f:
+                    for line in f:
+                        spans += 1
+                        trace_id = json.loads(line).get("trace_id")
+                        if trace_id in ids:
+                            found.add(trace_id)
+            if found == ids:
+                break
+            time.sleep(0.5)
+        return state, collapsed, found, spans, ids
+    state, collapsed, found, spans, ids = stage("edge_profiler", profiler,
+                                                primary=True)
+    if not isinstance(state, dict) or state["total_samples"] <= 0 or \
+            state["distinct_stacks"] > 4096 or not state["hotspots"] or \
+            not isinstance(collapsed, list) or not collapsed:
+        raise AssertionError(f"EDGE profiler: {state} {collapsed}")
+    if found != ids:
+        raise AssertionError(f"EDGE profiler: traces.jsonl holds {found} of "
+                             f"the replayed trace ids {ids}")
+    out["profiler"] = {k: state[k] for k in ("total_samples",
+                                            "idle_samples",
+                                            "distinct_stacks", "interval")}
+    out["profiler"]["hotspots"] = state["hotspots"][:5]
+    out["profiler"]["traces_jsonl_spans"] = spans
+    out["seconds"] = time.perf_counter() - t_edge
+    _log(f"edge profiler: {json.dumps(out['profiler'])}")
     return out
 
 

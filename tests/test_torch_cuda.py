@@ -1137,3 +1137,90 @@ def test_primary_without_the_card_exits_and_start_raises(cuda_device,
     text = str(info.value)
     assert "exited rc=1" in text and "no CUDA device" in text, text
     assert not (tmp_path / "c" / "primary" / "primary.port").exists()
+
+
+def test_cli_on_its_default_device(cuda_device, tmp_path):
+    """The `yt` CLI with no --device runs on the card: a select over a
+    CPU cluster answers as with --device cpu, `yt list /` opens no CUDA
+    context in a fresh process, and with the card hidden the CLI exits 1
+    naming the device."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from ytsaurus_tpu_torch.environment import LocalCluster
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "YT_CLI_PLATFORM"}
+
+    def yt(*argv, extra=None):
+        return subprocess.run(
+            [sys.executable, "-m", "ytsaurus_tpu_torch.cli", *argv],
+            capture_output=True, text=True, cwd=repo, timeout=300,
+            env={**env, **(extra or {})})
+
+    with LocalCluster(str(tmp_path / "c"), n_nodes=1, replication_factor=1,
+                      device="cpu") as cluster:
+        proxy = ["--proxy", cluster.primary_address]
+        rows = "".join(json.dumps({"g": i % 7, "v": i}) + "\n"
+                       for i in range(1000))
+        out = subprocess.run(
+            [sys.executable, "-m", "ytsaurus_tpu_torch.cli", *proxy,
+             "--device", "cpu", "write-table", "//t", "--rows", rows],
+            capture_output=True, text=True, cwd=repo, timeout=300, env=env)
+        assert out.returncode == 0, out.stderr
+        query = "g, sum(v) AS s FROM [//t] GROUP BY g"
+        card = yt(*proxy, "select-rows", query)
+        cpu = yt(*proxy, "--device", "cpu", "select-rows", query)
+        assert card.returncode == 0 == cpu.returncode, card.stderr
+        assert sorted(json.loads(card.stdout), key=lambda r: r["g"]) == \
+            sorted(json.loads(cpu.stdout), key=lambda r: r["g"])
+        probe = subprocess.run(
+            [sys.executable, "-c",
+             "import io, contextlib, torch\n"
+             "from ytsaurus_tpu_torch import cli\n"
+             "with contextlib.redirect_stdout(io.StringIO()):\n"
+             f"    rc = cli.run(['--proxy', '{cluster.primary_address}', "
+             "'list', '/'])\n"
+             "print(rc, torch.cuda.is_initialized())\n"],
+            capture_output=True, text=True, cwd=repo, timeout=300, env=env)
+        assert probe.stdout.split() == ["0", "False"], probe.stderr
+        hidden = yt(*proxy, "list", "/",
+                    extra={"CUDA_VISIBLE_DEVICES": ""})
+        assert hidden.returncode == 1 and "device 'cuda'" in hidden.stderr
+
+
+def test_balancer_pivots_on_the_card_match_the_cpu(cuda_device, tmp_path):
+    """TabletBalancer.compute_pivots over a table whose tablets live on
+    the card gives the CPU client's pivots, its sort launching both radix
+    kernels; the step then reshards the same way."""
+    from ytsaurus_tpu_torch.client import connect
+    from ytsaurus_tpu_torch.schema import TableSchema
+    from ytsaurus_tpu_torch.tablet.balancer import TabletBalancer
+    rng = np.random.default_rng(17)
+    words = ["äpfel", "zebra", "Ωmega", "ёж", "apple", "日本語", "naïve"]
+    rows = [{"s": words[i % len(words)] + str(int(k)), "k": int(k), "v": i}
+            for i, k in enumerate(rng.permutation(1 << 20)[:20_000])]
+    schema = TableSchema.make([("s", "string", "ascending"),
+                               ("k", "int64", "ascending"), ("v", "int64")],
+                              unique_keys=True)
+    got = {}
+    for device in ("cuda", "cpu"):
+        client = connect(str(tmp_path / device), device=device)
+        client.create("table", "//b", attributes={
+            "schema": schema, "dynamic": True, "pivot_keys": [["m", 0]],
+            "desired_tablet_row_count": 3000})
+        client.mount_table("//b")
+        for lo in range(0, len(rows), 2000):
+            client.insert_rows("//b", rows[lo:lo + 2000])
+        before = dict(rx.launches)
+        pivots = TabletBalancer(client).compute_pivots("//b", 3000)
+        launched = {k: rx.launches[k] - before[k] for k in before}
+        step = TabletBalancer(client).step()
+        counts = [t.read_snapshot().row_count
+                  for t in client._mounted_tablets("//b")]
+        got[device] = (pivots, step, counts)
+        if device == "cuda":
+            assert min(launched.values()) > 0, launched
+    assert got["cuda"] == got["cpu"]
+    assert len(got["cpu"][0]) == 6 and sum(got["cpu"][2]) == len(rows)

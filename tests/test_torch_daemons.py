@@ -371,12 +371,30 @@ def test_failpoints_endpoint_matches_the_reference(planes):
 
 
 def test_sanitizer_endpoint_reports_off_like_the_reference(planes):
-    """The port's locks are plain: /sanitizer serves the reference's
-    report of a sanitizer that is off (whether the reference's own is on
-    depends on the test session)."""
+    """Both sanitizers are on (tests/conftest.py arms YT_TPU_SANITIZE for
+    the session) and /sanitizer serves the same report shape from each:
+    the same keys and counters, the same hold budget, lock-order edges
+    as "a -> b" strings between registered sites, and the counters
+    mirrored into the process registry's /metrics as sanitizer_*. The
+    counts themselves are each package's own locks' and differ."""
     (_, port_doc), (_, ref_doc) = (p.get("/sanitizer") for p in planes)
-    assert set(port_doc) == {"enabled", "registered_sites"}
-    assert set(port_doc) <= set(ref_doc)
-    assert port_doc["enabled"] is False
-    assert "profiling.MetricsHistory._lock" in port_doc["registered_sites"]
-    assert "profiling.MetricsHistory._lock" in ref_doc["registered_sites"]
+    assert port_doc["enabled"] is True and ref_doc["enabled"] is True
+    assert set(port_doc) == set(ref_doc) == {
+        "enabled", "hold_budget_seconds", "counters", "edges",
+        "inversions", "hold_violations", "sync_under_lock",
+        "registered_sites"}
+    assert port_doc["hold_budget_seconds"] == ref_doc["hold_budget_seconds"]
+    assert set(port_doc["counters"]) == set(ref_doc["counters"])
+    for doc in (port_doc, ref_doc):
+        assert doc["counters"]["acquires"] > 0
+        assert doc["counters"]["edges_observed"] == len(doc["edges"])
+        sites = set(doc["registered_sites"])
+        assert "profiling.MetricsHistory._lock" in sites
+        for edge in doc["edges"]:
+            a, b = edge.split(" -> ")
+            assert a in sites and b in sites, edge
+    from ytsaurus_tpu.utils.profiling import get_registry as ref_registry
+    from ytsaurus_tpu_torch.utils.profiling import get_registry
+    for registry in (get_registry, ref_registry):
+        assert "sanitizer_edges_observed" in \
+            registry().render_prometheus()

@@ -364,3 +364,34 @@ def test_subnormal_doubles_keep_their_sign():
     assert select_rows(query, {T: _to_port(chunk)},
                        device="cpu").to_rows() == want
     assert ref_select(query, {T: chunk}).to_rows() == []
+
+
+
+_STRING_MAP_QUERIES = [
+    "upper(s) AS u, length(concat(s, 'x')) AS n, sum(v) AS t FROM [//t] "
+    "WHERE s LIKE 'u0000%7' OR regex_partial_match('99$', s) "
+    "GROUP BY upper(s), length(concat(s, 'x'))",
+    "lower(s) AS u, sum(v) AS t FROM [//t] WHERE s LIKE 'u0000%7' "
+    "GROUP BY lower(s)",
+    "substr(s, 1, 3) AS u, count(*) AS c FROM [//t] "
+    "WHERE NOT regex_partial_match('99$', s) GROUP BY substr(s, 1, 3)",
+    "concat(s, 'y') AS u, sum(v) AS t FROM [//t] WHERE s LIKE 'u0001%' "
+    "GROUP BY concat(s, 'y')",
+]
+
+
+@pytest.mark.parametrize("query", _STRING_MAP_QUERIES)
+def test_string_maps_bound_twice_answer_as_the_reference(query):
+    """Vocabulary-level string functions and predicates over a 4,096-entry
+    dictionary answer as the reference does, and a second binding of the
+    same query over the same chunk answers alike."""
+    arrays = synthetic.strings_arrays(40_960, seed=5)
+    ref_chunk = RefChunk.from_arrays(
+        RefSchema.make([("k", "int64", "ascending"), ("s", "string"),
+                        ("v", "int64")]), arrays,
+        dictionaries={"s": synthetic.strings_vocab(4096)})
+    port_chunk = synthetic.strings_chunk(arrays, device="cpu")
+    want = ref_select(query, {T: ref_chunk}).to_rows()
+    for _ in range(2):
+        got = select_rows(query, {T: port_chunk}, device="cpu").to_rows()
+        _assert_rows(got, want, False)

@@ -16,8 +16,9 @@ Besides: the JAX package's `RemoteYtClient` and the port's
 `connect_remote` read each other's tables, sorts and selects over the
 port's cluster (integers exact, doubles under tests/harness.py's
 canon); a `--device cuda` primary on a machine without a card exits, so
-that `start()` raises with its log's tail; and the daemon refuses the
-flags it does not port by name.
+that `start()` raises with its log's tail; and a primary's `--kafka`
+serves and its profiler runs (`test_daemon_refuses_unported_flags`,
+whose name is kept from when both were refused).
 
 The scheduler daemon, the election, clock and Sequoia cases and the
 daemons without jax are in tests/test_torch_local_cluster_failover.py:
@@ -227,8 +228,17 @@ def test_cuda_primary_without_a_card_exits_and_start_raises(tmp_path):
 
 
 def test_daemon_refuses_unported_flags(tmp_path, monkeypatch):
-    """`--kafka` and YT_TPU_PROFILER_INTERVAL are refused by name, and
-    `--device` on a role that holds no card is a usage error."""
+    """The flags this test once found refused now work: a primary
+    started with `--kafka` serves the Kafka protocol on the port it
+    writes to `<root>/kafka.port`, and its continuous profiler runs at
+    YT_TPU_PROFILER_INTERVAL (0 turns it off: no /profiler mount);
+    `--device` on a role that holds no card is still a usage error."""
+    import json
+    import socket
+    import struct
+    import time
+
+    from ytsaurus_tpu_torch.server import kafka_proxy as kp
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
     def run(*args, env=None):
@@ -237,12 +247,58 @@ def test_daemon_refuses_unported_flags(tmp_path, monkeypatch):
              *args], capture_output=True, text=True, cwd=repo, timeout=120,
             env={**os.environ, **(env or {})})
 
-    out = run("--role", "primary", "--root", str(tmp_path / "k"),
-              "--device", "cpu", "--kafka")
-    assert out.returncode != 0 and "server/kafka_proxy.py" in out.stderr
-    out = run("--role", "primary", "--root", str(tmp_path / "p"),
-              "--device", "cpu", env={"YT_TPU_PROFILER_INTERVAL": "0.05"})
-    assert out.returncode != 0 and "utils/profiler.py" in out.stderr
+    def start(root, env=None):
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ytsaurus_tpu_torch.server.daemon",
+             "--role", "primary", "--root", root, "--device", "cpu",
+             "--journal-nodes", "0", "--kafka"],
+            cwd=repo, env={**os.environ, "OMP_NUM_THREADS": "1",
+                           **(env or {})},
+            stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + 90
+        path = os.path.join(root, "kafka.port")
+        while not os.path.exists(path):
+            assert proc.poll() is None, "the primary exited"
+            assert time.monotonic() < deadline, "no kafka.port"
+            time.sleep(0.1)
+        with open(os.path.join(root, "primary.port")) as f:
+            primary = f"127.0.0.1:{f.read().strip()}"
+        with open(path) as f:
+            return proc, primary, int(f.read().strip())
+
+    for interval, profiled in (("0.05", True), ("0", False)):
+        root = str(tmp_path / f"k{interval}")
+        proc, primary, kafka_port = start(
+            root, {"YT_TPU_PROFILER_INTERVAL": interval})
+        try:
+            payload = kp.i16(kp.API_VERSIONS) + kp.i16(0) + kp.i32(5) + \
+                kp.string("t")
+            with socket.create_connection(("127.0.0.1", kafka_port),
+                                          timeout=30) as sock:
+                sock.sendall(struct.pack(">i", len(payload)) + payload)
+                (length,) = struct.unpack(">i", sock.recv(4))
+                body = b""
+                while len(body) < length:
+                    body += sock.recv(length - len(body))
+            r = kp.Reader(body)
+            assert r.i32() == 5 and r.i16() == 0
+            client = connect_remote(primary, device="cpu")
+            try:
+                mounts = client.get_orchid("/")
+                if profiled:
+                    time.sleep(0.3)
+                    state = client.get_orchid("/profiler")
+                    assert state["interval"] == 0.05
+                    assert state["total_samples"] > 0
+                    assert state["distinct_stacks"] <= 4096
+                    assert "spans" in client.get_orchid("/tracing/export")
+                else:
+                    assert "profiler" not in json.dumps(mounts)
+            finally:
+                client.close()
+        finally:
+            proc.kill()
+            proc.wait(timeout=30)
     out = run("--role", "node", "--root", str(tmp_path / "n"),
               "--primary", "127.0.0.1:1", "--device", "cuda")
     assert out.returncode == 2 and "--device applies" in out.stderr

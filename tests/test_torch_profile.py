@@ -9,12 +9,12 @@ seconds (lowering.prepare), its compile cache counts stay 0, its
 execution tier is "eager", and no `evaluator.compile` span is opened.
 Those are masked; every other line and span name is the reference's.
 
-The RPC server and channel cases run on the port's `rpc/`. Left out of
-the twins: the `/traces` endpoint and orchid views, the multi-hop remote
-driver and the CLI (`server/monitoring.py`, `server/orchid.py`,
-`remote_client.py` and `cli.py`, which wait for the daemons), the
-distributed select, and the compile-cache case, which the port twins
-below."""
+The RPC server and channel cases run on the port's `rpc/`, and the CLI
+case (`yt select-rows --explain-analyze`, `yt trace`) on the port's
+`cli.py`. Left out of the twins: the `/traces` endpoint and orchid
+views and the multi-hop remote driver (their daemon-side twins are in
+tests/test_torch_daemons.py), the distributed select, and the
+compile-cache case, which the port twins below."""
 
 import re
 import time
@@ -41,7 +41,7 @@ torch.set_num_threads(1)
 _TWIN = port_twin("test_flight_recorder")
 _CASES = twin_cases(_TWIN, exclude={
     "test_traces_endpoint_round_trip", "test_orchid_flight_recorder_views",
-    "test_multihop_remote_driver_trace", "test_cli_explain_analyze_and_trace",
+    "test_multihop_remote_driver_trace",
     "test_explain_analyze_distributed_select",
     "test_explain_analyze_compile_vs_cache_hit"})
 
@@ -76,7 +76,7 @@ def flight_cluster(tmp_path_factory):
 @pytest.mark.parametrize("name", _CASES)
 def test_reference_flight_recorder_case_on_the_port(name, request):
     fixtures = {}
-    for param in ("tracing_defaults", "flight_cluster"):
+    for param in ("tracing_defaults", "flight_cluster", "capsys"):
         fixtures[param] = request.getfixturevalue(param) \
             if param in _fixture_names(name) else None
     call_twin(_TWIN, name, fixtures)

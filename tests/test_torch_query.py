@@ -551,6 +551,40 @@ def test_port_runs_with_jax_and_the_jax_package_blocked():
             wal.close()
             for node in nodes:
                 node.stop()
+        from ytsaurus_tpu_torch import cli
+        from ytsaurus_tpu_torch.operations import simulator
+        from ytsaurus_tpu_torch.server import kafka_groups, kafka_proxy
+        from ytsaurus_tpu_torch.tablet import balancer
+        from ytsaurus_tpu_torch.utils import profiler
+        assert kafka_groups.GroupCoordinator is \
+            kafka_proxy.GroupCoordinator
+        assert kafka_proxy.decode_message_set(kafka_proxy.encode_message(
+            b"k", b"v", 3)) == [(b"k", b"v")]
+        sim = simulator.simulate(
+            [simulator.SimPool("a"), simulator.SimPool("b", weight=3.0)],
+            [simulator.SimOperation("x", "a", 0.0, 8, 1.0),
+             simulator.SimOperation("y", "b", 0.0, 8, 1.0)], total_slots=4)
+        assert sim.completions["y"] < sim.completions["x"], sim
+        sampler = profiler.SamplingProfiler(max_entries=2)
+        for _ in range(3):
+            sampler.sample_once()
+        assert sampler.state()["distinct_stacks"] <= 2
+        assert sanitizers.snapshot()["enabled"] in (True, False)
+        assert cli.build_parser().parse_args(
+            ["--device", "cpu", "list", "/"]).device == "cpu"
+        with tempfile.TemporaryDirectory() as root:
+            client = connect(root, device="cpu")
+            dyn = TableSchema.make([("k", "int64", "ascending"),
+                                    ("v", "int64")], unique_keys=True)
+            client.create("table", "//b", attributes={
+                "schema": dyn, "dynamic": True,
+                "desired_tablet_row_count": 10})
+            client.mount_table("//b")
+            client.insert_rows("//b", [{"k": 40 - i, "v": i}
+                                       for i in range(40)])
+            assert balancer.TabletBalancer(client).step() == {"//b": True}
+            assert [t.read_snapshot().row_count
+                    for t in client._mounted_tablets("//b")] == [10] * 4
         assert "jax" not in {m.split(".")[0] for m, v in sys.modules.items()
                              if v is not None}
         print("ok", len(rows))

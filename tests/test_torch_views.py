@@ -11,9 +11,6 @@ Twins, run on the port through `port_twin`, and what each leaves out:
 - tests/test_queue_agent.py (5): every case.
 - tests/test_views.py (27 functions, 30 cases with the parametrized
   crash schedules): all but
-  `test_daemon_and_cli_survive_one_broken_view` and
-  `test_driver_and_cli_verbs` (cli.py is not ported; the driver's view
-  verbs run in tests/test_torch_driver.py),
   `test_view_dual_checked_against_mesh_oracle` (it takes the JAX
   package's 8-device CPU mesh fixture; the port's mesh is
   torch.distributed, held by tests/test_torch_distributed*.py),
@@ -47,8 +44,6 @@ _QA_TWIN = port_twin("test_queue_agent")
 _QA_CASES = twin_cases(_QA_TWIN)
 _VIEWS_TWIN = port_twin("test_views")
 _VIEWS_EXCLUDED = {
-    "test_daemon_and_cli_survive_one_broken_view",
-    "test_driver_and_cli_verbs",
     "test_view_dual_checked_against_mesh_oracle",
     "test_steady_state_refresh_is_compile_free",
     "test_view_daemon_tails_pauses_and_resumes",
@@ -79,7 +74,7 @@ _VIEWS_CASES = [
 def test_twin_lists_hold_every_runnable_case():
     assert len(_QA_CASES) == 5
     assert len(_VIEWS_FUNCS) == 27
-    assert len(_VIEWS_CASES) == 27 - 7 + 3     # 2 x 2 crash schedules
+    assert len(_VIEWS_CASES) == 27 - 5 + 3     # 2 x 2 crash schedules
 
 
 @pytest.fixture(autouse=True)
@@ -97,13 +92,13 @@ def test_reference_queue_agent_case_on_the_port(name, tmp_path):
 @pytest.mark.parametrize("name,params", _VIEWS_CASES,
                          ids=[n + "".join(f"-{v}" for v in p.values())
                               for n, p in _VIEWS_CASES])
-def test_reference_views_case_on_the_port(name, params, tmp_path):
+def test_reference_views_case_on_the_port(name, params, tmp_path, capsys):
     from ytsaurus_tpu_torch.utils import failpoints
     failpoints.deactivate()
     try:
         call_twin(_VIEWS_TWIN, name, {
             "client": lambda: _VIEWS_TWIN.connect(str(tmp_path)),
-            **params})
+            "capsys": capsys, **params})
     finally:
         failpoints.deactivate()
 

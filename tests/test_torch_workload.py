@@ -5,9 +5,20 @@ and lookup folds (tests/test_workload.py) run on the port, and the same
 traffic through both clients records the same normalized text, literals
 and fingerprints. The port runs with device="cpu".
 
+The replay half runs too: the reference's replay, pacing and
+`synthesize_mix` cases and its CLI case (`yt workload export|show`,
+`yt replay`). One edit, in the replay case: the port compiles nothing, so
+each replayed profile reports `compile_count` and `cache_hits` of 0 and
+the report's compile-cache hit rates are None where the reference's are
+1.0 (the sanctioned divergence of EXPLAIN ANALYZE's compile fields, which
+covers replay's `compile_cache` section). `yt compile-cache top` and
+`yt prewarm` are refused by name on the port (nothing is compiled); the
+same seed synthesizes the same mix in both packages.
+
 Left out: the compilation observatory, the recompilation-storm SLO, the
-capacity buckets (nothing is compiled), replay and `synthesize_mix`, the
-monitoring endpoints and the CLI, which wait for later slices."""
+capacity buckets (nothing is compiled, so there are no compile records
+to observe), and the monitoring endpoints, which
+tests/test_torch_daemons.py holds against the reference's."""
 
 import pytest
 import torch
@@ -26,7 +37,16 @@ from ytsaurus_tpu_torch.schema import TableSchema
 
 torch.set_num_threads(1)
 
-_TWIN = port_twin("test_workload")
+_TWIN = port_twin("test_workload", edits={
+    """    # Every shape was compiled during recording: the replay itself is
+    # all hits — the steady-state discipline ROADMAP 1 will gate on.
+    assert cache["hit_rate"] == 1.0
+    assert cache["steady_hit_rate"] == 1.0""":
+    """    # The port compiles nothing: no hits, no misses, no hit rate.
+    assert cache["hits"] == cache["misses"] == 0
+    assert cache["fresh_compiles"] == 0
+    assert cache["hit_rate"] is None
+    assert cache["steady_hit_rate"] is None"""})
 _CASES = [
     "test_normalize_hoists_literals_and_round_trips",
     "test_normalize_is_literal_invariant",
@@ -36,7 +56,10 @@ _CASES = [
     "test_capture_roundtrip_and_version_check",
     "test_planner_feedback_ledger_roundtrip",
     "test_throttled_select_records_outcome",
-    "test_lookup_folds_workload_record"]
+    "test_lookup_folds_workload_record",
+    "test_replay_reports_latency_hit_rate_and_traces",
+    "test_replay_paces_by_recorded_spacing", "test_synthesize_mix_shapes",
+    "test_cli_workload_and_replay"]
 
 
 @pytest.fixture(autouse=True)
@@ -69,8 +92,32 @@ def wl_client(tmp_path_factory):
 
 
 @pytest.mark.parametrize("name", _CASES)
-def test_reference_workload_case_on_the_port(name, wl_client, tmp_path):
-    call_twin(_TWIN, name, {"client": wl_client, "tmp_path": tmp_path})
+def test_reference_workload_case_on_the_port(name, wl_client, tmp_path,
+                                            capsys):
+    call_twin(_TWIN, name, {"client": wl_client, "tmp_path": tmp_path,
+                            "capsys": capsys})
+
+
+@pytest.mark.parametrize("argv", [
+    ["compile-cache", "top", "--limit", "5"],
+    ["prewarm", "--capture", "unused.json"]])
+def test_compile_verbs_are_refused_by_name(argv, wl_client, capsys):
+    from ytsaurus_tpu_torch.cli import run
+    assert run(argv, client=wl_client) == 1
+    err = capsys.readouterr().err
+    verb = " ".join(argv[:2]) if argv[0] == "compile-cache" else argv[0]
+    assert f"yt {verb} is not applicable in the port" in err
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_the_same_seed_synthesizes_the_same_mix(seed):
+    shapes = ["g, sum(v) AS s FROM [//t] WHERE v < {} GROUP BY g",
+              "count(*) AS c FROM [//t] WHERE g = {} AND v > {}"]
+    got = wl.synthesize_mix(shapes, count=40, distinct=16, seed=seed,
+                            pool="p")
+    want = ref_wl.synthesize_mix(shapes, count=40, distinct=16, seed=seed,
+                                 pool="p")
+    assert [r.to_dict() for r in got] == [r.to_dict() for r in want]
 
 
 def test_select_folds_workload_record_on_the_port(wl_client):

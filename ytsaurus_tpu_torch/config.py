@@ -37,6 +37,8 @@ counterpart):
   SloConfig          one service-level objective over the telemetry
                      history rings (utils/slo.py); `view_lag_slo` builds
                      the view-freshness one
+  SanitizerConfig    the runtime concurrency sanitizer
+                     (utils/sanitizers.py), a `YsonStruct`
 
 The daemons' configs are declarative, as the reference's are: a
 `YsonStruct` subclass declares `param(...)`s with defaults, types and
@@ -49,8 +51,8 @@ polls a patch source, validates the merged config and keeps the last
 good one.
 
 The reference's CompileConfig knobs for compile caches, AOT artifacts and
-buffer donation, and its tiering and sanitizer configs, have no
-counterpart: nothing here is compiled, and the port's locks are plain.
+buffer donation, and its tiering config, have no counterpart: nothing
+here is compiled.
 """
 
 from __future__ import annotations
@@ -838,6 +840,41 @@ class SchedulerConfig(YsonStruct):
     speculative_after = param(5.0, type=float, ge=0.0)
 
 
+class SanitizerConfig(YsonStruct):
+    """Runtime concurrency sanitizer (utils/sanitizers.py): the
+    instrumented-lock layer recording held-lock sets, acquisition-order
+    edges, lock-order inversions, hold-budget violations, and blocking
+    operations under hot-path locks. Disabled by default; the
+    registration helper then hands out plain `threading.Lock`s.
+    Enablement applies to locks created after `sanitizers.configure(cfg)`
+    runs (or set YT_TPU_SANITIZE=1 before the process constructs its
+    daemons)."""
+
+    enabled = param(False, type=bool)
+    # A registered hot lock held longer than this is a violation
+    # (counted and reported, never fatal).
+    hold_budget_seconds = param(0.25, type=float, ge=0.0)
+
+
+def sanitizer_config() -> SanitizerConfig:
+    return _sanitizer_config if _sanitizer_config is not None \
+        else SanitizerConfig()
+
+
+def set_sanitizer_config(config: "Optional[SanitizerConfig]") -> None:
+    """Install and apply a sanitizer config (None restores the defaults,
+    disabled; the YT_TPU_SANITIZE environment gate is independent and
+    wins when set)."""
+    global _sanitizer_config
+    _sanitizer_config = config
+    from ytsaurus_tpu_torch.utils import sanitizers
+    sanitizers.configure(config if config is not None
+                         else SanitizerConfig())
+
+
+_sanitizer_config: "Optional[SanitizerConfig]" = None
+
+
 class DaemonConfig(YsonStruct):
     """Top-level daemon config (`--config file.yson`). `device` is where
     the primary and scheduler roles run their evaluator, chunk cache and
@@ -856,6 +893,7 @@ class DaemonConfig(YsonStruct):
     telemetry = param(type=TelemetryConfig)
     workload = param(type=WorkloadConfig)
     compile = param(type=CompileConfig)
+    sanitizer = param(type=SanitizerConfig)
 
     def postprocess(self):
         if self.role == "node" and self.chunk_store.replication_factor < 1:

@@ -131,7 +131,7 @@ from ytsaurus_tpu_torch.query.engine.joins import (
 from ytsaurus_tpu_torch.query.engine.lowering import prepare
 from ytsaurus_tpu_torch.query.parameterize import plan_fingerprint
 from ytsaurus_tpu_torch.schema import EValueType, TableSchema
-from ytsaurus_tpu_torch.utils import failpoints
+from ytsaurus_tpu_torch.utils import failpoints, sanitizers
 from ytsaurus_tpu_torch.utils.logging import get_logger, log_event
 from ytsaurus_tpu_torch.utils.tracing import child_span
 
@@ -155,9 +155,12 @@ _FP_GATHER = failpoints.register_site("parallel.gather",
 _host_syncs_n = 0
 
 
-def _note_host_sync() -> None:
+def _note_host_sync(detail: str = "distributed._host") -> None:
+    """Counts one device -> host read of the mesh paths, and notes it to
+    the sanitizer, which flags it when it runs under a hot lock."""
     global _host_syncs_n
     _host_syncs_n += 1
+    sanitizers.note_host_sync(detail)
 
 
 def host_sync_count() -> int:

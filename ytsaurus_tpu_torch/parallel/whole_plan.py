@@ -220,7 +220,7 @@ def _read_counts(final: torch.Tensor) -> np.ndarray:
     """THE host read of this rung: one stacked device → host transfer of
     the result count and everything the host decides from (overflow
     flag, demands, telemetry lanes), as a 1-D int64 vector."""
-    dist._note_host_sync()
+    dist._note_host_sync("whole_plan._read_counts")
     with record_function("mesh.read"):
         return final.to(torch.int64).reshape(-1).cpu().numpy()
 

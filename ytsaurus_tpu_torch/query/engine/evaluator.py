@@ -39,6 +39,7 @@ from ytsaurus_tpu_torch.query.engine.joins import execute_join
 from ytsaurus_tpu_torch.query.engine.lowering import prepare
 from ytsaurus_tpu_torch.query.parameterize import plan_fingerprint
 from ytsaurus_tpu_torch.schema import EValueType, TableSchema
+from ytsaurus_tpu_torch.utils import sanitizers
 from ytsaurus_tpu_torch.utils.tracing import child_span
 
 
@@ -73,6 +74,9 @@ class _PendingResult:
     def finish(self, host_count: Optional[int] = None) -> ColumnarChunk:
         if self._chunk is None:
             if host_count is None:
+                # The device -> host read: the sanitizer flags it when
+                # it runs under a registered hot lock.
+                sanitizers.note_host_sync("evaluator.finish")
                 _note_count_read()
                 n = int(self.count)
             else:
@@ -116,6 +120,7 @@ def finish_all(pendings: Sequence) -> list[ColumnarChunk]:
     if len(open_) > 1:
         # The one stacked transfer; a single open result falls through to
         # finish(), which counts its own read.
+        sanitizers.note_host_sync("evaluator.finish_all")
         _note_count_read()
         counts = torch.stack([p.count.reshape(()).to(torch.int64)
                               for p in open_]).cpu().tolist()

@@ -16,8 +16,9 @@ planning and regression hunting replay against staging clusters):
 The log is sampled and bounded in memory (`config.WorkloadConfig`) with
 an optional rotated on-disk JSONL tier, and exported/imported as a
 VERSIONED capture file (`write_capture` / `load_capture`, which fails
-loudly on an incompatible schema). `replay` and `synthesize_mix`, the
-open-loop replay harness, wait for the port's CLI slice.
+loudly on an incompatible schema). `replay` re-runs a capture open-loop
+against a client, in-process (`connect`) or remote (`connect_remote`),
+and `synthesize_mix` builds a parameterized mix without a capture.
 """
 
 from __future__ import annotations
@@ -505,6 +506,218 @@ def _json_default(value):
 
 
 # -- synthetic mixes -----------------------------------------------------------
+
+def synthesize_mix(shapes: Sequence[str], count: int = 100,
+                   distinct: int = 16, seed: int = 0,
+                   interval: float = 0.01,
+                   pool: Optional[str] = None) -> list[WorkloadRecord]:
+    """Build a parameterized-query mix without a capture: `shapes` are
+    format strings with `{}` literal slots; each synthesized query draws
+    its literals from a `distinct`-sized value set (Zipf-ish: low values
+    dominate, like production key skew) so the mix exercises the
+    repeated-shape, varied-literal traffic of a serving workload."""
+    rng = random.Random(seed)
+    records = []
+    for i in range(count):
+        shape = shapes[i % len(shapes)]
+        n_slots = shape.count("{}")
+        values = []
+        for _ in range(n_slots):
+            # Skewed draw: half the traffic hits the 4 hottest values.
+            pick = rng.randrange(distinct) if rng.random() < 0.5 \
+                else rng.randrange(max(distinct // 4, 1))
+            values.append(pick)
+        normalized, literals = normalize_query(shape.format(*values))
+        records.append(WorkloadRecord(
+            kind="select", query=normalized, literals=literals,
+            fingerprint=query_fingerprint(normalized), pool=pool,
+            started_at=i * interval, outcome="ok"))
+    return records
+
+
+# -- replay --------------------------------------------------------------------
+
+def _decode(value):
+    if isinstance(value, bytes):
+        return value.decode("utf-8", "replace")
+    if isinstance(value, dict):
+        return {_decode(k): _decode(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_decode(v) for v in value]
+    return value
+
+
+def _profile_info(profile) -> tuple[Optional[str], dict]:
+    """(trace_id, statistics) from an ExecutionProfile object (in-
+    process client) or its dict form (remote client)."""
+    if hasattr(profile, "statistics"):
+        return profile.trace_id, profile.statistics or {}
+    if isinstance(profile, dict):
+        d = _decode(profile)
+        return d.get("trace_id"), d.get("statistics") or {}
+    return None, {}
+
+
+def replay(client, records: Sequence[WorkloadRecord],
+           speed: float = 1.0, rate: Optional[float] = None,
+           max_workers: int = 16, pool: Optional[str] = None,
+           timeout: Optional[float] = None,
+           limit: Optional[int] = None,
+           slowest: int = 5) -> dict:
+    """Re-run a workload against a live client/gateway, open-loop.
+
+    Pacing: each record dispatches at its scheduled offset — recorded
+    inter-arrival spacing divided by `speed`, or a fixed `rate` (qps)
+    when given (also the fallback when the capture carries no
+    timestamps).  Dispatch does NOT wait for earlier queries: a slow
+    server accumulates in-flight work exactly as production would
+    (bounded by `max_workers` executing threads; the backlog past that
+    is measured as latency, which is the point).
+
+    Selects run with explain_analyze=True so every replayed query
+    carries its compile/execute split and trace id; the slowest queries
+    embed their trace ids for `/traces` follow-up. The report keeps the
+    reference's shape. Its `compile_cache` section reads what each
+    profile's statistics report: the port compiles nothing, so
+    `compile_count` and `cache_hits` are 0 there and the hit rates are
+    None (steady-state rates are over the second half of the mix, as in
+    the reference)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    records = list(records)
+    if limit:
+        records = records[:limit]
+    if not records:
+        raise YtError("workload replay: no records to replay",
+                      code=EErrorCode.InvalidConfig)
+    # Scheduled offsets, seconds from replay start.
+    if rate is not None and rate > 0:
+        offsets = [i / rate for i in range(len(records))]
+    else:
+        base = records[0].started_at
+        spread = records[-1].started_at - base
+        if spread > 0:
+            offsets = [(r.started_at - base) / max(speed, 1e-9)
+                       for r in records]
+        else:
+            offsets = [0.0] * len(records)
+
+    lock = threading.Lock()
+    latencies: list[float] = []
+    outcomes = {"ok": 0, "error": 0, "throttled": 0, "deadline": 0}
+    steady = {"hits": 0, "misses": 0, "disk_hits": 0}
+    total = {"hits": 0, "misses": 0, "disk_hits": 0}
+    slow_heap: list[tuple[float, dict]] = []
+    steady_from = len(records) // 2
+
+    def run_one(idx: int, rec: WorkloadRecord) -> None:
+        t0 = time.perf_counter()
+        outcome = "ok"
+        trace_id = None
+        stats: dict = {}
+        query_text = rec.query
+        try:
+            if rec.kind == "lookup":
+                keys = [tuple(lit[1]) for lit in rec.literals
+                        if lit and lit[0] == "key"]
+                if keys:
+                    client.lookup_rows(rec.table, keys,
+                                       pool=pool or rec.pool,
+                                       timeout=timeout)
+            else:
+                query_text = substitute_literals(rec.query, rec.literals)
+                profile = client.select_rows(
+                    query_text, pool=pool or rec.pool, timeout=timeout,
+                    explain_analyze=True)
+                trace_id, stats = _profile_info(profile)
+        except YtError as err:
+            outcome = outcome_of(err)
+        except Exception:   # noqa: BLE001 — a replay worker must never
+            # lose a query from the report: transport/driver surprises
+            # count as errors, they don't silently vanish into an
+            # unchecked future.
+            outcome = "error"
+        elapsed = time.perf_counter() - t0
+        with lock:
+            outcomes[outcome] += 1
+            latencies.append(elapsed)
+            hits = int(stats.get("cache_hits", 0))
+            misses = int(stats.get("compile_count", 0))
+            disk_hits = int(stats.get("compile_disk_hit", 0))
+            total["hits"] += hits
+            total["misses"] += misses
+            total["disk_hits"] += disk_hits
+            if idx >= steady_from:
+                steady["hits"] += hits
+                steady["misses"] += misses
+                steady["disk_hits"] += disk_hits
+            slow_heap.append((elapsed, {
+                "query": query_text[:200],
+                "fingerprint": rec.fingerprint,
+                "wall_ms": round(elapsed * 1e3, 3),
+                "outcome": outcome,
+                "trace_id": trace_id,
+            }))
+            if len(slow_heap) > max(slowest, 1) * 4:
+                slow_heap.sort(key=lambda e: -e[0])
+                del slow_heap[max(slowest, 1) * 4:]
+
+    t_start = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=max_workers,
+                            thread_name_prefix="replay") as executor:
+        for idx, (rec, offset) in enumerate(zip(records, offsets)):
+            delay = t_start + offset - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            # Open loop: submit on schedule regardless of completions.
+            executor.submit(run_one, idx, rec)
+    elapsed = time.perf_counter() - t_start
+
+    latencies.sort()
+
+    def pct(q: float) -> float:
+        if not latencies:
+            return 0.0
+        idx = min(int(q * len(latencies)), len(latencies) - 1)
+        return latencies[idx]
+
+    def hit_rate(bucket: dict) -> Optional[float]:
+        events = bucket["hits"] + bucket["misses"]
+        return round(bucket["hits"] / events, 6) if events else None
+
+    slow_heap.sort(key=lambda e: -e[0])
+    offered = (len(records) - 1) / offsets[-1] if offsets[-1] > 0 \
+        else None
+    return {
+        "queries": len(records),
+        **outcomes,
+        "elapsed_seconds": round(elapsed, 6),
+        "offered_rate": round(offered, 3) if offered else None,
+        "achieved_rate": round(len(records) / elapsed, 3)
+        if elapsed > 0 else None,
+        "latency": {
+            "p50_ms": round(pct(0.50) * 1e3, 3),
+            "p99_ms": round(pct(0.99) * 1e3, 3),
+            "p999_ms": round(pct(0.999) * 1e3, 3),
+            "max_ms": round(latencies[-1] * 1e3, 3) if latencies
+            else 0.0,
+        },
+        "compile_cache": {
+            **{k: v for k, v in total.items()},
+            # Misses a persistent tier served vs programs actually
+            # built.
+            "fresh_compiles": total["misses"] - total["disk_hits"],
+            "hit_rate": hit_rate(total),
+            "steady_hits": steady["hits"],
+            "steady_misses": steady["misses"],
+            "steady_disk_hits": steady["disk_hits"],
+            "steady_fresh_compiles":
+                steady["misses"] - steady["disk_hits"],
+            "steady_hit_rate": hit_rate(steady),
+        },
+        "slowest": [entry for _t, entry in slow_heap[:max(slowest, 1)]],
+    }
+
 
 # -- globals -------------------------------------------------------------------
 

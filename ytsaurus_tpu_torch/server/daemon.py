@@ -27,9 +27,16 @@ so a caller in another process sees the kernels run; and
 `/query/device/trace/start` / `.../stop`, a device trace that gives the
 device time of what ran between the two reads (`DeviceTrace`). The
 reference's AOT artifact store, tier ladder and capture prewarm have no
-counterpart (nothing is compiled). Not ported yet, each refused with a YtError that
-names its module: `--kafka` (server/kafka_proxy.py) and the continuous
-profiler that `YT_TPU_PROFILER_INTERVAL` arms (utils/profiler.py).
+counterpart (nothing is compiled).
+
+As the reference's, the primary runs the continuous sampling profiler
+(utils/profiler.py) at `YT_TPU_PROFILER_INTERVAL` seconds (0.05 by
+default; 0 or an unparseable value turns it off), mounts `/profiler`,
+`/profiler/collapsed` and `/tracing/export`, serves
+`/tracing/recent_spans` from the span exporter's tail and writes the
+spans to `<root>/traces.jsonl`; `--kafka` serves the Kafka wire protocol
+(server/kafka_proxy.py) on the port written to `<root>/kafka.port`. The
+profiler walks host frames only.
 """
 
 from __future__ import annotations
@@ -79,13 +86,6 @@ def run_primary(root: str, port: int, replication_factor: int = 2,
     # binds a port, never serving from the CPU instead.
     device = resolve_device(device)
     trace = DeviceTrace(device)
-    if kafka:
-        raise YtError("--kafka is not ported yet (server/kafka_proxy.py, "
-                      "server/kafka_groups.py)")
-    if os.environ.get("YT_TPU_PROFILER_INTERVAL", "") not in ("", "0"):
-        raise YtError("YT_TPU_PROFILER_INTERVAL arms the continuous "
-                      "profiler, which is not ported yet "
-                      "(utils/profiler.py)")
     os.makedirs(root, exist_ok=True)
     tracker = NodeTracker()
     # Bootstrap service set first: nodes must be able to register before
@@ -411,6 +411,38 @@ def run_primary(root: str, port: int, replication_factor: int = 2,
     from ytsaurus_tpu_torch.server.chunk_merger import ChunkMerger
     merger = ChunkMerger(client).start()
     orchid.register("/chunk_merger", lambda: dict(merger.stats))
+    # Continuous CPU profiler + span export (ref ytprof cpu_profiler.h,
+    # jaeger/tracer.h): always-on statistical sampling served via
+    # Orchid; finished spans batch-flush to <root>/traces.jsonl.
+    try:
+        profiler_interval = float(
+            os.environ.get("YT_TPU_PROFILER_INTERVAL", 0.05))
+    except ValueError:
+        # 'off', '50ms', '': the operator meant something other than the
+        # default; disable rather than refuse to boot the primary.
+        print("# YT_TPU_PROFILER_INTERVAL unparseable; profiler off",
+              flush=True)
+        profiler_interval = 0.0
+    if profiler_interval > 0:
+        from ytsaurus_tpu_torch.utils.profiler import (
+            SamplingProfiler,
+            TraceExporter,
+            jsonl_sink,
+        )
+        cpu_profiler = SamplingProfiler(
+            interval=profiler_interval).start()
+        orchid.register("/profiler", lambda: {
+            **cpu_profiler.state(),
+            "hotspots": cpu_profiler.hotspots()})
+        orchid.register("/profiler/collapsed",
+                        lambda: cpu_profiler.collapsed())
+        exporter = TraceExporter(
+            jsonl_sink(os.path.join(root, "traces.jsonl"))).start()
+        orchid.register("/tracing/export", lambda: dict(exporter.stats))
+        # The exporter drains the collector: recent_spans serves from
+        # the exporter's tail, or it would always read empty.
+        orchid.register("/tracing/recent_spans",
+                        lambda: list(exporter.recent))
     # Generalized service discovery (ref server/discovery_server): any
     # process can publish into named groups; NodeTracker stays the
     # data-node special case.
@@ -433,6 +465,14 @@ def run_primary(root: str, port: int, replication_factor: int = 2,
                     role="primary")
     monitoring.cluster_members = \
         lambda: discovery.list_members(DAEMONS_GROUP)
+    if kafka:
+        # Kafka wire protocol over queues (ref server/kafka_proxy):
+        # in-process with the primary, like the query tracker / queue
+        # agent, so consumer registrations ride the same client.
+        from ytsaurus_tpu_torch.server.kafka_proxy import KafkaProxy
+        kafka_proxy = KafkaProxy(client).start()
+        _write_port_file(root, "kafka", kafka_proxy.port)
+        print(f"kafka proxy serving on {kafka_proxy.address}", flush=True)
     if os.environ.get("YT_TPU_SEQUOIA", "") not in ("", "0"):
         # Sequoia resolve ground table (cypress/sequoia.py): path
         # resolution served from a dynamic table, kept consistent off

@@ -170,6 +170,9 @@ class FailpointSite:
     def hit(self) -> None:
         """The probe: may sleep (delay), raise the site's error (error)
         or raise InjectedCrash (crash-once)."""
+        # The failpoint sites are the I/O boundaries: the concurrency
+        # sanitizer flags one that runs under a hot lock.
+        sanitizers.note_blocking("io", self.name)
         if _STATE is None:      # disabled fast path: one global read
             return
         act = self.fire()
@@ -187,6 +190,7 @@ class FailpointSite:
         """The write-site probe: (payload, torn). With torn=True the
         caller writes `payload` (a truncated prefix) to its staging
         location and then fails the write without publishing it."""
+        sanitizers.note_blocking("io", self.name)
         if _STATE is None:
             return blob, False
         act = self.fire(write=True)
