@@ -238,7 +238,7 @@ def test_workload_capture_and_replay_from_the_primary(cluster, tmp_path):
                    "--workers", "4", "--json")
     assert report["queries"] == len(mine) == report["ok"]
     assert all(entry["trace_id"] for entry in report["slowest"])
-    assert report["compile_cache"]["hit_rate"] is None
+    assert "compile_cache" not in report
     out = _ok(cluster, "replay", "--capture", cap, "--limit", "2")
     assert b"replayed 2 queries" in out and b"trace=" in out
     local = str(tmp_path / "local.json")

@@ -276,11 +276,6 @@ def _format_mesh_top(snapshot: dict, sort_key: str, limit: int) -> str:
 
 def _format_replay_report(report: dict) -> str:
     lat = report.get("latency") or {}
-    cache = report.get("compile_cache") or {}
-
-    def rate(value):
-        return "n/a" if value is None else f"{value * 100:.2f}%"
-
     lines = [
         f"replayed {report.get('queries', 0)} queries in "
         f"{report.get('elapsed_seconds', 0.0):.3f}s "
@@ -293,12 +288,6 @@ def _format_replay_report(report: dict) -> str:
         f"latency: p50 {lat.get('p50_ms', 0)}ms  p99 "
         f"{lat.get('p99_ms', 0)}ms  p999 {lat.get('p999_ms', 0)}ms  "
         f"max {lat.get('max_ms', 0)}ms",
-        f"compile cache: {cache.get('hits', 0)} hits / "
-        f"{cache.get('misses', 0)} misses "
-        f"({cache.get('disk_hits', 0)} disk hits, "
-        f"{cache.get('fresh_compiles', 0)} fresh compiles; "
-        f"hit rate {rate(cache.get('hit_rate'))}, steady-state "
-        f"{rate(cache.get('steady_hit_rate'))})",
     ]
     slowest = report.get("slowest") or []
     if slowest:

@@ -1339,6 +1339,7 @@ class YtClient:
         # impl finishing and the profile capture reading it.
         stats = QueryStatistics()
         t0 = _time.perf_counter()
+        cpu0 = _time.thread_time()
         try:
             with root:
                 if not gateway.enabled:
@@ -1350,7 +1351,7 @@ class YtClient:
                         lambda token: self._select_rows_impl(
                             query, timestamp, token, stats=stats,
                             params=params),
-                        pool=pool, timeout=timeout)
+                        pool=pool, timeout=timeout, stats=stats)
         except YtError as err:
             # Workload recorder: failed queries are part of
             # the workload too — the record carries the classified
@@ -1365,8 +1366,17 @@ class YtClient:
                 wall_time=_time.perf_counter() - t0, pool=pool,
                 trace_id=getattr(root, "trace_id", None))
             raise
-        profile = ExecutionProfile.capture(
-            root, query, stats, _time.perf_counter() - t0, pool=pool)
+        wall = _time.perf_counter() - t0
+        # The thread's CPU over the same span, less what the device waits
+        # burned (already taken off by evaluator._device_wait).
+        stats.host_cpu_time += _time.thread_time() - cpu0
+        # The one to_dict of the query: the serving counters, the Query
+        # log, the profile (and through it the flight recorder, the
+        # accountant and the workload log) read this dict.
+        stats_dict = stats.to_dict()
+        self._record_query(query, stats_dict)
+        profile = ExecutionProfile.capture(root, query, stats_dict, wall,
+                                           pool=pool)
         if explain_analyze:
             # Attach BEFORE observe: the recorder strips rows from what
             # it retains (without_rows copy), so attaching afterwards
@@ -1439,17 +1449,54 @@ class YtClient:
         because the read pool is saturated, and a lookup issued while
         the caller already holds an admission slot would deadlock a
         saturated pool."""
-        return self._select_rows_impl(query, timestamp, None)
+        from ytsaurus_tpu_torch.query.statistics import QueryStatistics
+        stats = QueryStatistics()
+        rows = self._select_rows_impl(query, timestamp, None, stats=stats)
+        self._record_query(query, stats.to_dict())
+        return rows
 
-    def _select_rows_impl(self, query: str, timestamp: int,
-                          token, stats=None, params=None) -> list[dict]:
+    def _record_query(self, query: str, stats: dict) -> None:
+        """A finished select's statistics (`QueryStatistics.to_dict()`)
+        into the gateway's serving counters and the structured Query
+        log."""
         import logging as _logging
 
-        from ytsaurus_tpu_torch.query.statistics import QueryStatistics
         from ytsaurus_tpu_torch.utils.logging import get_logger, log_event
-        if stats is None:
-            stats = QueryStatistics()
+        if self.cluster._gateway is not None:
+            self.cluster.gateway.record_statistics(
+                stats, self.cluster.evaluator.cache_size())
+        log_event(get_logger("Query"), _logging.INFO, "select_rows",
+                  query=query[:200], **stats)
+
+    def _select_rows_impl(self, query: str, timestamp: int,
+                          token, stats, params=None) -> list[dict]:
+        """The select itself, its stages timed into `stats`
+        (query/statistics.py): parse, stage, the coordinator's (compile,
+        join, dispatch, device wait), to_rows."""
+        from ytsaurus_tpu_torch.utils.tracing import stage
         self.last_query_statistics = stats   # visible even if the query fails
+        with stage(stats, "parse_time", "query.parse"):
+            plan, intervals = self._parse_select(query, params)
+        with stage(stats, "stage_time", "query.stage"):
+            source_chunks, range_ordered_by, foreign = self._stage_select(
+                plan, intervals, timestamp, token, stats)
+        out = coordinate_and_execute(plan, source_chunks, foreign,
+                                     evaluator=self.cluster.evaluator,
+                                     merge_shards_below=4_000_000,
+                                     range_ordered_by=range_ordered_by,
+                                     stats=stats, token=token)
+        if token is not None and token.rung:
+            # Tag the degraded response (brown-out ladder): the rung and
+            # the actual staleness served land in the query statistics,
+            # which flow to the slow log, EXPLAIN ANALYZE, and drivers.
+            stats.degraded_rung = token.rung
+            stats.degraded_staleness = round(token.stale_served, 6)
+        with stage(stats, "to_rows_time"):
+            return out.to_rows()
+
+    def _parse_select(self, query: str, params):
+        """(the bound plan, its read permissions checked; the WHERE's
+        column intervals, narrowed by semi-join pushdown)."""
         plan = build_query(query, _SchemaResolver(self), params=params)
         # Every source table requires read permission (ref: query agent
         # checks table read access before executing subqueries).
@@ -1496,6 +1543,12 @@ class YtClient:
                 for name, iv in pushed.items():
                     intervals[name] = intervals.get(
                         name, Interval()).narrow(iv)
+        return plan, intervals
+
+    def _stage_select(self, plan, intervals, timestamp: int, token, stats):
+        """The select's shards: (source chunks or lazy suppliers, the key
+        columns they are range-ordered by or None, {foreign table: its
+        chunk})."""
         range_ordered_by = None
         source_chunks = self._indexed_source_chunks(plan, intervals,
                                                     timestamp)
@@ -1526,23 +1579,7 @@ class YtClient:
             shards = self._query_shards(join.foreign_table, timestamp)
             foreign[join.foreign_table] = (
                 concat_chunks(shards) if len(shards) > 1 else shards[0])
-        out = coordinate_and_execute(plan, source_chunks, foreign,
-                                     evaluator=self.cluster.evaluator,
-                                     merge_shards_below=4_000_000,
-                                     range_ordered_by=range_ordered_by,
-                                     stats=stats, token=token)
-        if token is not None and token.rung:
-            # Tag the degraded response (brown-out ladder): the rung and
-            # the actual staleness served land in the query statistics,
-            # which flow to the slow log, EXPLAIN ANALYZE, and drivers.
-            stats.degraded_rung = token.rung
-            stats.degraded_staleness = round(token.stale_served, 6)
-        if self.cluster._gateway is not None:
-            self.cluster.gateway.record_statistics(
-                stats, self.cluster.evaluator.cache_size())
-        log_event(get_logger("Query"), _logging.INFO, "select_rows",
-                  query=query[:200], **stats.to_dict())
-        return out.to_rows()
+        return source_chunks, range_ordered_by, foreign
 
     def _indexed_source_chunks(self, plan, intervals, timestamp):
         """Serve the scan from a secondary index when one applies (WHERE

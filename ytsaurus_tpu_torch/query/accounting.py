@@ -12,7 +12,7 @@ usage:
 
   select_rows      ExecutionProfile counters (rows read/returned, bytes
                    scanned, compile/execute seconds, admission wait,
-                   retries, cache hits) fold per (pool, user) in
+                   retries) fold per (pool, user) in
                    `client.select_rows`.
   lookups          each batched flush folds its key/row counts under
                    the cohort's pool (query/serving.LookupBatcher).
@@ -45,7 +45,7 @@ from ytsaurus_tpu_torch.utils import sanitizers
 USAGE_FIELDS = (
     "queries", "lookups", "rows_read", "rows_written", "bytes_read",
     "compile_seconds", "execute_seconds", "admission_wait_seconds",
-    "wall_seconds", "cache_hits", "compile_count", "retries",
+    "wall_seconds", "retries",
     "throttled", "lookup_keys", "lookup_rows_found", "lookup_batches",
     "operations", "jobs", "view_batches", "view_rows",
     "nearest_queries", "nearest_batches", "nearest_rows_scanned",
@@ -109,8 +109,6 @@ class ResourceAccountant:
             execute_seconds=profile.execute_time,
             admission_wait_seconds=profile.admission_wait,
             wall_seconds=profile.wall_time,
-            cache_hits=stats.get("cache_hits", 0),
-            compile_count=stats.get("compile_count", 0),
             retries=stats.get("retries", 0))
 
     def observe_lookup(self, pool: Optional[str], user: Optional[str],

@@ -41,7 +41,7 @@ from ytsaurus_tpu_torch.query import ir
 from ytsaurus_tpu_torch.query.engine.evaluator import Evaluator, finish_all
 from ytsaurus_tpu_torch.schema import EValueType
 from ytsaurus_tpu_torch.utils import failpoints
-from ytsaurus_tpu_torch.utils.tracing import NULL_SPAN, child_span
+from ytsaurus_tpu_torch.utils.tracing import NULL_SPAN, stage
 
 # How each aggregate's partial state is merged at the front.
 _MERGE_FN = {"sum": "sum", "count": "sum", "min": "min", "max": "max",
@@ -75,12 +75,14 @@ def _retry_transient(fn, site: "Optional[failpoints.FailpointSite]" = None,
                      stats=None, **span_tags):
     """Jittered exponential backoff retry of transient failures (policy
     `query_shard`) around one shard step. A token past its deadline stops
-    the retries. `span_name` opens one child span per attempt (tagged
-    `attempt=`); `stats.retries` counts the extra attempts."""
+    the retries. `span_name` opens one stage per attempt (a child span
+    tagged `attempt=`, and a profiler range while a profiler session is
+    live; no statistics field); `stats.retries` counts the extra
+    attempts."""
     policy = retry_policy("query_shard")
     for attempt in range(policy.attempts):
         try:
-            with child_span(span_name, attempt=attempt, **span_tags) \
+            with stage(None, None, span_name, attempt=attempt, **span_tags) \
                     if span_name is not None else NULL_SPAN:
                 if token is not None:
                     token.check()
@@ -99,7 +101,8 @@ def _wrap_lazy_shard(shard, token=None, index: Optional[int] = None,
                      stats=None):
     """Lazy shards retry their own staging. The caller's trace context is
     captured: staging runs on prefetch threads, whose context would be
-    empty."""
+    empty. Their `stage_time` is the query thread's wait for them
+    (`_PrefetchScanner.get`), not the prefetch threads' seconds."""
     if not callable(shard):
         return shard
     captured = contextvars.copy_context()
@@ -374,7 +377,8 @@ class _PrefetchScanner:
         self._submit(i)
         for j in range(i + 1, i + 1 + self.window):
             self._submit(j)
-        chunk = self._futures.pop(i).result()
+        with stage(self.stats, "stage_time"):
+            chunk = self._futures.pop(i).result()
         if self.stats is not None and self.count_rows:
             self.stats.rows_read += chunk.row_count
             self.stats.bytes_read += chunk.nbytes
@@ -453,7 +457,8 @@ def coordinate_and_execute(
             stats.rows_read += sum(c.row_count for c in chunks)
             stats.bytes_read += sum(c.nbytes for c in chunks)
     if len(chunks) == 1:
-        chunk = _materialize(chunks[0])
+        with stage(stats, "stage_time"):
+            chunk = _materialize(chunks[0])
         if lazy and stats is not None:
             stats.shards_staged += 1
             stats.rows_read += chunk.row_count
@@ -560,7 +565,10 @@ def coordinate_and_execute(
             scanner.close()
         if deferred and needed is None:
             partials = finish_all(partials)
-        with child_span("coordinator.front_merge", partials=len(partials)):
+        # The merge's own seconds (the partials' concatenation) are
+        # dispatch_time: device work issued from the host.
+        with stage(stats, "dispatch_time", "coordinator.front_merge",
+                   partials=len(partials)):
             merged = concat_chunks(
                 [p.slice_rows(0, p.row_count) for p in partials])
             result = evaluator.run_plan(front, merged, stats=stats,

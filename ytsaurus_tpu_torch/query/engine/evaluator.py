@@ -37,10 +37,9 @@ from ytsaurus_tpu_torch.query import ir, planner
 from ytsaurus_tpu_torch.query.builder import build_query
 from ytsaurus_tpu_torch.query.engine.joins import execute_join
 from ytsaurus_tpu_torch.query.engine.lowering import prepare
-from ytsaurus_tpu_torch.query.parameterize import plan_fingerprint
 from ytsaurus_tpu_torch.schema import EValueType, TableSchema
 from ytsaurus_tpu_torch.utils import sanitizers
-from ytsaurus_tpu_torch.utils.tracing import child_span
+from ytsaurus_tpu_torch.utils.tracing import stage
 
 
 _count_reads_n = 0
@@ -61,15 +60,14 @@ class _PendingResult:
     `finish()` reads the count (one device → host read) and wraps the
     chunk; given `host_count` (read by `finish_all`), it reads nothing."""
 
-    __slots__ = ("planes", "count", "output", "_chunk", "stats", "_t0")
+    __slots__ = ("planes", "count", "output", "_chunk", "stats")
 
-    def __init__(self, planes, count, output, stats=None, t0=None):
+    def __init__(self, planes, count, output, stats=None):
         self.planes = planes
         self.count = count
         self.output = output
         self._chunk: Optional[ColumnarChunk] = None
         self.stats = stats
-        self._t0 = t0
 
     def finish(self, host_count: Optional[int] = None) -> ColumnarChunk:
         if self._chunk is None:
@@ -78,7 +76,8 @@ class _PendingResult:
                 # it runs under a registered hot lock.
                 sanitizers.note_host_sync("evaluator.finish")
                 _note_count_read()
-                n = int(self.count)
+                with _device_wait(self.stats):
+                    n = int(self.count)
             else:
                 n = int(host_count)
             out_columns: dict[str, Column] = {}
@@ -91,9 +90,8 @@ class _PendingResult:
             self._chunk = ColumnarChunk(
                 schema=TableSchema.make(out_schema_cols), row_count=n,
                 columns=out_columns)
-            if self.stats is not None and self._t0 is not None:
-                # Dispatch to the count read: the device sync included.
-                self.stats.execute_time += time.perf_counter() - self._t0
+            if self.stats is not None:
+                self.stats.close_execute()
         return self._chunk
 
 
@@ -110,6 +108,27 @@ class _ReadyResult:
         return self._chunk
 
 
+class _device_wait(stage):
+    """The host blocked on a row-count read: `device_wait`, and the
+    thread's CPU seconds inside it taken off `host_cpu_time` (a spinning
+    synchronize burns CPU that is not the host's work)."""
+
+    __slots__ = ("_cpu0",)
+
+    def __init__(self, stats):
+        super().__init__(stats, "device_wait", "evaluator.device_wait")
+
+    def __enter__(self):
+        self._cpu0 = time.thread_time()
+        return super().__enter__()
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        super().__exit__(exc_type, exc, tb)
+        if self._stats is not None:
+            self._stats.host_cpu_time -= time.thread_time() - self._cpu0
+        return False
+
+
 def finish_all(pendings: Sequence) -> list[ColumnarChunk]:
     """Finish a batch of dispatched plans with ONE host transfer: the
     row counts of the open pending results cross as one stacked tensor
@@ -122,8 +141,10 @@ def finish_all(pendings: Sequence) -> list[ColumnarChunk]:
         # finish(), which counts its own read.
         sanitizers.note_host_sync("evaluator.finish_all")
         _note_count_read()
-        counts = torch.stack([p.count.reshape(()).to(torch.int64)
-                              for p in open_]).cpu().tolist()
+        stacked = torch.stack([p.count.reshape(()).to(torch.int64)
+                               for p in open_])
+        with _device_wait(open_[0].stats):
+            counts = stacked.cpu().tolist()
         host = {id(p): c for p, c in zip(open_, counts)}
     return [p.finish(host_count=host.get(id(p))) for p in pendings]
 
@@ -141,8 +162,9 @@ class Evaluator:
         its joins, by table path), all on this evaluator's device.
         `token` (query/serving.CancellationToken) is checked first;
         `stats` (query/statistics.QueryStatistics) gains the binding
-        seconds as `compile_time` and the seconds from dispatch to the
-        row count's read as `execute_time`."""
+        seconds as `compile_time`, the joins' as `join_time`, the
+        kernels' issue as `dispatch_time` and the count's read as
+        `device_wait`, and the execute span opens here."""
         return self.run_plan_async(plan, chunk, foreign_chunks, stats=stats,
                                    token=token).finish()
 
@@ -156,6 +178,8 @@ class Evaluator:
         if token is not None:
             token.check()
         self._check_device(chunk)
+        if stats is not None:
+            stats.open_execute()
         if isinstance(plan, ir.Query) and plan.joins:
             foreign_chunks = foreign_chunks or {}
             if len(plan.joins) > 1:
@@ -172,31 +196,23 @@ class Evaluator:
                         code=EErrorCode.QueryExecutionError)
                 self._check_device(foreign)
                 namespace = _extend_namespace(namespace, join)
-                current = execute_join(current, TableSchema.make(namespace),
-                                       join, foreign)
+                with stage(stats, "join_time"):
+                    current = execute_join(current,
+                                           TableSchema.make(namespace),
+                                           join, foreign)
             chunk = current
         elif isinstance(plan, ir.Query):
             chunk = _project_chunk(chunk, plan.schema)
-        # Span per plan execution, tagged with the plan's shape
-        # fingerprint; an interior site, so untraced use stays on the
-        # null fast path and never computes the fingerprint.
-        span = child_span("evaluator.run_plan", rows=chunk.row_count)
-        with span:
-            if span.sampled:
-                span.add_tag("fingerprint", plan_fingerprint(plan))
-            bind0 = stats.compile_time if stats is not None else 0.0
+        # The plan's stage: its self time, less the binding (compile_time)
+        # and any count read inside (device_wait), is dispatch_time.
+        with stage(stats, "dispatch_time", "evaluator.run_plan",
+                   rows=chunk.row_count):
             if plan.group is not None and plan.group.totals:
                 result = self._execute(plan, chunk, stats).finish()
                 totals = self._execute(_make_totals_plan(plan), chunk,
                                        stats).finish()
-                pending = _ReadyResult(concat_chunks([result, totals]))
-            else:
-                pending = self._execute(plan, chunk, stats)
-            if stats is not None:
-                span.add_tag("compile_seconds",
-                             round(stats.compile_time - bind0, 6))
-            span.add_tag("execution_tier", "eager")
-            return pending
+                return _ReadyResult(concat_chunks([result, totals]))
+            return self._execute(plan, chunk, stats)
 
     def _check_device(self, chunk: ColumnarChunk) -> None:
         if chunk.columns and not same_device(chunk.device, self.device):
@@ -210,16 +226,13 @@ class Evaluator:
 
     def _execute(self, plan, chunk: ColumnarChunk,
                  stats=None) -> _PendingResult:
-        t0 = time.perf_counter()
-        prepared = prepare(plan, chunk)
-        t1 = time.perf_counter()
-        if stats is not None:
-            stats.compile_time += t1 - t0
+        with stage(stats, "compile_time"):
+            prepared = prepare(plan, chunk)
         columns = {c.name: (chunk.columns[c.name].data,
                             chunk.columns[c.name].valid)
                    for c in plan.schema}
         planes, count = prepared.run(columns, chunk.row_valid)
-        return _PendingResult(planes, count, prepared.output, stats, t1)
+        return _PendingResult(planes, count, prepared.output, stats)
 
 
 def _initial_namespace(plan: ir.Query) -> list[tuple[str, str]]:

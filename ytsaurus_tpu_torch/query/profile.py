@@ -7,8 +7,8 @@ in a structured query log.  Here the finished trace spans of one query
 fold into an `ExecutionProfile` — the EXPLAIN ANALYZE answer: wall /
 compile / execute split (the first question any profile of a compiled
 engine must answer — "An Empirical Analysis of Just-in-Time Compilation
-in Modern Databases", PAPERS.md), rows scanned vs returned, cache and
-retry counters, and the span tree — returned on the opt-in
+in Modern Databases", PAPERS.md), rows scanned vs returned, retry
+counters, and the span tree — returned on the opt-in
 `explain_analyze=` flag of `select_rows` and retained in the
 FlightRecorder's bounded slow-query log (threshold + sampling from
 config.TracingConfig).
@@ -53,31 +53,30 @@ class ExecutionProfile:
         self.rows = rows
 
     @classmethod
-    def capture(cls, root_span, query: str, stats, wall_time: float,
+    def capture(cls, root_span, query: str, statistics: Optional[dict],
+                wall_time: float,
                 pool: Optional[str] = None,
                 user: Optional[str] = None) -> "ExecutionProfile":
-        """Fold one finished query into a profile.  `root_span` may be
-        the NULL span (unsampled query): the profile still carries the
-        wall time + statistics, just no trace id / span tree.  Admission
-        wait rides as a tag on the root span (stamped by the gateway at
-        the admit site) — reading it here costs a dict probe, not a scan
-        of the span ring.  `user` defaults to the ambient authenticated
-        principal, so per-tenant accounting attributes the query even on
-        proxy paths that never pass identity explicitly."""
-        stats_dict = stats.to_dict() if stats is not None else {}
-        admission_wait = float(
-            getattr(root_span, "tags", {}).get("admission_wait_s", 0.0))
+        """Fold one finished query into a profile. `statistics` is the
+        query's `QueryStatistics.to_dict()`, admission wait included, so
+        an unsampled query (`root_span` the NULL span) carries it too,
+        just no trace id / span tree.  `user` defaults to the ambient
+        authenticated principal, so per-tenant accounting attributes the
+        query even on proxy paths that never pass identity
+        explicitly."""
+        statistics = statistics or {}
         trace_id = getattr(root_span, "trace_id", None)
         if user is None:
             from ytsaurus_tpu_torch.cypress.security import current_user
             user = current_user()
         return cls(query=query[:500], trace_id=trace_id,
                    pool=pool or "default", user=user,
-                   started_at=time.time(),
-                   wall_time=wall_time, admission_wait=admission_wait,
-                   compile_time=float(stats_dict.get("compile_time", 0.0)),
-                   execute_time=float(stats_dict.get("execute_time", 0.0)),
-                   statistics=stats_dict)
+                   started_at=time.time(), wall_time=wall_time,
+                   admission_wait=float(
+                       statistics.get("admission_wait", 0.0)),
+                   compile_time=float(statistics.get("compile_time", 0.0)),
+                   execute_time=float(statistics.get("execute_time", 0.0)),
+                   statistics=statistics)
 
     def span_tree(self) -> list[dict]:
         if self.trace_id is None:
@@ -128,9 +127,7 @@ def format_profile_dict(p: dict) -> str:
         f"{stats.get('rows_written', 0)}; shards "
         f"{stats.get('shards_total', 0)} "
         f"(pruned {stats.get('shards_pruned', 0)}, skipped "
-        f"{stats.get('shards_skipped', 0)}); compile cache "
-        f"{stats.get('cache_hits', 0)} hits / "
-        f"{stats.get('compile_count', 0)} misses",
+        f"{stats.get('shards_skipped', 0)})",
         # which execution tier served the query — the first
         # question a cold-shape latency investigation asks.
         f"execution tier: {stats.get('execution_tier', 'compiled')}",
@@ -138,20 +135,11 @@ def format_profile_dict(p: dict) -> str:
         # back to the decoded remap-table path.
         f"execution: {stats.get('execution_encoding', 'encoded')}",
     ]
-    # why those misses happened (new fingerprint vs new shape
-    # vs eviction) and which pow2 capacity buckets the programs ran
-    # against — per-query bucket churn is a shape-spectrum leak.
-    causes = [(label, stats.get(key, 0)) for label, key in
-              (("new_fingerprint", "compile_new_fingerprint"),
-               ("new_shape", "compile_new_shape"),
-               ("evicted", "compile_evicted"),
-               ("disk_hit", "compile_disk_hit"))]
+    # which pow2 capacity buckets the programs ran against — per-query
+    # bucket churn is a shape-spectrum leak.
     buckets = stats.get("capacity_buckets") or []
-    if any(n for _label, n in causes) or buckets:
-        cause_str = ", ".join(f"{label} {n}" for label, n in causes
-                              if n) or "none"
-        lines.append(f"compile misses: {cause_str}; capacity buckets "
-                     f"{[int(b) for b in buckets]}")
+    if buckets:
+        lines.append(f"capacity buckets {[int(b) for b in buckets]}")
     # which distributed lowering served the query — the fused
     # whole-plan program (one host sync) or the stitched ladder.
     if stats.get("whole_plan"):

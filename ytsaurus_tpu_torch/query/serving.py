@@ -61,7 +61,12 @@ from ytsaurus_tpu_torch.operations.fair_share import (
 from ytsaurus_tpu_torch.query.accounting import get_accountant
 from ytsaurus_tpu_torch.utils import failpoints
 from ytsaurus_tpu_torch.utils.profiling import Profiler
-from ytsaurus_tpu_torch.utils.tracing import NULL_SPAN, child_span, current_trace
+from ytsaurus_tpu_torch.utils.tracing import (
+    NULL_SPAN,
+    child_span,
+    current_trace,
+    stage,
+)
 from ytsaurus_tpu_torch.utils import sanitizers
 
 _FP_ADMIT = failpoints.register_site(
@@ -1072,23 +1077,17 @@ class QueryGateway:
     def run_select(self, fn: Callable[[Optional[CancellationToken]],
                                       object],
                    pool: Optional[str] = None,
-                   timeout: Optional[float] = None):
+                   timeout: Optional[float] = None, stats=None):
+        """Admit, call `fn(token)`, release. The admission wait is its
+        own stage: `stats.admission_wait` (query/statistics.py), sampled
+        or not, and the `serving.admission` span."""
         if not self.enabled:
             return fn(None)
         token = self.make_token(timeout, pool)
-        # The admission wait is its own span: a query that queued 40ms
-        # behind a saturated pool must show that 40ms as admission, not
-        # as mystery execution time.  The wait is ALSO stamped as a tag
-        # on the ambient root so ExecutionProfile.capture reads it with
-        # a dict probe instead of scanning the span ring.
-        t_admit = time.monotonic()
-        with child_span("serving.admission",
-                        pool=pool or self.config.default_pool):
+        with stage(stats, "admission_wait", "serving.admission",
+                   pool=pool or self.config.default_pool):
             state = self.admission.admit(token, pool)
         root = current_trace()
-        if root is not None:
-            root.add_tag("admission_wait_s",
-                         round(time.monotonic() - t_admit, 6))
         # Brown-out rung 1: the pool's declared staleness
         # bound rides the token down to the tablet read path, which
         # serves the snapshot cache within the bound and writes back
@@ -1168,13 +1167,13 @@ class QueryGateway:
 
     # -- observability ---------------------------------------------------------
 
-    def record_statistics(self, stats,
+    def record_statistics(self, stats: dict,
                           cache_size: Optional[int] = None) -> None:
-        """Fold one query's TQueryStatistics into the cumulative serving
-        counters (`serving_query_stats_* ` on /metrics).  Only numeric
-        fields fold — capacity_buckets is a per-query set, not a
-        counter."""
-        for field, value in stats.to_dict().items():
+        """Fold one query's TQueryStatistics, as its `to_dict()`, into
+        the cumulative serving counters (`serving_query_stats_* ` on
+        /metrics).  Only numeric fields fold — capacity_buckets is a
+        per-query set, not a counter."""
+        for field, value in stats.items():
             if isinstance(value, (int, float)) \
                     and not isinstance(value, bool) and value:
                 self._stat_profiler.counter(field).increment(value)

@@ -10,15 +10,25 @@ so the compile fields mean what the port does instead:
                   (query/engine/lowering.py::prepare: expression binding,
                   vocabularies, capacity), the host work that stands where
                   the reference builds its device programs
-  compile_count,  0: there is no program cache to miss or hit, and the
-  cache_hits,     miss causes, capacity buckets and the artifact tiers
-  compile_*       stay empty
+  capacity_buckets  empty: there are no compiled program shapes
   execution_tier  "eager" (PyTorch runs each staged program eagerly)
+
+The port adds the split of a query's wall time where the work happens
+(STAGE_FIELDS, seconds): each is the self time of one stage
+(utils/tracing.py::stage), so each second of the wall counts in at most
+one of them, and what none covers is left over. `host_cpu_time` is the
+CPU seconds of the query's own thread, less those spent waiting on the
+device: a counter beside the wall, not a part of it.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field, fields
+
+# The self-time fields, in the order a query meets them.
+STAGE_FIELDS = ("admission_wait", "parse_time", "stage_time", "compile_time",
+                "join_time", "dispatch_time", "device_wait", "to_rows_time")
 
 
 @dataclass
@@ -26,21 +36,19 @@ class QueryStatistics:
     rows_read: int = 0
     rows_written: int = 0
     bytes_read: int = 0              # resident bytes of scanned planes
-    execute_time: float = 0.0        # seconds, wall, incl. device sync
-    compile_time: float = 0.0        # seconds building device programs
-    compile_count: int = 0           # programs compiled (cache misses)
-    cache_hits: int = 0
-    # Compile-miss cause split: compile_count partitions into
-    # never-seen plan shapes, known shapes meeting a new capacity/
-    # binding shape (shape-spectrum growth), and LRU re-misses — so a
-    # slow-query log entry answers "why did this recompile" directly.
-    compile_new_fingerprint: int = 0
-    compile_new_shape: int = 0
-    compile_evicted: int = 0
-    # Memory misses served by the persistent artifact tier:
-    # deserialized ready executables, no fresh compile burn.  Fresh
-    # compiles for a query = compile_count - compile_disk_hit.
-    compile_disk_hit: int = 0
+    # From the query's first shard dispatch (Evaluator.run_plan_async) to
+    # its last row-count read, less the compile_time inside that span:
+    # disjoint from compile_time and never above the wall.
+    execute_time: float = 0.0
+    compile_time: float = 0.0        # seconds in lowering.prepare
+    admission_wait: float = 0.0      # QueryGateway: admission.admit
+    parse_time: float = 0.0          # build_query to semi-join pushdown
+    stage_time: float = 0.0          # fetching (or waiting for) shards
+    join_time: float = 0.0           # execute_join
+    dispatch_time: float = 0.0       # issuing each plan's kernels
+    device_wait: float = 0.0         # blocked on the row-count reads
+    to_rows_time: float = 0.0        # the result chunk to rows
+    host_cpu_time: float = 0.0       # the query thread's CPU seconds
     shards_total: int = 0
     shards_pruned: int = 0
     shards_skipped: int = 0          # LIMIT early-exit left these unread
@@ -70,10 +78,6 @@ class QueryStatistics:
     # tagged here, in the root span, and in the per-pool counters.
     degraded_rung: int = 0
     degraded_staleness: float = 0.0
-    # Memory misses served by the CLUSTER artifact store (fetch-on-miss
-    # from the chunk-backed tier): a replica joining mid-storm serves
-    # its first queries with these instead of fresh compiles.
-    compile_cluster_hit: int = 0
     # Which execution tier served the (last) dispatch of this query
     # "compiled", "interpreted" (the no-compile numpy
     # tier), or "promoted-midstream" (first compiled serve after a
@@ -96,6 +100,24 @@ class QueryStatistics:
     mesh_exchange_bytes: int = 0
     mesh_quota_headroom: float = 0.0
     mesh_memory_watermark_bytes: int = 0
+
+    # Not fields (no reader): the seconds that closed stages cover, for
+    # each stage's self time, and where the execute span opened.
+    staged_seconds = 0.0
+    _execute_from = None
+    _execute_compile0 = 0.0
+
+    def open_execute(self) -> None:
+        """A shard dispatch: the first opens the execute span."""
+        if self._execute_from is None:
+            self._execute_from = time.perf_counter()
+            self._execute_compile0 = self.compile_time
+
+    def close_execute(self) -> None:
+        """A row-count read: the execute span runs to here."""
+        if self._execute_from is not None:
+            self.execute_time = (time.perf_counter() - self._execute_from -
+                                 (self.compile_time - self._execute_compile0))
 
     def note_mesh_block(self, block: dict) -> None:
         """Fold one mesh telemetry block (whole_plan._mesh_block shape)

@@ -11,7 +11,10 @@ planning and regression hunting replay against staging clusters):
   literal bindings          the hoisted values (typed), enough to
                             reconstruct and re-run the exact query;
   identity + outcome        pool/user, wall/compile/execute split,
-                            ok/error/throttled/deadline, trace id.
+                            ok/error/throttled/deadline, trace id;
+  stages                    a select's wall split where the work
+                            happened (query/statistics.py STAGE_FIELDS,
+                            host_cpu_time, wall_time), in seconds.
 
 The log is sampled and bounded in memory (`config.WorkloadConfig`) with
 an optional rotated on-disk JSONL tier, and exported/imported as a
@@ -34,6 +37,7 @@ from typing import Optional, Sequence
 
 from ytsaurus_tpu_torch.errors import EErrorCode, YtError
 from ytsaurus_tpu_torch.query.parameterize import hoist_literals
+from ytsaurus_tpu_torch.query.statistics import STAGE_FIELDS
 from ytsaurus_tpu_torch.utils.profiling import Profiler
 from ytsaurus_tpu_torch.utils import sanitizers
 
@@ -110,7 +114,7 @@ _RECORD_FIELDS = (
     "pool", "user", "started_at", "outcome", "wall_time",
     "compile_time", "execute_time", "rows_read", "rows_returned",
     "capacity_buckets", "trace_id", "execution_tier",
-    "join_est_error",
+    "join_est_error", "stages",
 )
 
 
@@ -124,7 +128,8 @@ class WorkloadRecord:
                  user=None, started_at=0.0, outcome="ok", wall_time=0.0,
                  compile_time=0.0, execute_time=0.0, rows_read=0,
                  rows_returned=0, capacity_buckets=(), trace_id=None,
-                 execution_tier="compiled", join_est_error=0.0):
+                 execution_tier="compiled", join_est_error=0.0,
+                 stages=None):
         self.kind = kind
         self.query = query
         self.literals = [list(lit) for lit in literals]
@@ -151,6 +156,10 @@ class WorkloadRecord:
         # the per-fingerprint roll-up of this is what tells an
         # operator WHICH workload shapes the planner misestimates.
         self.join_est_error = float(join_est_error)
+        # {field: seconds}; empty for a lookup, and in records of
+        # captures that predate it.
+        self.stages = {_decode(k): float(v)
+                       for k, v in (stages or {}).items()}
 
     def to_dict(self) -> dict:
         return {field: getattr(self, field) for field in _RECORD_FIELDS}
@@ -316,7 +325,10 @@ class WorkloadLog:
             capacity_buckets=stats_dict.get("capacity_buckets") or (),
             trace_id=trace_id,
             execution_tier=stats_dict.get("execution_tier", "compiled"),
-            join_est_error=join_est_error)
+            join_est_error=join_est_error,
+            stages={**{f: stats_dict[f] for f in
+                       (*STAGE_FIELDS, "host_cpu_time") if f in stats_dict},
+                    "wall_time": wall_time or 0.0})
         return self.observe(record, presampled=True)
 
     def observe_lookup(self, table: str, keys: Sequence[tuple],
@@ -547,15 +559,14 @@ def _decode(value):
     return value
 
 
-def _profile_info(profile) -> tuple[Optional[str], dict]:
-    """(trace_id, statistics) from an ExecutionProfile object (in-
-    process client) or its dict form (remote client)."""
-    if hasattr(profile, "statistics"):
-        return profile.trace_id, profile.statistics or {}
+def _profile_trace_id(profile) -> Optional[str]:
+    """The trace id of an ExecutionProfile object (in-process client) or
+    of its dict form (remote client)."""
+    if hasattr(profile, "trace_id"):
+        return profile.trace_id
     if isinstance(profile, dict):
-        d = _decode(profile)
-        return d.get("trace_id"), d.get("statistics") or {}
-    return None, {}
+        return _decode(profile).get("trace_id")
+    return None
 
 
 def replay(client, records: Sequence[WorkloadRecord],
@@ -577,11 +588,8 @@ def replay(client, records: Sequence[WorkloadRecord],
     Selects run with explain_analyze=True so every replayed query
     carries its compile/execute split and trace id; the slowest queries
     embed their trace ids for `/traces` follow-up. The report keeps the
-    reference's shape. Its `compile_cache` section reads what each
-    profile's statistics report: the port compiles nothing, so
-    `compile_count` and `cache_hits` are 0 there and the hit rates are
-    None (steady-state rates are over the second half of the mix, as in
-    the reference)."""
+    reference's shape less its `compile_cache` section: the port
+    compiles nothing, so there are no hits or misses to count."""
     from concurrent.futures import ThreadPoolExecutor
 
     records = list(records)
@@ -605,16 +613,12 @@ def replay(client, records: Sequence[WorkloadRecord],
     lock = threading.Lock()
     latencies: list[float] = []
     outcomes = {"ok": 0, "error": 0, "throttled": 0, "deadline": 0}
-    steady = {"hits": 0, "misses": 0, "disk_hits": 0}
-    total = {"hits": 0, "misses": 0, "disk_hits": 0}
     slow_heap: list[tuple[float, dict]] = []
-    steady_from = len(records) // 2
 
-    def run_one(idx: int, rec: WorkloadRecord) -> None:
+    def run_one(rec: WorkloadRecord) -> None:
         t0 = time.perf_counter()
         outcome = "ok"
         trace_id = None
-        stats: dict = {}
         query_text = rec.query
         try:
             if rec.kind == "lookup":
@@ -629,7 +633,7 @@ def replay(client, records: Sequence[WorkloadRecord],
                 profile = client.select_rows(
                     query_text, pool=pool or rec.pool, timeout=timeout,
                     explain_analyze=True)
-                trace_id, stats = _profile_info(profile)
+                trace_id = _profile_trace_id(profile)
         except YtError as err:
             outcome = outcome_of(err)
         except Exception:   # noqa: BLE001 — a replay worker must never
@@ -641,16 +645,6 @@ def replay(client, records: Sequence[WorkloadRecord],
         with lock:
             outcomes[outcome] += 1
             latencies.append(elapsed)
-            hits = int(stats.get("cache_hits", 0))
-            misses = int(stats.get("compile_count", 0))
-            disk_hits = int(stats.get("compile_disk_hit", 0))
-            total["hits"] += hits
-            total["misses"] += misses
-            total["disk_hits"] += disk_hits
-            if idx >= steady_from:
-                steady["hits"] += hits
-                steady["misses"] += misses
-                steady["disk_hits"] += disk_hits
             slow_heap.append((elapsed, {
                 "query": query_text[:200],
                 "fingerprint": rec.fingerprint,
@@ -665,12 +659,12 @@ def replay(client, records: Sequence[WorkloadRecord],
     t_start = time.perf_counter()
     with ThreadPoolExecutor(max_workers=max_workers,
                             thread_name_prefix="replay") as executor:
-        for idx, (rec, offset) in enumerate(zip(records, offsets)):
+        for rec, offset in zip(records, offsets):
             delay = t_start + offset - time.perf_counter()
             if delay > 0:
                 time.sleep(delay)
             # Open loop: submit on schedule regardless of completions.
-            executor.submit(run_one, idx, rec)
+            executor.submit(run_one, rec)
     elapsed = time.perf_counter() - t_start
 
     latencies.sort()
@@ -680,10 +674,6 @@ def replay(client, records: Sequence[WorkloadRecord],
             return 0.0
         idx = min(int(q * len(latencies)), len(latencies) - 1)
         return latencies[idx]
-
-    def hit_rate(bucket: dict) -> Optional[float]:
-        events = bucket["hits"] + bucket["misses"]
-        return round(bucket["hits"] / events, 6) if events else None
 
     slow_heap.sort(key=lambda e: -e[0])
     offered = (len(records) - 1) / offsets[-1] if offsets[-1] > 0 \
@@ -701,19 +691,6 @@ def replay(client, records: Sequence[WorkloadRecord],
             "p999_ms": round(pct(0.999) * 1e3, 3),
             "max_ms": round(latencies[-1] * 1e3, 3) if latencies
             else 0.0,
-        },
-        "compile_cache": {
-            **{k: v for k, v in total.items()},
-            # Misses a persistent tier served vs programs actually
-            # built.
-            "fresh_compiles": total["misses"] - total["disk_hits"],
-            "hit_rate": hit_rate(total),
-            "steady_hits": steady["hits"],
-            "steady_misses": steady["misses"],
-            "steady_disk_hits": steady["disk_hits"],
-            "steady_fresh_compiles":
-                steady["misses"] - steady["disk_hits"],
-            "steady_hit_rate": hit_rate(steady),
         },
         "slowest": [entry for _t, entry in slow_heap[:max(slowest, 1)]],
     }

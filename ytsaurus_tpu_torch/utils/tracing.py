@@ -19,6 +19,13 @@ Span-site discipline (what keeps an untraced hot path ~free):
                           one exists, else roots a new trace subject to
                           `enabled` + `sample_rate`; `force=True`
                           (explain_analyze) always samples.
+  stage(stats, field, name)
+                          a STAGE of a query: its self time always adds
+                          to a QueryStatistics field, sampled or not;
+                          a child span under a sampled trace; and a
+                          torch.profiler range of the same name while a
+                          profiler session is live, so that the device
+                          trace shows which stage the host was in.
 
 `span_tree(trace_id)` nests one trace's spans, `trace_summaries()` lists
 the retained traces.
@@ -32,6 +39,8 @@ import os
 import random
 import time
 from typing import Any, Optional
+
+from torch.autograd import profiler as _autograd_profiler
 
 from ytsaurus_tpu_torch.utils import sanitizers
 
@@ -395,3 +404,63 @@ def all_span_trees() -> dict:
     for span in _collector.snapshot():
         by_trace.setdefault(span.trace_id, []).append(span)
     return {tid: _build_tree(group) for tid, group in by_trace.items()}
+
+
+# -- query stages --------------------------------------------------------------
+
+
+def _profiler_live() -> bool:
+    """True while a torch.profiler session records, read from any thread:
+    the process-wide flag that the session's start raises (also one
+    started without the profiler's context manager). One attribute read,
+    so an untraced run opens no range. (torch._C._autograd.
+    _profiler_enabled() is per thread: False on the threads of a query
+    when the session records every thread.)"""
+    return _autograd_profiler._is_profiler_enabled
+
+
+class stage:
+    """`with stage(stats, "parse_time", "query.parse"):` times one stage
+    of a query on the query's own thread.
+
+    On exit the stage's SELF time (its seconds less those of the stages
+    nested in it with the same `stats`) adds to `stats.<field>`, so each
+    second of a query counts in at most one field. `stats=None` times
+    nothing; `name=None` opens no span and no range. Under a sampled
+    trace the stage is a child span named `name`, carrying `tags`; while
+    a profiler session is live it is also a profiler range of that name.
+    `__enter__` returns the span (NULL_SPAN when unsampled)."""
+
+    __slots__ = ("_stats", "_field", "_span", "_range", "_t0", "_inner0")
+
+    def __init__(self, stats, field: Optional[str],
+                 name: Optional[str] = None, **tags):
+        self._stats = stats
+        self._field = field
+        self._span = NULL_SPAN if name is None else child_span(name, **tags)
+        self._range = None
+        if name is not None and _profiler_live():
+            from torch.profiler import record_function
+            self._range = record_function(name)
+
+    def __enter__(self):
+        span = self._span.__enter__()
+        if self._range is not None:
+            self._range.__enter__()
+        if self._stats is not None:
+            self._inner0 = self._stats.staged_seconds
+        self._t0 = time.perf_counter()
+        return span
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        elapsed = time.perf_counter() - self._t0
+        stats = self._stats
+        if stats is not None:
+            inner = stats.staged_seconds - self._inner0
+            setattr(stats, self._field,
+                    getattr(stats, self._field) + elapsed - inner)
+            stats.staged_seconds = self._inner0 + elapsed
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+        self._span.__exit__(exc_type, exc, tb)
+        return False
