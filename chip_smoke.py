@@ -7,8 +7,8 @@ Phases (any failure exits non-zero and prints no result line):
   1. environment: the card's name and power limit, torch and CUDA
      versions, the host's memory (`free -g`);
   2. build: every kernel source of the port (csrc/hist_rank.cu,
-     csrc/radix_upsweep.cu, csrc/radix_onesweep.cu), one nvcc each, all
-     started together;
+     csrc/radix_upsweep.cu, csrc/radix_onesweep.cu,
+     csrc/dense_reduce.cu), one nvcc each, all started together;
   3. each kernel against its plain version on the card, exactly:
      hist_rank at N = 2048, 8192 and 67,108,864, bits 1, 6 and 8;
      radix_upsweep (with and without a permutation) and radix_onesweep
@@ -16,7 +16,15 @@ Phases (any failure exits non-zero and prints no result line):
      67,108,864; digits all equal, all 255 (all 2^bits - 1) and random.
      Then the radix argsort against torch.sort(stable=True) on 67,108,864
      single-word keys with ties and on 67,108,864 two-word keys (int64
-     below 2^40, so three of eight digit passes are constant and skipped);
+     below 2^40, so three of eight digit passes are constant and skipped).
+     Then DENSE: dense_reduce through segment_reduce_many at a Q1 shard's
+     group stage (7,500,000 rows, 13 segments, the present count and 7
+     float64 sums with their 7 counts: 15 jobs), with int64 sums that
+     wrap, int64 and float64 mins and maxes (NaN in one segment) and a
+     segment with no valid row besides, in one launch, against the
+     per-segment loop on the same card tensors: counts, integers, mins
+     and maxes exactly, float sums to rtol 1e-9 (the kernel adds in its
+     own order), the same bits on a second run;
   4. the slice: TPC-H lineitem at 64,000,000 rows (SF ~10.7) made from
      --seed, then select_rows(Q1) and select_rows(Q18_AGG) on the card,
      checked against numpy oracles (Q1: groups and counts exact, doubles to
@@ -47,7 +55,8 @@ Phases (any failure exits non-zero and prints no result line):
      the (k, g, emb) table. It fails unless TF32 is off and the float32
      matmul precision is "highest". Each query runs once with every
      kernel's launch count set to 0 before it and read after it (it fails
-     unless radix_upsweep and radix_onesweep were launched), then REPS more
+     unless radix_upsweep and radix_onesweep were launched, and for Q1
+     dense_reduce too), then REPS more
      times for its warm time, then twice under torch.profiler, the second
      run giving its device time by kernel and idle share (it fails unless
      the trace holds as many kernels of each port kernel as were
@@ -316,7 +325,8 @@ Phases (any failure exits non-zero and prints no result line):
      skipped), SELECT_ORDERED ("k, v ORDER BY k DESC LIMIT 100" over shards
      range-ordered by k: the last shard first, 7 skipped) and SELECT_Q1_64
      (Q1 over the 64M-row lineitem as 64 chunks of 1,000,000 rows,
-     coalesced at merge_shards_below=4,000,000 into 16 programs), each
+     coalesced at merge_shards_below=4,000,000 into 16 programs; it fails
+     unless dense_reduce was launched), each
      against a numpy oracle, with its count reads per query and its
      statistics;
      MESH (parallel/, over torch.distributed), part (a): a mesh of one
@@ -374,9 +384,10 @@ Phases (any failure exits non-zero and prints no result line):
      available memory cannot hold the spill, the rows are halved until it
      can, and the line says so;
   5. the `kernels` line: each kernel's time at the main path's shape (the
-     one-sweep pass at every tile layout), its plain version's time, its
-     bound, a library call's time where one PyTorch call computes the same
-     function, and its launches on each path of the slice.
+     one-sweep pass at every tile layout; dense_reduce at DENSE's), its
+     plain version's time, its bound, a library call's time where one
+     PyTorch call computes the same function, its largest error against
+     its plain version, and its launches on each path of the slice.
 
 The last line of standard output is {"ok": true, "device": {...}}. With
 --record, a JSON record of the run is also written to PATH.
@@ -426,11 +437,28 @@ HASH_THREADS = 8             # threads of EXTSORT's input hash (_hash_sums_np)
 # in a profiler trace.
 TRACE_NAMES = {"hist_rank": "hist_rank_kernel",
                "radix_upsweep": "radix_upsweep_kernel",
-               "radix_onesweep": "radix_onesweep_kernel"}
+               "radix_onesweep": "radix_onesweep_kernel",
+               "dense_reduce": "dense_reduce_kernel"}
 # The kernels that every query's sorts go through. hist_rank keeps the
 # Pallas kernel's interface and is checked against its plain version, but
 # the main path ranks its tiles inside radix_onesweep.
 PATH_KERNELS = ("radix_upsweep", "radix_onesweep")
+# The kernels of a Q1 path: its dense GROUP BY (13 segments) reduces each
+# group stage through dense_reduce, its compaction sorts by radix.
+Q1_KERNELS = PATH_KERNELS + ("dense_reduce",)
+# What each kernel takes the place of in the JAX package.
+REPLACES = {"hist_rank": "ytsaurus_tpu/ops/pallas_radix.py:50",
+            "radix_upsweep": "ytsaurus_tpu/ops/pallas_radix.py:50",
+            "radix_onesweep": "ytsaurus_tpu/ops/pallas_radix.py:50",
+            "dense_reduce": None}
+# DENSE: a Q1 shard's group stage (TPC-H SF10's 60M lineitem rows over 8
+# chunks): 13 segments ((3 + 1) x (2 + 1) key codes and the slot of the
+# rows the WHERE drops), 7 float64 sums (Q1's 4 sums and its 3 averages'
+# halves), each over its own validity plane.
+DENSE_ROWS = 7_500_000
+DENSE_SEGMENTS = 13
+DENSE_SUMS = 7
+DENSE_RTOL = 1e-9            # float sums: the kernel adds in its own order
 # The profiler range around the profiled run.
 RUN_RANGE = "chip_smoke.run"
 # torch.cuda._sleep's kernel. A short one (MARK_CYCLES), launched alone
@@ -511,12 +539,15 @@ def _words(kind: str, n: int, gen):
 
 
 def _launches(hr, rx) -> dict:
-    return {"hist_rank": hr.launches, **rx.launches}
+    from ytsaurus_tpu_torch.ops import dense_reduce as dr
+    return {"hist_rank": hr.launches, **rx.launches, **dr.launches}
 
 
 def _reset_launches(hr, rx) -> None:
+    from ytsaurus_tpu_torch.ops import dense_reduce as dr
     hr.reset_launches()
     rx.reset_launches()
+    dr.reset_launches()
 
 
 def _exact(name: str, got, want) -> int:
@@ -625,6 +656,116 @@ def phase_argsort(rx, gen) -> dict:
          f"torch.sort(stable) {sort_ms:.4f} ms on the one-word keys")
     return {"argsort_ms": radix_ms, "torch_sort_stable_ms": sort_ms,
             "two_word_launches": passes}
+
+
+def _dense_specs(gen) -> tuple:
+    """(specs, extra, seg) for segment_reduce_many at DENSE's shape: `specs`
+    a Q1 shard's stage (the present count over the WHERE's mask, then a
+    float64 sum over each of DENSE_SUMS validity planes, 15 jobs once the
+    counts are added); `extra` int64 sums that wrap, int64 and float64
+    mins and maxes (NaN in segment 3), over a plane that leaves segment 5
+    with no valid row."""
+    import torch
+    n, nseg = DENSE_ROWS, DENSE_SEGMENTS
+
+    def rand():
+        return torch.rand(n, device="cuda", generator=gen,
+                          dtype=torch.float64)
+
+    mask = rand() > 0.02
+    seg = torch.where(mask, torch.randint(0, nseg - 1, (n,), device="cuda",
+                                          generator=gen), nseg - 1)
+    specs = [("count", None, mask)]
+    for i in range(DENSE_SUMS):
+        value = rand() * 10.0 ** (i % 4)
+        if i == 0:
+            value = torch.ceil(value * 50.0)       # whole quantities
+        specs.append(("sum", value, mask & (rand() > 0.001)))
+    wide = torch.randint(1 << 61, 1 << 62, (n,), device="cuda",
+                         generator=gen)
+    price = rand() * 1000.0
+    price[(seg == 3) & (rand() < 0.01)] = float("nan")
+    some = mask & (rand() > 0.1) & (seg != 5)
+    extra = [("sum", wide, some), ("min", wide, some), ("max", wide, some),
+             ("min", price, some), ("max", price, some)]
+    return specs, extra, seg
+
+
+def phase_dense_reduce(gen) -> dict:
+    """dense_reduce through segment_reduce_many at a Q1 shard's shape
+    (DENSE_ROWS rows, DENSE_SEGMENTS segments, the stage's 15 jobs plus
+    `_dense_specs`'s extras) against its plain version, the per-segment
+    loop (`segments._reduce_many_plain`), on the same card tensors: counts
+    and integer results exactly, float sums to DENSE_RTOL (this raises
+    otherwise), float mins and maxes exactly, NaN where the loop has it.
+    One launch for the call, the same bits on a second run. Returns the
+    float sums' largest absolute and relative errors."""
+    import torch
+    from ytsaurus_tpu_torch.ops import dense_reduce as dr
+    from ytsaurus_tpu_torch.ops import segments
+    n, nseg = DENSE_ROWS, DENSE_SEGMENTS
+    specs, extra, seg = _dense_specs(gen)
+    checked = specs + extra
+    dr.reset_launches()
+    got = segments.segment_reduce_many(checked, seg, nseg)
+    torch.cuda.synchronize()
+    if dr.launches["dense_reduce"] != 1:
+        raise AssertionError(f"dense_reduce: {len(checked)} specs took "
+                             f"{dr.launches} launches, not one")
+    again = segments.segment_reduce_many(checked, seg, nseg)
+    want = segments._reduce_many_plain(checked, seg, nseg, nseg)
+    abs_err = rel_err = 0.0
+    for (function, _, _), (g, gc), (a, ac), (w, wc) in zip(checked, got,
+                                                           again, want):
+        where = f"dense_reduce {function} over {w.dtype}"
+        _exact(where + ", its count", gc, wc)
+        _exact(where + " on a second run", g.view(torch.int64),
+               a.view(torch.int64))
+        _exact(where + ", its count on a second run", gc, ac)
+        if g.dtype != w.dtype:
+            raise AssertionError(f"{where} gave {g.dtype}")
+        if function != "sum" or not g.is_floating_point():
+            _exact(where, torch.nan_to_num(g), torch.nan_to_num(w))
+        if not g.is_floating_point():
+            continue
+        if not torch.equal(torch.isnan(g), torch.isnan(w)):
+            raise AssertionError(f"{where}: NaN where the loop has none, "
+                                 "or none where it has")
+        diff = torch.where(torch.isnan(w), 0.0, (g - w).abs())
+        abs_err = max(abs_err, float(diff.max()))
+        rel_err = max(rel_err, float((diff / w.abs().clamp(min=1e-300)
+                                      ).max()))
+    if rel_err > DENSE_RTOL:
+        raise AssertionError(f"dense_reduce float sums differ from the "
+                             f"loop's by {rel_err:.3e} (rtol {DENSE_RTOL})")
+    _log(f"dense_reduce == the per-segment loop at N={n}, {nseg} segments, "
+         f"{len(checked)} specs (float sums: largest error {abs_err:.3e}, "
+         f"relative {rel_err:.3e}), the same bits on a second run")
+    return {"max_abs_err": abs_err, "max_rel_err": rel_err}
+
+
+def _dense_times(gen) -> dict:
+    """dense_reduce's time for a Q1 shard's group stage (`_dense_specs`'s
+    15 jobs), the per-segment loop's on the same card tensors, and the
+    bytes bound."""
+    from ytsaurus_tpu_torch.ops import segments
+    n, nseg = DENSE_ROWS, DENSE_SEGMENTS
+    specs, _, seg = _dense_specs(gen)
+    jobs = 1 + 2 * DENSE_SUMS
+    ms = _cuda_ms(lambda: segments.segment_reduce_many(specs, seg, nseg),
+                  iters=50)
+    plain_ms = _cuda_ms(lambda: segments._reduce_many_plain(
+        specs, seg, nseg, nseg), iters=3)
+    # The segment ids (8 B), each value plane (8 B) and each validity
+    # plane (1 B) read once; the partials and results are a few KB.
+    bound_ms = _bound_ms(n * (8 + 8 * DENSE_SUMS + (DENSE_SUMS + 1)))
+    _log(f"dense_reduce: {jobs} jobs (a Q1 shard's stage) {ms:.4f} ms, the "
+         f"loop {plain_ms:.3f} ms, bound {bound_ms:.4f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "library_ms": None,
+            "shape": f"N={n}, {nseg} segments, {jobs} jobs: a Q1 shard's "
+                     f"group stage (the present count, {DENSE_SUMS} counts, "
+                     f"{DENSE_SUMS} float64 sums)"}
 
 
 def _profile(run, hr, rx, ranges=(), runs: int = 2, first=None,
@@ -879,19 +1020,21 @@ def _check_window(result, oracle: tuple) -> int:
 
 
 def _run_query(name: str, query: str, tables: dict, check, oracle,
-               rows_in: int, hr, rx, select_rows, ranges=()) -> dict:
+               rows_in: int, hr, rx, select_rows, ranges=(),
+               kernels=PATH_KERNELS) -> dict:
     """One query of the slice: a checked run whose launches are counted,
     REPS warm runs, and one run under the profiler."""
     return _run_path(name, lambda: select_rows(query, tables, device="cuda"),
                      lambda result: check(result, oracle), rows_in, hr, rx,
-                     ranges)
+                     ranges, kernels)
 
 
 def _run_path(name: str, run, check, rows_in: int, hr, rx,
-              ranges=()) -> dict:
+              ranges=(), kernels=PATH_KERNELS) -> dict:
     """One path of the port: a run whose launches are counted and whose
     result `check` holds against its oracle (it returns the rows out),
-    REPS warm runs, and one run under the profiler."""
+    REPS warm runs, and one run under the profiler. It fails unless the
+    run launched each of `kernels`."""
     import torch
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -901,7 +1044,7 @@ def _run_path(name: str, run, check, rows_in: int, hr, rx,
     launches = _launches(hr, rx)
     rows_out = check(result)
     del result
-    for kernel in PATH_KERNELS:
+    for kernel in kernels:
         if launches[kernel] <= 0:
             raise AssertionError(f"{name}: the main path launched no "
                                  f"{kernel} kernel")
@@ -943,7 +1086,7 @@ def phase_slice(seed: int, hr, rx, tpch, select_rows, keep: dict) -> dict:
                 q18_agg=tpch.q18_agg_oracle(arrays))
     out = {
         "q1": _run_query("q1", tpch.Q1, tables, _check_q1, keep["q1"], ROWS,
-                         hr, rx, select_rows),
+                         hr, rx, select_rows, kernels=Q1_KERNELS),
         "q18_agg": _run_query("q18_agg", tpch.Q18_AGG, tables, _check_q18,
                               keep["q18_agg"], ROWS, hr, rx, select_rows),
     }
@@ -6218,7 +6361,8 @@ def phase_select(seed: int, hr, rx, tpch, port, keep: dict) -> dict:
     out["select_q1_64"] = _select_path(
         "select_q1_64", co, ev, plan, lambda: q1_chunks,
         {"merge_shards_below": SELECT_MERGE_BELOW},
-        lambda result: _check_q1(result, keep["q1"]), ROWS, hr, rx)
+        lambda result: _check_q1(result, keep["q1"]), ROWS, hr, rx,
+        Q1_KERNELS)
     programs = out["select_q1_64"]["stats"]["shards_total"]
     if programs != ROWS // SELECT_MERGE_BELOW:
         raise AssertionError(f"SELECT_Q1_64 ran {programs} programs, not "
@@ -6332,7 +6476,7 @@ def _staging_overlap(co, ev, plan, make_shards) -> dict:
 
 
 def _select_path(name, co, ev, plan, shards, kwargs, check, rows_in, hr,
-                 rx) -> dict:
+                 rx, kernels=PATH_KERNELS) -> dict:
     """One SELECT path through `_run_path`, with each run's count reads
     (the stacked `finish_all` transfers and the front's count) and the
     first run's statistics."""
@@ -6348,7 +6492,7 @@ def _select_path(name, co, ev, plan, shards, kwargs, check, rows_in, hr,
         stats_runs.append(stats)
         return result
 
-    out = _run_path(name, run, check, rows_in, hr, rx)
+    out = _run_path(name, run, check, rows_in, hr, rx, kernels=kernels)
     stats = stats_runs[0]
     out["count_reads"] = reads
     out["stats"] = {k: getattr(stats, k) for k in (
@@ -7061,9 +7205,12 @@ def _bound_ms(nbytes: float) -> float:
 
 
 def phase_kernel_times(hr, rx, seed: int) -> dict:
-    """Each kernel's time at the main path's width, by CUDA events, beside
-    its plain version's, its bound and, where one PyTorch call computes the
-    same function, that call's."""
+    """Each kernel's time at the main path's width (dense_reduce at a Q1
+    shard's stage), by CUDA events, beside its plain version's, its bound
+    and, where one PyTorch call computes the same function, that call's.
+    It runs last: a profiler session that starts up on another thread
+    (main's warm-up) slows the host's launches, and the per-segment loop
+    is hundreds of them."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     out = {}
@@ -7122,6 +7269,8 @@ def phase_kernel_times(hr, rx, seed: int) -> dict:
         "shape": f"N={MAIN_N}, 8-bit digit, random keys"}
     _log(f"radix_onesweep by tile layout (threads x items): "
          f"{out['radix_onesweep']['layouts_ms']} ms")
+    del word, perm, key, hist, bin_start, val, digit
+    out["dense_reduce"] = _dense_times(gen)
     return out
 
 
@@ -7192,6 +7341,8 @@ def main() -> int:
     errors = {"hist_rank": timed("hist_rank", phase_hist_rank, hr, gen),
               **timed("radix_kernels", phase_radix_kernels, rx, gen)}
     argsort = timed("argsort", phase_argsort, rx, gen)
+    dense = timed("dense_reduce", phase_dense_reduce, gen)
+    errors["dense_reduce"] = dense["max_abs_err"]
 
     # 4. the slice: the queries, then the Sort operation and MVCC reads,
     # the mesh paths, and the spill sort
@@ -7248,6 +7399,7 @@ def main() -> int:
 
     # 5. the kernels line
     times = timed("kernel_times", phase_kernel_times, hr, rx, args.seed)
+    times["dense_reduce"]["max_rel_err"] = dense["max_rel_err"]
     kernels = []
     for name in TRACE_NAMES:
         per_path = {q: r["launches"][name] for q, r in paths.items()}
@@ -7255,17 +7407,18 @@ def main() -> int:
             "name": name,
             "route": "cuda",
             "source": f"ytsaurus_tpu_torch/csrc/{name}.cu",
-            "replaces": "ytsaurus_tpu/ops/pallas_radix.py:50",
+            "replaces": REPLACES[name],
             "launches": sum(per_path.values()),
             "launches_per_path": per_path,
-            "on_main_path": name in PATH_KERNELS,
+            "on_main_path": name in Q1_KERNELS,
             "max_abs_err": errors[name],
             "bound_by": "bytes",
         }
         entry.update(times[name])
         kernels.append(entry)
-    kernels[-1]["argsort_ms"] = argsort["argsort_ms"]
-    kernels[-1]["argsort_library_ms"] = argsort["torch_sort_stable_ms"]
+    onesweep = kernels[list(TRACE_NAMES).index("radix_onesweep")]
+    onesweep["argsort_ms"] = argsort["argsort_ms"]
+    onesweep["argsort_library_ms"] = argsort["torch_sort_stable_ms"]
     line = {"kernels": kernels}
     record = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "rows": ROWS, "orders": ORDERS,

@@ -2,7 +2,10 @@
 
 This file imports neither jax nor the JAX package, so that it also runs on
 a machine without them: `python -m pytest --noconftest tests/test_torch_cuda.py`.
-Each CUDA kernel is held against its plain PyTorch version, exactly.
+Each CUDA kernel is held against its plain PyTorch version, exactly; the
+one exception is `dense_reduce`'s float64 sums, which add in another order
+than the plain version and agree to a relative tolerance (its integer
+results and its float mins and maxes are exact).
 """
 
 import numpy as np
@@ -111,6 +114,124 @@ def test_radix_argsort_skips_constant_digits_on_the_card(cuda_device):
     assert rx.launches == {"radix_upsweep": 2, "radix_onesweep": 5}
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   np.argsort(keys, kind="stable"))
+
+
+# --- dense_reduce: the dense GROUP BY's reductions ----------------------------
+
+
+def _dense_specs(device, n: int, num_segments: int = 13):
+    """(specs, seg) for segment_reduce_many: wrapping int64 sums, float64
+    sums, mins and maxes with NaN in segment 3 and +inf in segment 5, a
+    segment (7) with no valid row, int8 and int32 planes, a broadcast
+    value, and specs sharing validity planes. Ids past the last segment
+    belong to none."""
+    rng = np.random.default_rng(n)
+    seg = rng.integers(0, num_segments + 1, n)
+    big = rng.integers(1 << 61, 1 << 62, n)              # sums wrap
+    price = rng.random(n) * 1000.0
+    price[(seg == 3) & (rng.random(n) < 0.01)] = np.nan
+    price[(seg == 5) & (rng.random(n) < 0.01)] = np.inf
+    valid = rng.random(n) > 0.1
+    valid[seg == 7] = False
+    other = rng.random(n) > 0.5
+    t = {name: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+         for name, x in (("seg", seg), ("big", big), ("price", price),
+                         ("valid", valid), ("other", other),
+                         ("small", (big & 0xFF).astype(np.int8)),
+                         ("mid", big.astype(np.int32)))}
+    v, o = t["valid"], t["other"]
+    specs = [("count", None, v), ("sum", t["big"], v), ("min", t["big"], v),
+             ("max", t["big"], o), ("sum", t["price"], v),
+             ("min", t["price"], v), ("max", t["price"], o),
+             ("min", t["small"], v), ("sum", t["mid"], o),
+             ("count", None, o), ("sum", t["price"][:1], v)]
+    return specs, t["seg"]
+
+
+def _same_reductions(got, want) -> None:
+    for (g, gc), (w, wc) in zip(got, want):
+        assert g.dtype == w.dtype
+        assert torch.equal(gc.cpu(), wc)
+        if g.is_floating_point():
+            # The kernel adds in another order than the plain version.
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-9, atol=0,
+                                       equal_nan=True)
+        else:
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n", [0, 1, 8191, 8192, 8193, 7_500_000])
+def test_dense_reduce_kernel_matches_plain_version(cuda_device, n):
+    """segment_reduce_many on the card (the kernel, one launch for all
+    the specs, planes padded to 16) against the CPU's plain version, at a
+    chunk (8192 rows) and around it, at a Q1 shard's 7.5M rows, one row
+    and none."""
+    from ytsaurus_tpu_torch.ops import dense_reduce as dr
+    from ytsaurus_tpu_torch.ops.segments import segment_reduce_many
+    specs, seg = _dense_specs(cuda_device, n)
+    before = dr.launches["dense_reduce"]
+    got = segment_reduce_many(specs, seg, 13, width=16)
+    torch.cuda.synchronize()
+    assert dr.launches["dense_reduce"] == before + 1
+    cpu_specs, cpu_seg = _dense_specs("cpu", n)
+    _same_reductions(got, segment_reduce_many(cpu_specs, cpu_seg, 13,
+                                              width=16))
+
+
+def test_dense_reduce_is_the_same_on_every_run(cuda_device):
+    from ytsaurus_tpu_torch.ops.segments import segment_reduce_many
+    specs, seg = _dense_specs(cuda_device, 7_500_000)
+    first = segment_reduce_many(specs, seg, 13)
+    second = segment_reduce_many(specs, seg, 13)
+    for (a, ac), (b, bc) in zip(first, second):
+        assert torch.equal(a.view(torch.int8), b.view(torch.int8))
+        assert torch.equal(ac, bc)
+
+
+def test_q1_on_the_card_launches_dense_reduce_once_a_group_stage(
+        cuda_device, monkeypatch):
+    """Q1 over 4 chunks: each shard's group stage and the front merge's
+    launch dense_reduce once, and nothing takes the per-segment loop; the
+    rows are the CPU's."""
+    from ytsaurus_tpu_torch.models import tpch
+    from ytsaurus_tpu_torch.ops import dense_reduce as dr
+    from ytsaurus_tpu_torch.ops import segments
+    from ytsaurus_tpu_torch.query.builder import build_query
+    from ytsaurus_tpu_torch.query.coordinator import coordinate_and_execute
+    from ytsaurus_tpu_torch.query.engine import evaluator as ev
+    from ytsaurus_tpu_torch.query.engine import lowering
+    arrays = [tpch.lineitem_arrays(50_000, seed=20 + i) for i in range(4)]
+    plan = build_query(tpch.Q1, {"//tpch/lineitem": tpch.LINEITEM_SCHEMA})
+    stages = []
+    dense_group = lowering._dense_group
+
+    def counted(*args):
+        stages.append(args[1].device.type)
+        return dense_group(*args)
+
+    monkeypatch.setattr(lowering, "_dense_group", counted)
+    want = coordinate_and_execute(
+        plan, [tpch.lineitem_chunk(a, device="cpu") for a in arrays],
+        evaluator=ev.Evaluator("cpu")).to_rows()
+    loop = segments._dense_segment_reduce
+
+    def cpu_only(function, data, *rest):
+        assert data.device.type == "cpu", "a CUDA plane took the loop"
+        return loop(function, data, *rest)
+
+    monkeypatch.setattr(segments, "_dense_segment_reduce", cpu_only)
+    dr.reset_launches()
+    got = coordinate_and_execute(
+        plan, [tpch.lineitem_chunk(a, device=cuda_device) for a in arrays],
+        evaluator=ev.Evaluator(cuda_device)).to_rows()
+    torch.cuda.synchronize()
+    cpu_stages = stages.count("cpu")
+    assert cpu_stages == 5                    # 4 shards and the front
+    assert dr.launches["dense_reduce"] == stages.count("cuda") == cpu_stages
+
+    def key(r):
+        return r["l_returnflag"], r["l_linestatus"]
+    _rows_match(sorted(got, key=key), sorted(want, key=key))
 
 
 # --- the join, window and totals paths on the card ----------------------------

@@ -246,6 +246,32 @@ def test_group_by(query, monkeypatch):
 
 
 @pytest.mark.parametrize("query", [
+    f"b, t, sum(v) AS sv, avg(d) AS ad, min(u) AS lu, max(d) AS hd, "
+    f"count(*) AS n, min(b) AS mb, max(s) AS ms, avg(v) AS av "
+    f"FROM [{T}] GROUP BY b, t",
+    f"t, b, avg(v) AS av, sum(d) AS sd, max(u) AS hu, min(v) AS lv, "
+    f"count(s) AS cs FROM [{T}] WHERE k > 30 GROUP BY t, b "
+    "HAVING count(*) > 3",
+])
+def test_dense_group_by_over_13_segments(query, monkeypatch):
+    """b (2 values) by t (3 words): (2 + 1) * (3 + 1) + 1 = 13 segments, so
+    the dense path, whose counts, sums, mins and maxes (both halves of
+    each avg) reduce in one segment_reduce_many call; the rows are the
+    reference's."""
+    from ytsaurus_tpu_torch.query.engine import lowering
+    calls = []
+    reduce_many = lowering.segment_reduce_many
+
+    def spy(specs, seg, num_segments, **kw):
+        calls.append(num_segments)
+        return reduce_many(specs, seg, num_segments, **kw)
+
+    monkeypatch.setattr(lowering, "segment_reduce_many", spy)
+    rows = _run_both(query, _mixed_table(), monkeypatch)
+    assert calls == [13] and rows
+
+
+@pytest.mark.parametrize("query", [
     f"lower(s) AS x FROM [{T}]",
     f"k FROM [{T}] WHERE s LIKE 'a%'",
     f"transform(v, (1, 2), (10, 20)) AS x FROM [{T}]",

@@ -228,3 +228,132 @@ def test_segment_boundaries():
                                              _t(mask))
     np.testing.assert_array_equal(got_seg.numpy(), np.asarray(want_seg))
     assert int(got_n) == int(want_n)
+
+
+# --- segment_reduce_many: the dense GROUP BY's reductions, all at once ------
+
+
+def _dense_segments(num_segments: int, seed: int) -> np.ndarray:
+    """Unordered ids in [0, num_segments), as the dense GROUP BY's stride
+    arithmetic makes them, and a few past the last segment (no segment)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, num_segments, N)
+    ids[rng.integers(0, N, 20)] = num_segments
+    return ids.astype(np.int64)
+
+
+_REF_TYPES = {"int64": RefType.int64, "float64": RefType.double,
+              "uint64": RefType.uint64, "bool": RefType.boolean}
+
+
+def _many_case(kind: str, num_segments: int, n: int):
+    """(data, seg, [(function, valid)]): every function over one shared
+    validity plane, which leaves one segment all null, and two over a
+    second one."""
+    data, seg = _plane(kind, 100)[:n], _dense_segments(num_segments, 101)[:n]
+    valid, other = _valid(102)[:n], _valid(103)[:n]
+    valid[seg == num_segments // 2] = False
+    fns = ("count", "min", "max") + (() if kind == "bool" else ("sum",))
+    return data, seg, [(fn, valid) for fn in fns] + [("count", other),
+                                                     ("max", other)]
+
+
+@pytest.mark.parametrize("n", [N, 0])
+@pytest.mark.parametrize("num_segments", [1, 2, 13, 16])
+@pytest.mark.parametrize("kind", ["int64", "float64", "uint64", "bool"])
+def test_segment_reduce_many(kind, num_segments, n):
+    """The plain version (the CPU's) against the reference's
+    segment_aggregate of each spec: values, validity and counts."""
+    data, seg, items = _many_case(kind, num_segments, n)
+    value_type = EValueType(_REF_TYPES[kind].value)
+    planes = {id(v): _t(v) for _, v in items}      # one tensor a plane
+    specs = []
+    for fn, v in items:
+        d = None if fn == "count" else _t(data)
+        if fn in ("min", "max"):
+            d = port.min_max_plane(d, value_type)
+        specs.append((fn, d, planes[id(v)]))
+    got = port.segment_reduce_many(specs, _t(seg), num_segments)
+    if n == 0:
+        # The reference refuses an empty plane; one null row gives the
+        # same segments, every one empty.
+        data, seg = _plane(kind, 100)[:1], np.zeros(1, dtype=np.int64)
+        items = [(fn, np.zeros(1, dtype=bool)) for fn, _ in items]
+    for (fn, v), (value, count) in zip(items, got):
+        want, want_v = ref.segment_aggregate(
+            fn, jnp.asarray(data), jnp.asarray(v), jnp.asarray(seg),
+            num_segments, _REF_TYPES[kind])
+        want_count, _ = ref.segment_aggregate(
+            "count", jnp.asarray(data), jnp.asarray(v), jnp.asarray(seg),
+            num_segments, _REF_TYPES[kind])
+        np.testing.assert_array_equal(count.numpy(), np.asarray(want_count))
+        if fn in ("min", "max"):
+            value = port.min_max_result(value, value_type)
+        if fn != "count":
+            np.testing.assert_array_equal((count > 0).numpy(),
+                                          np.asarray(want_v))
+        got_v, want = value.numpy(), np.asarray(want)
+        if kind == "uint64" and fn != "count":
+            got_v = got_v.view(np.uint64)
+        if got_v.dtype.kind == "f":
+            np.testing.assert_allclose(got_v, want, rtol=1e-9,
+                                       equal_nan=True)
+        else:
+            np.testing.assert_array_equal(got_v, want)
+    if n:
+        assert int(got[0][1][num_segments // 2]) == 0     # all null
+
+
+def _fake_dense_reduce(jobs, seg_ids, num_segments, width):
+    """`dense_reduce`'s contract in plain torch (its results as int64 bit
+    patterns, zero past the last segment), so that the kernel route's
+    widening and casts run here."""
+    n = seg_ids.shape[0]
+    rows = []
+    for function, data, valid, neutral in jobs:
+        valid = valid.expand(n)
+        if function == "count":
+            function, data = "sum", valid.to(torch.int64)
+        masked = torch.where(valid, data.expand(n),
+                             torch.tensor(neutral, dtype=data.dtype))
+        out = port._dense_segment_reduce(function, masked, seg_ids,
+                                         num_segments)
+        rows.append(torch.cat([out.view(torch.int64),
+                               out.new_zeros(width - num_segments,
+                                             dtype=torch.int64)]))
+    return torch.stack(rows)
+
+
+@pytest.mark.parametrize("kind", ["int64", "float64", "uint64", "bool",
+                                  "int32", "float32"])
+def test_kernel_route_assembles_what_the_plain_version_gives(kind,
+                                                             monkeypatch):
+    """The card's route (widened planes, one result table padded to a
+    width, casts back, a shared count) gives the plain version's planes,
+    dtypes and all."""
+    data = _t(_plane(kind, 110))
+    seg, num_segments = _t(_dense_segments(13, 111)), 13
+    valid, other = _t(_valid(112)), _t(_valid(113))
+    mm = data.to(torch.int8) if kind == "bool" else data
+    specs = [("count", None, valid), ("sum", data, valid),
+             ("min", mm, valid), ("max", mm, other), ("count", None, other),
+             ("sum", data[:1], other)]               # a broadcast value
+    monkeypatch.setattr(port, "dense_reduce", _fake_dense_reduce)
+    got = port._reduce_many_kernel(specs, seg, num_segments, 16)
+    want = port.segment_reduce_many(specs, seg, num_segments, width=16)
+    for (g, gc), (w, wc) in zip(got, want):
+        assert g.dtype == w.dtype and gc.dtype == wc.dtype == torch.int64
+        if g.is_floating_point() and kind == "float32":
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=0,
+                                       equal_nan=True)
+        else:
+            assert torch.equal(g, w) or torch.allclose(
+                g, w, rtol=1e-12, atol=0, equal_nan=True)
+        assert torch.equal(gc, wc)
+
+
+def test_dense_reduce_takes_only_a_cuda_tensor():
+    from ytsaurus_tpu_torch.errors import YtError
+    seg = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(YtError, match="CUDA"):
+        port.dense_reduce([("count", None, seg > 0, 0)], seg, 1)

@@ -15,6 +15,15 @@ Differences from the reference, all of them forced by torch:
   * uint64 columns are int64 bit patterns, so the functions whose result
     depends on unsigned order take an explicit `unsigned` flag (the
     reference reads it off the dtype).
+  * Reductions over at most 16 segments: on the CPU a masked full
+    reduction per segment (`_dense_segment_reduce`). On the card the
+    dense GROUP BY hands every reduction of its stage to
+    `segment_reduce_many` at once, which launches the hand-written
+    `csrc/dense_reduce.cu` (`ops/dense_reduce.py`): one pass over the
+    rows for all the stage's planes and segments, then a fold in block
+    order, two kernels a stage. It never falls back to the loop; its
+    float sums add in a fixed order of its own, so they agree with the
+    reference to a relative tolerance and are the same on every run.
   * Reductions over more than 16 segments use torch's scatter ops
     (`index_add_`, `scatter_reduce_`), the JAX package's CPU engine. On
     CUDA these add floats with atomics in no fixed order, so double sums
@@ -39,6 +48,7 @@ from __future__ import annotations
 
 import torch
 
+from ytsaurus_tpu_torch.ops.dense_reduce import dense_reduce
 from ytsaurus_tpu_torch.ops.radix import radix_argsort_u32
 from ytsaurus_tpu_torch.schema import EValueType
 
@@ -107,6 +117,9 @@ def _dense_segment_reduce(function: str, data: torch.Tensor,
         reduce = torch.amin if function == "min" else torch.amax
     else:
         raise ValueError(function)
+    if data.shape[0] == 0:            # torch.amin refuses an empty plane
+        return torch.full((num_segments,), fill, dtype=data.dtype,
+                          device=data.device)
     outs = [reduce(torch.where(seg_ids == s, data, fill)).to(data.dtype)
             for s in range(num_segments)]
     if not outs:
@@ -156,37 +169,142 @@ def _segment_reduce(function: str, data: torch.Tensor, seg_ids: torch.Tensor,
                                    live)
 
 
+def segment_reduce_many(specs, seg_ids: torch.Tensor, num_segments: int,
+                        width: "int | None" = None
+                        ) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Several reductions over one set of segment ids. A spec is
+    (function, data, valid): "sum", "min" or "max" of `data` over the rows
+    where `valid` is true, or "count" (data None) of those rows. Returns,
+    per spec, (value, count): the per-segment value in `segment_aggregate`'s
+    dtype (int64 for a sum of booleans; for "count" the count itself) and
+    the per-segment count of valid rows, int64. A segment with no valid row
+    holds the reduction's neutral value. Specs whose `valid` is the same
+    tensor share one count. Each plane has `width` entries (num_segments
+    by default), zero past the last segment.
+
+    On a CUDA tensor with at most 16 segments this is one call of the
+    `dense_reduce` kernels (one more for each further 64 reductions) and
+    never the loop; otherwise the plain version, each reduction as
+    `segment_aggregate` runs it."""
+    width = num_segments if width is None else width
+    if seg_ids.device.type == "cuda" and \
+            num_segments <= _DENSE_SEGMENT_LIMIT:
+        return _reduce_many_kernel(specs, seg_ids, num_segments, width)
+    return _reduce_many_plain(specs, seg_ids, num_segments, width)
+
+
+def _reduce_many_plain(specs, seg_ids, num_segments, width):
+    """segment_reduce_many as `segment_aggregate` runs each reduction, on
+    any device: the kernel's plain version."""
+    def pad(plane):
+        return torch.cat([plane, plane.new_zeros(width - num_segments)])
+
+    counts: dict = {}
+    out = []
+    for function, data, valid in specs:
+        if id(valid) not in counts:
+            counts[id(valid)] = pad(_masked_reduce("count", None, valid,
+                                                   seg_ids, num_segments))
+        count = counts[id(valid)]
+        value = count if function == "count" else pad(_masked_reduce(
+            function, data, valid, seg_ids, num_segments))
+        out.append((value, count))
+    return out
+
+
+def _masked_reduce(function: str, data, valid: torch.Tensor,
+                   seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Per segment, the "count" of the rows where `valid` is true (data
+    unused) or the "sum", "min" or "max" of `data` over them; a segment
+    with none holds the reduction's neutral value."""
+    if function == "count":
+        return _segment_reduce("sum", valid.to(torch.int64), seg_ids,
+                               num_segments, valid)
+    if function == "sum":
+        fill = 0
+    elif function in ("min", "max"):
+        fill = _reduce_neutral(data.dtype, function)
+    else:
+        raise ValueError(function)
+    return _segment_reduce(function, torch.where(valid, data, fill),
+                           seg_ids, num_segments, valid)
+
+
+def _reduce_many_kernel(specs, seg_ids, num_segments, width):
+    """segment_reduce_many through `dense_reduce`: planes narrower than 64
+    bits are widened for the kernel and its results cast back."""
+    jobs: list = []
+    count_job: dict = {}
+    where = []                        # (value's job, count's job, dtype)
+    for function, data, valid in specs:
+        if id(valid) not in count_job:
+            count_job[id(valid)] = len(jobs)
+            jobs.append(("count", None, valid, 0))
+        if function == "count":
+            where.append((count_job[id(valid)], count_job[id(valid)],
+                          torch.int64))
+            continue
+        if function not in ("sum", "min", "max"):
+            raise ValueError(function)
+        # The dtype of torch.where(valid, data, 0) for a sum.
+        dtype = torch.int64 if function == "sum" and \
+            data.dtype == torch.bool else data.dtype
+        wide = torch.float64 if dtype.is_floating_point else torch.int64
+        neutral = 0 if function == "sum" else _reduce_neutral(dtype,
+                                                              function)
+        where.append((len(jobs), count_job[id(valid)], dtype))
+        jobs.append((function, data if data.dtype == wide else data.to(wide),
+                     valid, neutral))
+    res = dense_reduce(jobs, seg_ids, num_segments, width)
+    out = []
+    for value_job, count_of, dtype in where:
+        value = res[value_job]
+        if dtype.is_floating_point:
+            value = value.view(torch.float64)
+        if value.dtype != dtype:
+            value = value.to(dtype)
+        out.append((value, res[count_of]))
+    return out
+
+
+def min_max_plane(data: torch.Tensor, value_type: EValueType
+                  ) -> torch.Tensor:
+    """A plane as min / max reduce it: booleans as int8, uint64 bit
+    patterns with the sign bit flipped (unsigned order as signed order)."""
+    if data.dtype == torch.bool:
+        data = data.to(torch.int8)
+    if value_type is EValueType.uint64:
+        data = data ^ _SIGN64
+    return data
+
+
+def min_max_result(out: torch.Tensor, value_type: EValueType
+                   ) -> torch.Tensor:
+    """The inverse of `min_max_plane` on the reduced values."""
+    if value_type is EValueType.uint64:
+        out = out ^ _SIGN64
+    if value_type is EValueType.boolean:
+        out = out.to(torch.bool)
+    return out
+
+
 def segment_aggregate(function: str, data: torch.Tensor, valid: torch.Tensor,
                       seg_ids: torch.Tensor, num_segments: int,
                       value_type: EValueType
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Aggregate `data` per segment, skipping nulls. Returns (out, out_valid)
     planes of length num_segments."""
-    count = _segment_reduce("sum", valid.to(torch.int64), seg_ids,
-                            num_segments, valid)
+    count = _masked_reduce("count", None, valid, seg_ids, num_segments)
     any_valid = count > 0
     if function == "count":
         return count, torch.ones_like(any_valid)
     if function == "sum":
-        masked = torch.where(valid, data, 0)
-        return _segment_reduce("sum", masked, seg_ids, num_segments,
-                               valid), \
+        return _masked_reduce("sum", data, valid, seg_ids, num_segments), \
             any_valid
     if function in ("min", "max"):
-        if data.dtype == torch.bool:
-            data = data.to(torch.int8)
-        unsigned = value_type is EValueType.uint64
-        if unsigned:
-            data = data ^ _SIGN64          # unsigned order as signed order
-        masked = torch.where(valid, data,
-                             _reduce_neutral(data.dtype, function))
-        out = _segment_reduce(function, masked, seg_ids, num_segments,
-                              valid)
-        if unsigned:
-            out = out ^ _SIGN64
-        if value_type is EValueType.boolean:
-            out = out.to(torch.bool)
-        return out, any_valid
+        out = _masked_reduce(function, min_max_plane(data, value_type),
+                             valid, seg_ids, num_segments)
+        return min_max_result(out, value_type), any_valid
     if function == "first":
         first_idx = _segment_first_index(valid, seg_ids, num_segments)
         return data[first_idx], any_valid

@@ -40,11 +40,14 @@ from ytsaurus_tpu_torch.errors import EErrorCode, YtError
 from ytsaurus_tpu_torch.ops.segments import (
     compact_mask,
     hash_group_order,
+    min_max_plane,
+    min_max_result,
     packed_sort_indices,
     segment_aggregate,
     segment_arg_by,
     segment_boundaries,
     segment_distinct_count,
+    segment_reduce_many,
     sort_key_planes,
 )
 from ytsaurus_tpu_torch.query import ir
@@ -409,12 +412,46 @@ def _dense_group(ctx, mask, fast_group, group_key_b, agg_arg_b, emit_ctx):
         seg = seg + code * stride
     seg = torch.where(mask, seg, torch.full_like(seg, dims))
 
-    present_counts, _ = segment_aggregate("count", mask, mask, seg, nseg,
-                                          EValueType.int64)
-    present = _pad((torch.arange(nseg, device=device) < dims)
-                   & (present_counts > 0))
-    new_columns: dict = {}
+    # Every count, sum, min and max of the stage (both halves of an avg)
+    # reduces in one segment_reduce_many call, its planes already padded
+    # to seg_cap with zeros; `finish` turns each result into the planes
+    # segment_aggregate gives, padded.
     slot = torch.arange(seg_cap, dtype=torch.int64, device=device)
+    in_range = slot < nseg
+    specs = [("count", None, mask)]
+    finish: dict = {}
+    masked_valid: dict = {}           # id(arg's valid plane) -> valid & mask
+
+    def collect(agg, arg):
+        data, valid = arg.emit(ctx)
+        if id(valid) not in masked_valid:
+            masked_valid[id(valid)] = (valid, valid & mask)
+        valid = masked_valid[id(valid)][1]
+        first = len(specs)
+        if agg.function == "avg":
+            specs.append(("sum", cast_plane(data, arg.type,
+                                            EValueType.double), valid))
+            return lambda r: (r[first][0] / torch.clamp(r[first][1], min=1),
+                              r[first][1] > 0)
+        if agg.function == "count":
+            specs.append(("count", None, valid))
+            return lambda r: (r[first][0], in_range)
+        if agg.function == "sum":
+            specs.append(("sum", data, valid))
+            return lambda r: (r[first][0], r[first][1] > 0)
+        specs.append((agg.function, min_max_plane(data, agg.type), valid))
+        if agg.type is EValueType.uint64:     # the flip leaves pads nonzero
+            return lambda r: (torch.where(in_range, min_max_result(
+                r[first][0], agg.type), 0), r[first][1] > 0)
+        return lambda r: (min_max_result(r[first][0], agg.type),
+                          r[first][1] > 0)
+
+    for agg, arg, by_arg in agg_arg_b:
+        if agg.function in ("avg", "count", "sum", "min", "max"):
+            finish[agg.name] = collect(agg, arg)
+    reduced = segment_reduce_many(specs, seg, nseg, width=seg_cap)
+    present = (slot < dims) & (reduced[0][0] > 0)
+    new_columns: dict = {}
     for (name, bound), (size, key_offset), stride in zip(
             group_key_b, sizes_offsets, strides):
         code = (slot // stride) % (size + 1)
@@ -430,8 +467,9 @@ def _dense_group(ctx, mask, fast_group, group_key_b, agg_arg_b, emit_ctx):
             data = data.to(torch.int32)
         new_columns[name] = (data, key_valid)
     for agg, arg, by_arg in agg_arg_b:
-        new_columns[agg.name] = tuple(_pad(p) for p in _aggregate(
-            ctx, agg, arg, by_arg, mask, None, seg, nseg))
+        new_columns[agg.name] = finish[agg.name](reduced) \
+            if agg.name in finish else tuple(_pad(p) for p in _aggregate(
+                ctx, agg, arg, by_arg, mask, None, seg, nseg))
     return present, emit_ctx(new_columns, seg_cap), seg_cap
 
 
