@@ -20,7 +20,11 @@ from ytsaurus_tpu_torch.config import ServingConfig, TracingConfig
 from ytsaurus_tpu_torch.query.builder import build_query
 from ytsaurus_tpu_torch.query.coordinator import coordinate_and_execute
 from ytsaurus_tpu_torch.query.engine.evaluator import Evaluator
-from ytsaurus_tpu_torch.query.statistics import STAGE_FIELDS, QueryStatistics
+from ytsaurus_tpu_torch.query.statistics import (
+    MISS_FIELDS,
+    STAGE_FIELDS,
+    QueryStatistics,
+)
 from ytsaurus_tpu_torch.query.workload import get_workload_log
 from ytsaurus_tpu_torch.schema import TableSchema
 from ytsaurus_tpu_torch.utils import tracing
@@ -106,6 +110,7 @@ def test_stage_fields_split_the_wall(stage_client, query):
     assert (stats["join_time"] > 0) == ("JOIN" in query)
     record = get_workload_log().records()[-1]
     assert record.stages == {**split, "host_cpu_time": stats["host_cpu_time"],
+                             **{f: stats[f] for f in MISS_FIELDS},
                              "wall_time": profile.wall_time}
 
 

@@ -22,9 +22,11 @@ Checksums are CRC-64 through the native library (`native/`).
 Differences from the reference: a plane is read to the host with one
 device → host copy per plane; `deserialize_chunk(..., device=)` decodes
 each column into a padded numpy plane, then makes one host → device copy
-per plane onto `device` (default "cuda"; without a card it raises). The
-host seconds of the two steps are summed apart in the `chunks/decode`
-sensors (`decode_seconds`, `copy_seconds`, `bytes_copied`, `chunks`).
+per plane onto `device` (default "cuda"; without a card it raises),
+timed to the copies' end on the device. The host seconds of the two
+steps are summed apart in the `chunks/decode` sensors (`decode_seconds`,
+`copy_seconds`, `bytes_copied`, `chunks`) and, given a query's
+statistics, in its `decode_time`, `copy_time` and `bytes_staged`.
 The columns are encoded (statistics, varints, compression, checksums) and
 decoded on a small shared thread pool, one task per column: zlib, numpy
 and the codec library release the interpreter lock, so a chunk of many
@@ -60,6 +62,7 @@ from ytsaurus_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from ytsaurus_tpu_torch.errors import EErrorCode, YtError
 from ytsaurus_tpu_torch.schema import EValueType, TableSchema, VectorType
 from ytsaurus_tpu_torch.utils.profiling import Profiler
+from ytsaurus_tpu_torch.utils.tracing import stage
 from ytsaurus_tpu_torch.utils.varint import (
     encode_varint_u as _encode_varint_u,
     read_varint_u as _decode_varint_u,
@@ -290,13 +293,11 @@ def read_chunk_meta(blob: bytes) -> dict:
     return meta
 
 
-def deserialize_chunk(blob: bytes,
-                      capacity: Optional[int] = None,
-                      hunk_store=None,
-                      device: "str | torch.device" = DEFAULT_DEVICE
-                      ) -> ColumnarChunk:
-    dev = resolve_device(device)
-    t0 = time.perf_counter()
+def _decode_host(blob: bytes, capacity: Optional[int], hunk_store
+                 ) -> tuple:
+    """(schema, row count, [(name, type, padded plane, padded validity,
+    vocabulary, `any` payloads)] in the blob's column order): every block
+    inflated, checked and decoded on the codec pool."""
     meta = read_chunk_meta(blob)
     _, decompress = get_codec(meta["codec"])
     start = meta["_data_start"]
@@ -347,21 +348,43 @@ def deserialize_chunk(blob: bytes,
         return name, ty, full, full_valid, dictionary, host_values
 
     try:
-        host = _map(decode, list(meta["columns"]))
+        return schema, n, _map(decode, list(meta["columns"]))
     except (ValueError, IndexError, KeyError) as e:
         raise YtError(f"Chunk decode failed: {e}",
                       code=EErrorCode.ChunkFormatError)
-    t1 = time.perf_counter()
-    columns: dict[str, Column] = {}
-    copied = 0
-    for name, ty, full, full_valid, dictionary, host_values in host:
-        columns[name] = Column(
-            type=ty, data=torch.from_numpy(full).to(dev),
-            valid=torch.from_numpy(full_valid).to(dev),
-            dictionary=dictionary, host_values=host_values)
-        copied += full.nbytes + full_valid.nbytes
+
+
+def deserialize_chunk(blob: bytes,
+                      capacity: Optional[int] = None,
+                      hunk_store=None,
+                      device: "str | torch.device" = DEFAULT_DEVICE,
+                      stats=None) -> ColumnarChunk:
+    """The blob's chunk on `device`: decoded into host planes (the
+    `chunk.decode` span and profiler range), then copied plane by plane
+    (`chunk.copy`), the copy timed to its end on the device. `stats` (a
+    QueryStatistics) gets the two phases' seconds and the bytes copied."""
+    dev = resolve_device(device)
+    with stage(None, None, "chunk.decode"):
+        t0 = time.perf_counter()
+        schema, n, host = _decode_host(blob, capacity, hunk_store)
+        t1 = time.perf_counter()
+    with stage(None, None, "chunk.copy"):
+        columns: dict[str, Column] = {}
+        copied = 0
+        for name, ty, full, full_valid, dictionary, host_values in host:
+            columns[name] = Column(
+                type=ty, data=torch.from_numpy(full).to(dev),
+                valid=torch.from_numpy(full_valid).to(dev),
+                dictionary=dictionary, host_values=host_values)
+            copied += full.nbytes + full_valid.nbytes
+        if dev.type == "cuda":
+            torch.cuda.current_stream(dev).synchronize()
+        t2 = time.perf_counter()
     _DECODE_SECONDS.increment(t1 - t0)
-    _COPY_SECONDS.increment(time.perf_counter() - t1)
+    _COPY_SECONDS.increment(t2 - t1)
     _BYTES_COPIED.increment(copied)
     _CHUNKS.increment()
+    if stats is not None:
+        stats.add_miss_path(decode_time=t1 - t0, copy_time=t2 - t1,
+                            bytes_staged=copied)
     return ColumnarChunk(schema=schema, row_count=n, columns=columns)

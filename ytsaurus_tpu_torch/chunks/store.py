@@ -58,7 +58,11 @@ from ytsaurus_tpu_torch.device import DEFAULT_DEVICE, resolve_device
 from ytsaurus_tpu_torch.errors import EErrorCode, YtError
 from ytsaurus_tpu_torch.utils import failpoints, sanitizers
 from ytsaurus_tpu_torch.utils.profiling import Profiler
-from ytsaurus_tpu_torch.utils.tracing import child_span
+from ytsaurus_tpu_torch.utils.tracing import (
+    child_span,
+    stage,
+    staging_statistics,
+)
 
 # Fault sites on every disk boundary: disk-shaped failures are OSErrors
 # so the read ladders above this layer treat injected faults exactly like
@@ -207,11 +211,19 @@ class FsChunkStore:
     def read_chunk(self, chunk_id: str,
                    device: "str | torch.device" = DEFAULT_DEVICE
                    ) -> ColumnarChunk:
-        with child_span("chunk.read", chunk_id=chunk_id,
-                        location=self.root):
+        """The chunk decoded onto `device`, under the `chunk.read` span and
+        profiler range. Inside `staging_for(stats)` the blob read's
+        seconds, and the decode's and the copy's, add to `stats`."""
+        stats = staging_statistics()
+        with stage(None, None, "chunk.read", chunk_id=chunk_id,
+                   location=self.root):
             _FP_DECODE.hit()
-            return deserialize_chunk(self._read_blob(chunk_id),
-                                     hunk_store=self, device=device)
+            t0 = time.perf_counter()
+            blob = self._read_blob(chunk_id)
+            if stats is not None:
+                stats.add_miss_path(chunk_read_time=time.perf_counter() - t0)
+            return deserialize_chunk(blob, hunk_store=self, device=device,
+                                     stats=stats)
 
     def read_meta(self, chunk_id: str) -> dict:
         return read_chunk_meta(self._read_blob(chunk_id))
@@ -427,7 +439,13 @@ class ChunkCache:
 
     Holding a decoded chunk pins its planes on the device, so the budget
     bounds the device memory spent on cached table data. Every chunk is
-    decoded onto the cache's device."""
+    decoded onto the cache's device.
+
+    Counters: `hits`, `misses`, `evictions` (entries dropped for room)
+    and `duplicate_misses` (misses on a chunk that another thread was
+    reading and decoding then: both decode it). A miss inside
+    `utils.tracing.staging_for(stats)` also adds to the query's
+    `chunk_misses` and `duplicate_misses`; a hit costs what it did."""
 
     def __init__(self, store: FsChunkStore, capacity_bytes: int = 2 << 30,
                  device: "str | torch.device" = DEFAULT_DEVICE):
@@ -438,10 +456,13 @@ class ChunkCache:
             OrderedDict()
         self._pinned: set[str] = set()
         self._used = 0
-        # guards: _entries, _pinned, _used, hits, misses
+        self._loading: dict[str, int] = {}      # chunk id -> reads under way
+        # guards: _entries, _pinned, _used, _loading and the counters
         self._lock = sanitizers.register_lock("chunks.ChunkCache._lock")
         self.hits = 0
         self.misses = 0
+        self.evictions = 0
+        self.duplicate_misses = 0
 
     @staticmethod
     def _chunk_bytes(chunk: ColumnarChunk) -> int:
@@ -458,15 +479,33 @@ class ChunkCache:
                 self._entries.move_to_end(chunk_id)
                 self.hits += 1
                 return entry[0]
-        chunk = self.store.read_chunk(chunk_id, device=self.device)
+            duplicate = chunk_id in self._loading
+            self._loading[chunk_id] = self._loading.get(chunk_id, 0) + 1
+        try:
+            chunk = self.store.read_chunk(chunk_id, device=self.device)
+        except BaseException:
+            with self._lock:
+                self._loaded_locked(chunk_id)
+            raise
         size = self._chunk_bytes(chunk)
         with self._lock:
+            self._loaded_locked(chunk_id)
             self.misses += 1
+            self.duplicate_misses += duplicate
             if chunk_id not in self._entries:
                 self._entries[chunk_id] = (chunk, size)
                 self._used += size
                 self._evict_locked()
+        stats = staging_statistics()
+        if stats is not None:
+            stats.add_miss_path(chunk_misses=1,
+                                duplicate_misses=int(duplicate))
         return chunk
+
+    def _loaded_locked(self, chunk_id: str) -> None:
+        left = self._loading.pop(chunk_id) - 1
+        if left:
+            self._loading[chunk_id] = left
 
     def _evict_locked(self) -> None:
         # Pinned entries (in-memory mode tables) never evict.  The newest
@@ -479,6 +518,7 @@ class ChunkCache:
             i += 1
             _, size = self._entries.pop(victim)
             self._used -= size
+            self.evictions += 1
 
     def pin(self, chunk_id: str) -> None:
         """Keep this chunk's decoded planes resident (ref in_memory_manager

@@ -1472,19 +1472,23 @@ class YtClient:
                           token, stats, params=None) -> list[dict]:
         """The select itself, its stages timed into `stats`
         (query/statistics.py): parse, stage, the coordinator's (compile,
-        join, dispatch, device wait), to_rows."""
-        from ytsaurus_tpu_torch.utils.tracing import stage
+        join, dispatch, device wait), to_rows. Chunk cache misses while
+        staging, on this thread or on the prefetch threads (which run in
+        a copy of its context), add to its MISS_FIELDS."""
+        from ytsaurus_tpu_torch.utils.tracing import stage, staging_for
         self.last_query_statistics = stats   # visible even if the query fails
         with stage(stats, "parse_time", "query.parse"):
             plan, intervals = self._parse_select(query, params)
-        with stage(stats, "stage_time", "query.stage"):
-            source_chunks, range_ordered_by, foreign = self._stage_select(
-                plan, intervals, timestamp, token, stats)
-        out = coordinate_and_execute(plan, source_chunks, foreign,
-                                     evaluator=self.cluster.evaluator,
-                                     merge_shards_below=4_000_000,
-                                     range_ordered_by=range_ordered_by,
-                                     stats=stats, token=token)
+        with staging_for(stats):
+            with stage(stats, "stage_time", "query.stage"):
+                source_chunks, range_ordered_by, foreign = \
+                    self._stage_select(plan, intervals, timestamp, token,
+                                       stats)
+            out = coordinate_and_execute(plan, source_chunks, foreign,
+                                         evaluator=self.cluster.evaluator,
+                                         merge_shards_below=4_000_000,
+                                         range_ordered_by=range_ordered_by,
+                                         stats=stats, token=token)
         if token is not None and token.rung:
             # Tag the degraded response (brown-out ladder): the rung and
             # the actual staleness served land in the query statistics,

@@ -99,9 +99,11 @@ def _retry_transient(fn, site: "Optional[failpoints.FailpointSite]" = None,
 
 def _wrap_lazy_shard(shard, token=None, index: Optional[int] = None,
                      stats=None):
-    """Lazy shards retry their own staging. The caller's trace context is
+    """Lazy shards retry their own staging. The caller's context is
     captured: staging runs on prefetch threads, whose context would be
-    empty. Their `stage_time` is the query thread's wait for them
+    empty; with it go the trace and the query whose miss-path fields a
+    chunk cache miss there adds to (`utils.tracing.staging_for`). Their
+    `stage_time` is the query thread's wait for them
     (`_PrefetchScanner.get`), not the prefetch threads' seconds."""
     if not callable(shard):
         return shard

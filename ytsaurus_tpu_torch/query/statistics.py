@@ -19,16 +19,31 @@ The port adds the split of a query's wall time where the work happens
 one of them, and what none covers is left over. `host_cpu_time` is the
 CPU seconds of the query's own thread, less those spent waiting on the
 device: a counter beside the wall, not a part of it.
+
+MISS_FIELDS carry the chunk cache's miss path (chunks/store.py,
+chunks/encoding.py) to the query that missed: blob read, decode and
+copy seconds, misses, duplicate misses and bytes copied to the device,
+summed over every thread that stages for the query (its own, the
+prefetch threads). They are counters too: seconds on other threads
+overlap the query thread's `stage_time`.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field, fields
 
 # The self-time fields, in the order a query meets them.
 STAGE_FIELDS = ("admission_wait", "parse_time", "stage_time", "compile_time",
                 "join_time", "dispatch_time", "device_wait", "to_rows_time")
+# The miss-path counters, in the order a miss meets them.
+MISS_FIELDS = ("chunk_misses", "duplicate_misses", "chunk_read_time",
+               "decode_time", "copy_time", "bytes_staged")
+
+# Guards the MISS_FIELDS of every QueryStatistics: staging threads of one
+# query add to them at once. Taken only on a chunk cache miss.
+_MISS_LOCK = threading.Lock()
 
 
 @dataclass
@@ -49,6 +64,13 @@ class QueryStatistics:
     device_wait: float = 0.0         # blocked on the row-count reads
     to_rows_time: float = 0.0        # the result chunk to rows
     host_cpu_time: float = 0.0       # the query thread's CPU seconds
+    chunk_misses: int = 0            # chunk cache misses staging the query
+    duplicate_misses: int = 0        # of those, on a chunk another thread
+                                     # was reading and decoding
+    chunk_read_time: float = 0.0     # the missed chunks' blob reads
+    decode_time: float = 0.0         # their blocks into host planes
+    copy_time: float = 0.0           # the planes onto the device, to the end
+    bytes_staged: int = 0            # bytes copied onto the device
     shards_total: int = 0
     shards_pruned: int = 0
     shards_skipped: int = 0          # LIMIT early-exit left these unread
@@ -118,6 +140,12 @@ class QueryStatistics:
         if self._execute_from is not None:
             self.execute_time = (time.perf_counter() - self._execute_from -
                                  (self.compile_time - self._execute_compile0))
+
+    def add_miss_path(self, **amounts) -> None:
+        """Add to MISS_FIELDS from any thread staging for this query."""
+        with _MISS_LOCK:
+            for name, amount in amounts.items():
+                setattr(self, name, getattr(self, name) + amount)
 
     def note_mesh_block(self, block: dict) -> None:
         """Fold one mesh telemetry block (whole_plan._mesh_block shape)

@@ -14,7 +14,8 @@ planning and regression hunting replay against staging clusters):
                             ok/error/throttled/deadline, trace id;
   stages                    a select's wall split where the work
                             happened (query/statistics.py STAGE_FIELDS,
-                            host_cpu_time, wall_time), in seconds.
+                            host_cpu_time, wall_time), in seconds, and
+                            its chunk cache miss path (MISS_FIELDS).
 
 The log is sampled and bounded in memory (`config.WorkloadConfig`) with
 an optional rotated on-disk JSONL tier, and exported/imported as a
@@ -37,7 +38,7 @@ from typing import Optional, Sequence
 
 from ytsaurus_tpu_torch.errors import EErrorCode, YtError
 from ytsaurus_tpu_torch.query.parameterize import hoist_literals
-from ytsaurus_tpu_torch.query.statistics import STAGE_FIELDS
+from ytsaurus_tpu_torch.query.statistics import MISS_FIELDS, STAGE_FIELDS
 from ytsaurus_tpu_torch.utils.profiling import Profiler
 from ytsaurus_tpu_torch.utils import sanitizers
 
@@ -156,8 +157,8 @@ class WorkloadRecord:
         # the per-fingerprint roll-up of this is what tells an
         # operator WHICH workload shapes the planner misestimates.
         self.join_est_error = float(join_est_error)
-        # {field: seconds}; empty for a lookup, and in records of
-        # captures that predate it.
+        # {field: seconds, or a count of MISS_FIELDS}; empty for a
+        # lookup, and in records of captures that predate it.
         self.stages = {_decode(k): float(v)
                        for k, v in (stages or {}).items()}
 
@@ -327,7 +328,8 @@ class WorkloadLog:
             execution_tier=stats_dict.get("execution_tier", "compiled"),
             join_est_error=join_est_error,
             stages={**{f: stats_dict[f] for f in
-                       (*STAGE_FIELDS, "host_cpu_time") if f in stats_dict},
+                       (*STAGE_FIELDS, "host_cpu_time", *MISS_FIELDS)
+                       if f in stats_dict},
                     "wall_time": wall_time or 0.0})
         return self.observe(record, presampled=True)
 

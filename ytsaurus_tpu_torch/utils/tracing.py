@@ -26,6 +26,9 @@ Span-site discipline (what keeps an untraced hot path ~free):
                           torch.profiler range of the same name while a
                           profiler session is live, so that the device
                           trace shows which stage the host was in.
+  staging_for(stats)      the query whose statistics a chunk cache miss
+                          on this thread (and on threads that copy its
+                          context) charges: `staging_statistics()`.
 
 `span_tree(trace_id)` nests one trace's spans, `trace_summaries()` lists
 the retained traces.
@@ -38,6 +41,7 @@ import itertools
 import os
 import random
 import time
+from contextlib import contextmanager
 from typing import Any, Optional
 
 from torch.autograd import profiler as _autograd_profiler
@@ -464,3 +468,26 @@ class stage:
             self._range.__exit__(exc_type, exc, tb)
         self._span.__exit__(exc_type, exc, tb)
         return False
+
+
+# The QueryStatistics that chunk staging on this thread adds its miss
+# path to (chunks/store.py, chunks/encoding.py). A context variable, so
+# that the prefetch threads, which run in a copy of the query's context,
+# charge the same query.
+_staging: contextvars.ContextVar = contextvars.ContextVar(
+    "staging_statistics", default=None)
+
+
+@contextmanager
+def staging_for(stats):
+    """Chunk cache misses inside the block add to `stats`' MISS_FIELDS."""
+    token = _staging.set(stats)
+    try:
+        yield
+    finally:
+        _staging.reset(token)
+
+
+def staging_statistics():
+    """The statistics set by the innermost `staging_for`, or None."""
+    return _staging.get()
